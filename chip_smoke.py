@@ -9,8 +9,11 @@ line each (a failed check exits non-zero before the last line):
 1. the card (``nvidia-smi`` name and power limit) and the kernel build
    (nvcc, sm_90a, from ``speechclip_tpu_torch/csrc``);
 2. each hand-written kernel against its plain PyTorch version on the card,
-   at the main path's shapes (HuBERT-base layers: B=64, T=319, H=12;
-   branch layer: T=320, H=8, Dh=96), with the error, the tolerance and
+   at the shapes its paths give it (HuBERT-base layers: B=64, T=319, H=12;
+   branch layer: T=320, H=8, Dh=96; ``mha_layer_block`` also at T=600 and
+   at its gate's largest T=782; ``attention_vmem`` at the 17 s shapes and a
+   causal one; ``flash_attention`` at the flash-backend shape, a 17 s shape
+   and the causal CLIP-text shape), with the error, the tolerance and
    median CUDA-event times of kernel and plain;
 3. the main path at full SpeechCLIP-base width from the port's seeded random
    init: ``encode_speech`` on 64 utterances of 6.4 s, then ``retrieve`` top-10
@@ -18,11 +21,28 @@ line each (a failed check exits non-zero before the last line):
    times in that forward, and the features must agree with the all-plain
    path on the card;
 4. encode + retrieve throughput at one batch (256 utterances if it fits) on
-   the kernel path and the plain path.
+   the kernel path and the plain path;
+5. the long-utterance paths: 16 buffers of 272000 samples (17 s, T=849:
+   13 ``attention_vmem`` launches, no fused kernel) and of 192000 samples
+   (12 s, T=599: 13 ``mha_layer_block`` launches, the FFN on the torch
+   chain), each checked against the plain path and retrieved as in 3;
+6. the flash backend (``attention_backend("pallas")``): 64 utterances of
+   6.4 s, 13 ``flash_attention`` launches and no fused kernel;
+7. encode + retrieve throughput of each path of 5 and 6, kernel and plain.
+
+Before each path runs, every kernel's launch count is set to 0; it is read
+right after, so the counts in the summary are that path's own.
 
 The last lines are a JSON summary of the kernels and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --profile
+
+runs phase 1, then, in place of the checks, one torch.profiler step per
+path of 3, 5 and 6 (wall and device ms, peak memory, the largest kernels)
+and an A/B of ``mha_layer_block``'s two attention cores at the main
+path's shapes; it prints no result line.
 """
 
 from __future__ import annotations
@@ -37,7 +57,37 @@ BF16_ATOL = 0.125  # bf16 outputs of magnitude <= 8 differ by <= 4 ulp
 MIN_COSINE = 0.999
 HUBERT_SHAPE = dict(b=64, t=319, d=768, heads=12, f=3072)
 BRANCH_SHAPE = dict(b=64, t=320, d=768, heads=8, f=3072)
+# mha_layer_block past the whole-key core: 12 s of audio, and the gate's
+# largest T at base width
+REPAIR_SHAPES = {"12 s": dict(HUBERT_SHAPE, b=16, t=600),
+                 "gate limit": dict(HUBERT_SHAPE, b=16, t=782)}
+# (b, h, l, dh, lens, causal, packed): packed = head-split views of one qkv
+# buffer, as the dispatcher hands them over
+ATTENTION_SHAPES = {
+    "attention_vmem": {
+        "hubert 17s": (16, 12, 849, 64, True, False, True),
+        "branch 17s": (16, 8, 850, 96, True, False, True),
+        "causal": (64, 8, 256, 64, False, True, False),
+    },
+    "flash_attention": {
+        "flash backend": (64, 12, 319, 64, True, False, True),
+        "hubert 17s": (16, 12, 849, 64, True, False, True),
+        "clip text causal": (64, 8, 77, 64, False, True, False),
+    },
+}
 WAV_SAMPLES = 102400
+# path label -> (batch, samples per buffer, shortest length, backend,
+# launches expected per forward)
+PATHS = {
+    "main": (64, WAV_SAMPLES, WAV_SAMPLES // 2, "auto",
+             dict(mha_layer_block=13, ffn_block=13, attention_vmem=0, flash_attention=0)),
+    "long 17s": (16, 272000, 251200, "auto",
+                 dict(mha_layer_block=0, ffn_block=0, attention_vmem=13, flash_attention=0)),
+    "long 12s": (16, 192000, 144000, "auto",
+                 dict(mha_layer_block=13, ffn_block=0, attention_vmem=0, flash_attention=0)),
+    "flash backend": (64, WAV_SAMPLES, WAV_SAMPLES // 2, "pallas",
+                      dict(mha_layer_block=0, ffn_block=0, attention_vmem=0, flash_attention=13)),
+}
 GALLERY = 5000
 TOPK = 10
 
@@ -124,9 +174,68 @@ def _layer_inputs(shape, gen):
     return x, lens, mha, ffn
 
 
+def _check_row(name, label, got, want, ms, plain_ms, results):
+    """Layer outputs (|y| ~ 4-8 after LayerNorm) are held to BF16_ATOL and
+    MIN_COSINE; attention outputs, means of v far smaller than that, also
+    to limits tied to their own scale (``attention_agrees``)."""
+    import torch
+
+    from speechclip_tpu_torch.kernels import _attention_common as ac
+
+    err = float((got.float() - want.float()).abs().max())
+    cos = row_cosine_min(got, want)
+    ok = bool(torch.isfinite(got).all()) and err <= BF16_ATOL and cos >= MIN_COSINE
+    scaled = ""
+    if name in ("attention_vmem", "flash_attention"):
+        st = ac.attention_agreement(got, want)
+        ok = ok and ac.attention_agrees(st)
+        scaled = (
+            f", worst row {st['row_ulps']:.4f} x 2^-7 max|row| (tol {ac.MAX_ROW_ULPS}), "
+            f"min row cosine {st['min_cosine']:.7f} (tol {ac.MIN_ATTN_COSINE}), "
+            f"elements differing {st['mismatch']:.6f} (tol {ac.MAX_MISMATCH})"
+        )
+    say(
+        f"phase 2 {name} [{label}]: max_abs_err {err:.6f} (tol {BF16_ATOL}), "
+        f"min row cosine {cos:.6f} (tol {MIN_COSINE}){scaled}, kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms"
+    )
+    if not ok:
+        fail(f"{name} [{label}] disagrees with its plain version")
+    results.setdefault(name, {})[label] = dict(err=err, ms=ms, plain_ms=plain_ms)
+
+
+def _compare(name, label, kern, plain, results):
+    """One phase-2 row: the kernel's output against its plain version's on
+    the same inputs, then both timed. These launches count for no path."""
+    import torch
+
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    _check_row(name, label, got, want, cuda_time_ms(kern), cuda_time_ms(plain), results)
+
+
+def _attention_inputs(b, h, l, dh, with_lens, packed, gen):
+    import torch
+
+    bf = torch.bfloat16
+    if packed:
+        qkv = torch.randn(b, l, 3, h, dh, generator=gen, device="cuda").to(bf)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    else:
+        q, k, v = (torch.randn(b, h, l, dh, generator=gen, device="cuda").to(bf)
+                   for _ in range(3))
+    lens = None
+    if with_lens:
+        lens = torch.randint(l // 2, l + 1, (b,), generator=gen, device="cuda").to(torch.int32)
+    return q, k, v, lens
+
+
 def phase_kernels():
     import torch
 
+    from speechclip_tpu_torch.kernels import attention_vmem as av
+    from speechclip_tpu_torch.kernels import flash_attention as fa
     from speechclip_tpu_torch.kernels.ffn_block import ffn_block, ffn_block_plain
     from speechclip_tpu_torch.kernels.mha_block import (
         mha_layer_block,
@@ -134,42 +243,31 @@ def phase_kernels():
     )
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    results = {"mha_layer_block": {}, "ffn_block": {}}
-    for label, shape in (("hubert", HUBERT_SHAPE), ("branch", BRANCH_SHAPE)):
+    results = {}
+    layer_shapes = [("hubert", HUBERT_SHAPE, True), ("branch", BRANCH_SHAPE, True)]
+    layer_shapes += [(label, shape, False) for label, shape in REPAIR_SHAPES.items()]
+    for label, shape, with_ffn in layer_shapes:
         x, lens, m, f = _layer_inputs(shape, gen)
         h = shape["heads"]
-        calls = {
-            "mha_layer_block": (
-                lambda: mha_layer_block(x, m["w_in"], m["b_in"], m["w_out"], m["b_out"],
-                                        m["ln_g"], m["ln_b"], lens, h, "post", 1e-5),
-                lambda: mha_layer_block_plain(x, m["w_in"], m["b_in"], m["w_out"], m["b_out"],
-                                              m["ln_g"], m["ln_b"], lens, h, "post", 1e-5),
-            ),
-            "ffn_block": (
-                lambda: ffn_block(x, f["w1"], f["b1"], f["w2"], f["b2"],
-                                  f["ln_g"], f["ln_b"], "post", 1e-5),
-                lambda: ffn_block_plain(x, f["w1"], f["b1"], f["w2"], f["b2"],
-                                        f["ln_g"], f["ln_b"], "post", 1e-5),
-            ),
-        }
-        for name, (kern, plain) in calls.items():
-            got = kern()
-            torch.cuda.synchronize()
-            want = plain()
-            err = float((got.float() - want.float()).abs().max())
-            cos = row_cosine_min(got, want)
-            finite = bool(torch.isfinite(got).all())
-            ms = cuda_time_ms(kern)
-            plain_ms = cuda_time_ms(plain)
-            say(
-                f"phase 2 {name} [{label} B={shape['b']} T={shape['t']} "
-                f"H={h} Dh={shape['d'] // h} post]: max_abs_err {err:.6f} "
-                f"(tol {BF16_ATOL}), min row cosine {cos:.6f} (tol {MIN_COSINE}), "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-            )
-            if not (finite and err <= BF16_ATOL and cos >= MIN_COSINE):
-                fail(f"{name} [{label}] disagrees with its plain version")
-            results[name][label] = dict(err=err, ms=ms, plain_ms=plain_ms)
+        mha_args = (x, m["w_in"], m["b_in"], m["w_out"], m["b_out"], m["ln_g"], m["ln_b"],
+                    lens, h, "post", 1e-5)
+        ffn_args = (x, f["w1"], f["b1"], f["w2"], f["b2"], f["ln_g"], f["ln_b"], "post", 1e-5)
+        row = f"{label} B={shape['b']} T={shape['t']} H={h} Dh={shape['d'] // h} post"
+        _compare("mha_layer_block", row, lambda: mha_layer_block(*mha_args),
+                 lambda: mha_layer_block_plain(*mha_args), results)
+        if with_ffn:
+            _compare("ffn_block", row, lambda: ffn_block(*ffn_args),
+                     lambda: ffn_block_plain(*ffn_args), results)
+    kernels = {"attention_vmem": (av.attention_vmem, av.attention_vmem_plain),
+               "flash_attention": (fa.flash_attention, fa.flash_attention_plain)}
+    for name, shapes in ATTENTION_SHAPES.items():
+        kern, plain = kernels[name]
+        for label, (b, h, l, dh, with_lens, causal, packed) in shapes.items():
+            q, k, v, lens = _attention_inputs(b, h, l, dh, with_lens, packed, gen)
+            row = (f"{label} B={b} H={h} L=S={l} Dh={dh} lens={'yes' if with_lens else 'no'} "
+                   f"causal={'yes' if causal else 'no'}")
+            _compare(name, row, lambda: kern(q, k, v, lens, causal),
+                     lambda: plain(q, k, v, lens, causal), results)
     return results
 
 
@@ -183,34 +281,46 @@ def _model(batch_chunk: int):
     return SpeechCLIPModel(cfg)
 
 
-def _wavs(b: int, gen):
+def _wavs(b: int, samples: int, shortest: int, gen):
     import torch
 
-    wav_len = torch.randint(
-        WAV_SAMPLES // 2, WAV_SAMPLES + 1, (b,), generator=gen, device="cuda"
-    )
-    wav = torch.randn(b, WAV_SAMPLES, generator=gen, device="cuda") * 0.1
-    pad = torch.arange(WAV_SAMPLES, device="cuda")[None, :] >= wav_len[:, None]
+    wav_len = torch.randint(shortest, samples + 1, (b,), generator=gen, device="cuda")
+    wav = torch.randn(b, samples, generator=gen, device="cuda") * 0.1
+    pad = torch.arange(samples, device="cuda")[None, :] >= wav_len[:, None]
     return wav.masked_fill(pad, 0.0), wav_len
 
 
-def phase_main_path(model, params, gallery):
+def _counters():
+    from speechclip_tpu_torch.kernels.attention_vmem import attention_vmem
+    from speechclip_tpu_torch.kernels.ffn_block import ffn_block
+    from speechclip_tpu_torch.kernels.flash_attention import flash_attention
+    from speechclip_tpu_torch.kernels.mha_block import mha_layer_block
+
+    return {f.__name__: f for f in (mha_layer_block, ffn_block, attention_vmem, flash_attention)}
+
+
+def phase_path(phase, label, model, params, gallery, seed):
+    """Drive one path once through ``encode_speech`` + ``retrieve`` with every
+    launch count set to 0 just before and read just after; check the
+    features against the all-plain path on the same card."""
     import torch
 
     from speechclip_tpu_torch import retrieve
-    from speechclip_tpu_torch.kernels.ffn_block import ffn_block
-    from speechclip_tpu_torch.kernels.mha_block import mha_layer_block
+    from speechclip_tpu_torch.models.hubert import conv_output_length
+    from speechclip_tpu_torch.ops.attention import attention_backend
 
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    wav, wav_len = _wavs(64, gen)
-    n_layers = model.audio_cfg.encoder_layers + model.config.parallel_branch.n_layers
-    mha_layer_block.launches = 0
-    ffn_block.launches = 0
-    feats = model.encode_speech(params, wav, wav_len)["parallel_audio_feat"]
-    torch.cuda.synchronize()
-    launches = {"mha_layer_block": mha_layer_block.launches, "ffn_block": ffn_block.launches}
-    _, top = retrieve(feats, gallery, TOPK)
-    plain_feats = model.encode_speech(params, wav, wav_len, plain=True)["parallel_audio_feat"]
+    b, samples, shortest, backend, expect = PATHS[label]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    wav, wav_len = _wavs(b, samples, shortest, gen)
+    counters = _counters()
+    with attention_backend(backend):
+        for f in counters.values():
+            f.launches = 0
+        feats = model.encode_speech(params, wav, wav_len)["parallel_audio_feat"]
+        torch.cuda.synchronize()
+        launches = {name: f.launches for name, f in counters.items()}
+        _, top = retrieve(feats, gallery, TOPK)
+        plain_feats = model.encode_speech(params, wav, wav_len, plain=True)["parallel_audio_feat"]
     _, plain_top = retrieve(plain_feats, gallery, TOPK)
     torch.cuda.synchronize()
 
@@ -218,54 +328,64 @@ def phase_main_path(model, params, gallery):
     norms = feats.norm(dim=-1)
     top1 = float((top[:, 0] == plain_top[:, 0]).float().mean())
     overlap = sum(
-        len(set(a.tolist()) & set(b.tolist())) for a, b in zip(top, plain_top)
+        len(set(a.tolist()) & set(c.tolist())) for a, c in zip(top, plain_top)
     ) / float(top.numel())
     say(
-        f"phase 3 main path: encode_speech B=64 x {WAV_SAMPLES} samples (lengths "
+        f"phase {phase} {label} path (backend {backend}): encode_speech B={b} x {samples} "
+        f"samples (T={conv_output_length(model.audio_cfg, samples)}, lengths "
         f"{int(wav_len.min())}..{int(wav_len.max())}) -> {tuple(feats.shape)}, "
-        f"launches {launches} (expect {n_layers} each), min row cosine vs plain "
+        f"launches {launches} (expect {expect}), min row cosine vs plain "
         f"{cos:.6f} (tol {MIN_COSINE}), |feat| in [{float(norms.min()):.6f}, "
         f"{float(norms.max()):.6f}], retrieve top-{TOPK} of {gallery.shape[0]}: "
         f"top-1 agreement {top1:.4f}, top-{TOPK} overlap {overlap:.4f}"
     )
-    if tuple(feats.shape) != (64, model.config.clip_embed_dim):
-        fail(f"feature shape {tuple(feats.shape)}")
+    if tuple(feats.shape) != (b, model.config.clip_embed_dim):
+        fail(f"{label}: feature shape {tuple(feats.shape)}")
     if not bool(torch.isfinite(feats).all()):
-        fail("non-finite features")
-    if any(n != n_layers for n in launches.values()):
-        fail(f"kernel launches {launches}, expected {n_layers} each")
+        fail(f"{label}: non-finite features")
+    if launches != expect:
+        fail(f"{label}: kernel launches {launches}, expected {expect}")
     if cos < MIN_COSINE:
-        fail(f"kernel-path features disagree with the plain path (cosine {cos})")
-    if tuple(top.shape) != (64, TOPK):
-        fail(f"top-k shape {tuple(top.shape)}")
+        fail(f"{label}: kernel-path features disagree with the plain path (cosine {cos})")
+    if tuple(top.shape) != (b, TOPK):
+        fail(f"{label}: top-k shape {tuple(top.shape)}")
     return launches
+
+
+def _utt_per_s(model, params, gallery, wav, wav_len, plain):
+    """Encode + retrieve rate: median of 3 host-clock steps, each ending in
+    a synchronize, after one warm-up."""
+    import torch
+
+    from speechclip_tpu_torch import retrieve
+
+    def step():
+        feats = model.encode_speech(params, wav, wav_len, plain=plain)
+        return retrieve(feats["parallel_audio_feat"], gallery, TOPK)[1]
+
+    step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    return wav.shape[0] / times[1]
 
 
 def phase_throughput(model, params, gallery, smi):
     import torch
 
-    from speechclip_tpu_torch import retrieve
-
     gen = torch.Generator(device="cuda").manual_seed(3)
     out = {}
     for batch in (256, 128):
         try:
-            wav, wav_len = _wavs(batch, gen)
+            wav, wav_len = _wavs(batch, WAV_SAMPLES, WAV_SAMPLES // 2, gen)
             for plain in (False, True):
-                def step():
-                    feats = model.encode_speech(params, wav, wav_len, plain=plain)
-                    return retrieve(feats["parallel_audio_feat"], gallery, TOPK)[1]
-
-                step()
-                torch.cuda.synchronize()
-                times = []
-                for _ in range(3):
-                    t0 = time.perf_counter()
-                    step()
-                    torch.cuda.synchronize()
-                    times.append(time.perf_counter() - t0)
-                times.sort()
-                out["plain" if plain else "kernel"] = batch / times[1]
+                out["plain" if plain else "kernel"] = _utt_per_s(
+                    model, params, gallery, wav, wav_len, plain)
             break
         except torch.cuda.OutOfMemoryError:
             say(f"phase 4: batch {batch} does not fit; halving")
@@ -281,7 +401,121 @@ def phase_throughput(model, params, gallery, smi):
     return batch, out
 
 
-def main() -> int:
+def phase_path_throughput(label, model, params, gallery, smi):
+    import torch
+
+    from speechclip_tpu_torch.ops.attention import attention_backend
+
+    b, samples, shortest, backend, _ = PATHS[label]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    wav, wav_len = _wavs(b, samples, shortest, gen)
+    with attention_backend(backend):
+        rates = {p: _utt_per_s(model, params, gallery, wav, wav_len, p == "plain")
+                 for p in ("kernel", "plain")}
+    say(
+        f"phase 7 {label} path encode+retrieve throughput at B={b} x {samples} samples "
+        f"(backend {backend}) on {smi}: kernel path {rates['kernel']:.2f} utt/s, plain "
+        f"path {rates['plain']:.2f} utt/s (median of 3, host clock, after one warm-up)"
+    )
+    return rates
+
+
+def phase_profile(model, params, gallery, smi):
+    """Where the time goes: per path, the wall time of one encode + retrieve
+    step (median of 3, host clock), then one step under torch.profiler: the
+    device time of its kernels, the largest of them, and the step's peak
+    memory. The main path runs at the throughput batch of phase 4."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from speechclip_tpu_torch import retrieve
+    from speechclip_tpu_torch.ops.attention import attention_backend
+
+    for label, (b, samples, shortest, backend, _) in PATHS.items():
+        b = 256 if label == "main" else b
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        wav, wav_len = _wavs(b, samples, shortest, gen)
+        with attention_backend(backend):
+            wall_ms = 1000.0 * b / _utt_per_s(model, params, gallery, wav, wav_len, False)
+            torch.cuda.reset_peak_memory_stats()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                feats = model.encode_speech(params, wav, wav_len)["parallel_audio_feat"]
+                retrieve(feats, gallery, TOPK)
+                torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        dev = sorted(
+            ((e.key, e.self_device_time_total / 1000.0, e.count)
+             for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+            key=lambda r: -r[1],
+        )
+        total = sum(ms for _, ms, _ in dev)
+        top = "; ".join(f"{name[:70]} {ms:.3f} ms x{n} ({100 * ms / total:.1f} %)"
+                        for name, ms, n in dev[:12])
+        say(f"profile {label} B={b} x {samples} samples (backend {backend}) on {smi}: "
+            f"wall {wall_ms:.3f} ms, device {total:.3f} ms, peak {peak:.2f} GiB; top: {top}")
+
+
+def phase_core_ab():
+    """``mha_layer_block``'s two attention cores at the main path's shapes:
+    the whole-key core (``csrc/attention_core.cu``) and the whole-row kernel
+    with this block's rounding points (``rowwise_kernel<false>`` of
+    ``csrc/attention_vmem.cu``, the core past the whole-key core's rows),
+    each held to masked_sdpa and timed with CUDA events."""
+    import torch
+
+    from speechclip_tpu_torch.kernels import _attention_common as ac
+    from speechclip_tpu_torch.kernels import attention_vmem as av
+    from speechclip_tpu_torch.kernels import mha_block as mb
+    from speechclip_tpu_torch.kernels._sdpa_ref import masked_sdpa
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for label, shape in (("hubert", HUBERT_SHAPE), ("branch", BRANCH_SHAPE)):
+        b, t, d, h = shape["b"], shape["t"], shape["d"], shape["heads"]
+        dh = d // h
+        if not mb.whole_key_core_fits(t, dh):
+            fail(f"core A/B: T={t}, Dh={dh} is past the whole-key core")
+        qkv = torch.randn(b * t, 3 * d, generator=gen, device="cuda").bfloat16()
+        lens = torch.randint(t // 2, t + 1, (b,), generator=gen, device="cuda").to(torch.int32)
+        heads_of = lambda z: z.view(b, t, h, dh).permute(0, 2, 1, 3)
+        q, k, v = (heads_of(z) for z in qkv.view(b, t, 3 * d).split(d, dim=-1))
+        out = torch.empty(b * t, d, dtype=torch.bfloat16, device="cuda")
+
+        def rowwise():
+            av.rowwise_attention(q, k, v, lens, heads_of(out), causal=False, vmem_rounding=False)
+            return out
+
+        want = masked_sdpa(q, k, v, lens)
+        cores = {"attention_core.cu": lambda: mb.attention_core(qkv, lens, b, t, d, h),
+                 "rowwise_kernel<false>": rowwise}
+        for name, fn in cores.items():
+            st = ac.attention_agreement(heads_of(fn()), want)
+            say(f"core A/B {label} B={b} H={h} T={t} Dh={dh} {name}: {cuda_time_ms(fn):.4f} ms, "
+                f"vs masked_sdpa worst row {st['row_ulps']:.4f}, min cosine "
+                f"{st['min_cosine']:.7f}, differing {st['mismatch']:.6f}")
+            if not ac.attention_agrees(st):
+                fail(f"core A/B: {name} disagrees with masked_sdpa")
+
+
+REPLACES = {
+    "mha_layer_block": ("speechclip_tpu_torch/csrc/attention_core.cu",
+                        "speechclip_tpu/kernels/mha_block.py:59", "hubert"),
+    "ffn_block": ("speechclip_tpu_torch/csrc/gemm_epilogue.cu",
+                  "speechclip_tpu/kernels/ffn_block.py:40", "hubert"),
+    "attention_vmem": ("speechclip_tpu_torch/csrc/attention_vmem.cu",
+                       "speechclip_tpu/kernels/attention_vmem.py:64", "hubert 17s"),
+    "flash_attention": ("speechclip_tpu_torch/csrc/flash_attention.cu",
+                        "speechclip_tpu/kernels/flash_attention.py:38", "flash backend"),
+}
+PATH_OF = {"mha_layer_block": "main", "ffn_block": "main", "attention_vmem": "long 17s",
+           "flash_attention": "flash backend"}
+
+
+def main(argv) -> int:
+    if argv not in ([], ["--profile"]):
+        print("usage: chip_smoke.py [--profile]", file=sys.stderr)
+        return 2
+    profile_only = argv == ["--profile"]
     try:
         import torch
     except ImportError:
@@ -299,7 +533,7 @@ def main() -> int:
     from speechclip_tpu_torch.models.speechclip import cast_params
 
     smi = phase_card_and_build()
-    kern = phase_kernels()
+    kern = None if profile_only else phase_kernels()
 
     model = _model(batch_chunk=64)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -308,28 +542,31 @@ def main() -> int:
         torch.randn(GALLERY, model.config.clip_embed_dim, generator=gen, device="cuda"),
         dim=-1,
     )
-    launches = phase_main_path(model, params, gallery)
+    if profile_only:
+        phase_profile(model, params, gallery, smi)
+        phase_core_ab()
+        return 0
+    launches = {"main": phase_path(3, "main", model, params, gallery, seed=2)}
     phase_throughput(model, params, gallery, smi)
+    launches["long 17s"] = phase_path(5, "long 17s", model, params, gallery, seed=5)
+    launches["long 12s"] = phase_path(5, "long 12s", model, params, gallery, seed=6)
+    launches["flash backend"] = phase_path(6, "flash backend", model, params, gallery, seed=7)
+    for label in ("long 17s", "long 12s", "flash backend"):
+        phase_path_throughput(label, model, params, gallery, smi)
 
-    replaces = {
-        "mha_layer_block": ("speechclip_tpu_torch/csrc/attention_core.cu",
-                            "speechclip_tpu/kernels/mha_block.py:59"),
-        "ffn_block": ("speechclip_tpu_torch/csrc/gemm_epilogue.cu",
-                      "speechclip_tpu/kernels/ffn_block.py:40"),
-    }
-    kernels = [
-        {
+    kernels = []
+    for name, (source, replaces, row) in REPLACES.items():
+        timed = next(r for label, r in kern[name].items() if label.startswith(row))
+        kernels.append({
             "name": name,
             "route": "cuda",
-            "source": replaces[name][0],
-            "replaces": replaces[name][1],
-            "launches": launches[name],
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[PATH_OF[name]][name],
             "max_abs_err": max(r["err"] for r in kern[name].values()),
-            "ms": kern[name]["hubert"]["ms"],
-            "plain_ms": kern[name]["hubert"]["plain_ms"],
-        }
-        for name in ("mha_layer_block", "ffn_block")
-    ]
+            "ms": timed["ms"],
+            "plain_ms": timed["plain_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,
@@ -343,4 +580,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

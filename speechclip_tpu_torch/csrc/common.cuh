@@ -49,4 +49,59 @@ __device__ __forceinline__ void unpack_bf16x8(uint4 in, float* v) {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+// f32 finfo.min: the reference's mask value (a fully masked row stays finite).
+constexpr float kNegInf = -3.4028234663852886e38f;
+
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+__host__ __device__ inline int align128(int x) { return round_up(x, 128); }
+
+// Operands of the attention kernels over (B, H, rows, Dh) bf16 tensors read
+// and written through element strides (batch, head, row; the last is 1), so
+// head-split views of a packed qkv buffer need no copy.
+struct AttnArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const int* lens;  // (B,) valid key lengths, or null
+  __nv_bfloat16* out;
+  int B, H, L, S, dh, causal;
+  float scale;
+  long long qs[3], ks[3], vs[3], os[3];
+};
+
+// Fill AttnArgs from a launcher's plain C arguments; `strides` holds the
+// (batch, head, row) strides of q, k, v and out, 12 values.
+inline AttnArgs make_attn_args(const void* q, const void* k, const void* v,
+                               const void* lens, void* out, int B, int H, int L,
+                               int S, int dh, const long long* strides,
+                               int causal, float scale) {
+  AttnArgs a;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.lens = static_cast<const int*>(lens);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.B = B, a.H = H, a.L = L, a.S = S, a.dh = dh, a.causal = causal;
+  a.scale = scale;
+  for (int i = 0; i < 3; ++i) {
+    a.qs[i] = strides[i];
+    a.ks[i] = strides[3 + i];
+    a.vs[i] = strides[6 + i];
+    a.os[i] = strides[9 + i];
+  }
+  return a;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
 }  // namespace scl

@@ -1,0 +1,126 @@
+"""What the attention kernels share: the operands they accept, how their
+launch arguments are laid out, the key mask of their plain versions, and
+the test by which a kernel's output is held to its plain version's.
+
+``attention_vmem``, ``flash_attention`` and the long-row core of
+``mha_layer_block`` read (B, H, rows, Dh) q/k/v through strides and write a
+(B, H, L, Dh) output laid out as (B, L, H, Dh).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+MAX_HEAD_DIM = 128
+
+# Agreement of a bf16 attention output with its plain version. The outputs
+# are weighted means of v (|out| ~ 0.05-3 here), so a fixed absolute limit
+# says nothing; each limit is tied to the output's own scale instead. One
+# bf16 ulp of x is at most |x| * 2^-7, so a kernel whose only difference is
+# the summation order (rounding flips of one ulp) stays within one unit of
+# ROW_ULP * max|want| in each row, keeps its rows' cosines near 1 - 1e-5,
+# and flips few elements. A wrong mask (one key too many or too few), a
+# skipped block or half, or other rounding points move every element of a
+# row by a fraction of an ulp or more: many elements flip, and the per-row
+# error or the cosine leaves its band.
+ROW_ULP = 2.0 ** -7
+MAX_ROW_ULPS = 2.0  # max |got - want| in a row, in units of ROW_ULP * max|want| there
+MIN_ATTN_COSINE = 0.99999  # per row
+MAX_MISMATCH = 0.05  # share of elements whose bf16 values differ
+
+
+def attention_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """How far ``got`` is from ``want`` (same shape, rows along the last
+    dim): max abs error, the worst row's error in units of ROW_ULP times
+    that row's largest |want|, the smallest row cosine, and the share of
+    elements that differ."""
+    g = got.float().reshape(-1, got.shape[-1])
+    w = want.float().reshape(-1, want.shape[-1])
+    diff = (g - w).abs()
+    scale = ROW_ULP * w.abs().amax(dim=-1)
+    row_err = diff.amax(dim=-1)
+    ulps = torch.where(row_err == 0, torch.zeros_like(row_err), row_err / scale)
+    cos = torch.nn.functional.cosine_similarity(g, w, dim=-1, eps=1e-30)
+    cos = torch.where((g == w).all(dim=-1), torch.ones_like(cos), cos)
+    return dict(
+        max_abs_err=float(diff.max()),
+        row_ulps=float(ulps.max()),
+        min_cosine=float(cos.min()),
+        mismatch=float((diff > 0).float().mean()),
+        finite=bool(torch.isfinite(g).all()),
+    )
+
+
+def attention_agrees(stats: dict) -> bool:
+    """Whether ``attention_agreement``'s numbers are within the limits."""
+    return (stats["finite"] and stats["row_ulps"] <= MAX_ROW_ULPS
+            and stats["min_cosine"] >= MIN_ATTN_COSINE
+            and stats["mismatch"] <= MAX_MISMATCH)
+
+
+def key_mask(lens: Optional[torch.Tensor], causal: bool, l: int, s: int, device):
+    """(B or 1, 1, L or 1, S) bool, True where a key is VALID; None if none."""
+    ok = None
+    col = torch.arange(s, device=device)
+    if lens is not None:
+        ok = col[None, None, None, :] < lens.to(device).long()[:, None, None, None]
+    if causal:
+        row = torch.arange(l, device=device)
+        c = (col[None, :] <= row[:, None])[None, None]
+        ok = c if ok is None else ok & c
+    return ok
+
+
+def check_attention_operands(q, k, v, lens, what: str):
+    """What the attention kernels accept; anything else raises."""
+    for t in (q, k, v):
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: kernel path needs CUDA tensors, got {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{what}: kernel path runs bf16, got {t.dtype}")
+        if t.requires_grad:
+            raise RuntimeError(
+                f"{what}: kernel path is forward-only: an input requires grad"
+            )
+    b, h, l, dh = q.shape
+    s = k.shape[2]
+    if k.shape != (b, h, s, dh) or v.shape != (b, h, s, dh):
+        raise ValueError(
+            f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
+            "must be (B, H, L, Dh), (B, H, S, Dh), (B, H, S, Dh)"
+        )
+    if dh % 8 or dh > MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {dh} must be a multiple of 8 up to {MAX_HEAD_DIM}")
+    if lens is not None and lens.shape != (b,):
+        raise ValueError(f"{what}: lens must be ({b},), got {tuple(lens.shape)}")
+
+
+def _strided(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the kernels can read it through its strides (unit
+    last stride, the others multiples of 8 elements, 16-byte aligned base),
+    else a contiguous copy."""
+    if t.stride(-1) == 1 and all(st % 8 == 0 for st in t.stride()[:-1]) and t.data_ptr() % 16 == 0:
+        return t
+    return t.contiguous()
+
+
+def launch_args(q, k, v, lens, out):
+    """Pointers, the (batch, head, row) element strides of q, k, v, out as a
+    host int64 array, and lens as device int32 (or a null pointer)."""
+    q, k, v = _strided(q), _strided(k), _strided(v)
+    strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
+    lens_dev = None if lens is None else lens.to(device=q.device, dtype=torch.int32).contiguous()
+    return (
+        q, k, v, lens_dev,
+        (ctypes.c_longlong * 12)(*strides),
+    )
+
+
+def empty_heads_out(b: int, h: int, l: int, dh: int, device) -> torch.Tensor:
+    """A (B, H, L, Dh) output laid out as (B, L, H, Dh), so merging the heads
+    afterwards is a free view."""
+    return torch.empty((b, l, h, dh), dtype=torch.bfloat16, device=device).permute(0, 2, 1, 3)

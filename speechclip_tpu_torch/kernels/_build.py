@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles every source of ``csrc/`` into one shared library with a
+``nvcc`` compiles every source of ``csrc/`` (one process per ``.cu``, all
+started together) and links the objects into one shared library with a
 plain C interface, which is loaded with ``ctypes``. The build runs at first
 use, from the checkout's own sources only, into ``build/kernels/`` at the
 repository root; the library's name carries a hash of the sources and the
@@ -17,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -48,19 +49,17 @@ def find_nvcc() -> str:
     )
 
 
-def nvcc_command(nvcc: str, output: Path) -> List[str]:
-    """The one compile-and-link command for ``libscl_kernels``."""
-    return [
-        nvcc,
-        "-gencode", GENCODE,
-        "-std=c++17",
-        "-O3",
-        "-shared",
-        "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v",
-        "-o", str(output),
-        *[str(p) for p in sorted(CSRC_DIR.glob("*.cu"))],
-    ]
+def nvcc_commands(nvcc: str, output: Path) -> Tuple[List[List[str]], List[str]]:
+    """(one compile command per ``csrc/*.cu``, the link command) for
+    ``libscl_kernels``; the compiles run in parallel, objects beside
+    ``output``."""
+    flags = ["-gencode", GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    objects, compiles = [], []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = output.with_name(f"{output.name}.{src.stem}.o")
+        compiles.append([nvcc, *flags, "-Xptxas", "-v", "-c", str(src), "-o", str(obj)])
+        objects.append(str(obj))
+    return compiles, [nvcc, *flags, "-shared", "-o", str(output), *objects]
 
 
 def _library_path() -> Path:
@@ -68,7 +67,8 @@ def _library_path() -> Path:
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(nvcc_command("nvcc", Path("x"))).encode())
+    compiles, link = nvcc_commands("nvcc", Path("x"))
+    h.update(" ".join(sum(compiles, []) + link).encode())
     return BUILD_DIR / f"libscl_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -82,6 +82,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.scl_attention.restype = i
     lib.scl_attention_smem_bytes.argtypes = [i, i]
     lib.scl_attention_smem_bytes.restype = i
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    lib.scl_rowwise_attention.argtypes = [
+        p, p, p, p, p, i, i, i, i, i, strides, i, i, ctypes.c_float, p,
+    ]
+    lib.scl_rowwise_attention.restype = i
+    lib.scl_rowwise_smem_bytes.argtypes = [i, i]
+    lib.scl_rowwise_smem_bytes.restype = i
+    lib.scl_flash_attention.argtypes = [
+        p, p, p, p, p, i, i, i, i, i, strides, i, ctypes.c_float, p,
+    ]
+    lib.scl_flash_attention.restype = i
 
 
 def build() -> Path:
@@ -98,14 +109,28 @@ def build() -> Path:
         if lib_path.exists():
             return lib_path
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = nvcc_command(find_nvcc(), tmp)
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        _BUILD_LOG = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        compiles, link = nvcc_commands(find_nvcc(), tmp)
+        procs = [
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for cmd in compiles
+        ]
+        log, failed = [], []
+        for cmd, proc in zip(compiles, procs):
+            out, _ = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(cmd[-3])
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append("link")
+        for cmd in compiles:
+            Path(cmd[-1]).unlink(missing_ok=True)
+        _BUILD_LOG = "\n".join(log)
+        if failed:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"CUDA kernel build failed (exit {proc.returncode}):\n{_BUILD_LOG}"
-            )
+            raise RuntimeError(f"CUDA kernel build failed ({', '.join(failed)}):\n{_BUILD_LOG}")
         os.replace(tmp, lib_path)
     return lib_path
 

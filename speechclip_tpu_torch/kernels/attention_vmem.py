@@ -1,0 +1,150 @@
+"""Whole-row attention over head-split q/k/v (port of
+speechclip_tpu/kernels/attention_vmem.py ``attention_vmem`` and its gate
+``vmem_eligible``).
+
+What it computes, on (B, H, L, Dh) q/k/v with per-batch key lengths and an
+optional causal flag, with the TPU kernel's rounding points:
+- q is scaled by ``1/sqrt(Dh)`` rounded to q's dtype, and the product is
+  rounded to q's dtype, before Q K^T;
+- the scores are f32; masked keys (``col >= lens[b]``, and ``col > row``
+  when causal) get f32 ``finfo.min``;
+- ``p = exp(s - rowmax)`` is rounded to q's dtype;
+- ``p @ v`` and the denominator (the sum of the ROUNDED p) accumulate in
+  f32; ``out = acc / max(denom, 1e-30)``, rounded once.
+That is not ``masked_sdpa``'s rounding, which normalizes in f32 first.
+
+On a CUDA bf16 tensor it launches ``csrc/attention_vmem.cu``; on a CPU
+tensor, or with ``plain=True``, it runs ``attention_vmem_plain``.
+
+The gate keeps the TPU package's VMEM numbers on purpose: the gates decide
+which computation, with which rounding points, produces a layer's output,
+and the port is held to the reference. Retuning them for the H100 is later
+work that needs measurements of its own.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+from ._attention_common import (
+    SMEM_LIMIT,
+    check_attention_operands,
+    empty_heads_out,
+    key_mask,
+    launch_args,
+)
+from ._sdpa_ref import NEG_INF
+from ..ops.basic import matmul_f32
+
+VMEM_BUDGET = 10 * 1024 * 1024  # the TPU kernel's per-cell VMEM cap (bytes)
+# Tile constants of csrc/attention_vmem.cu (query rows per block, keys per
+# streamed K/V chunk, warps per block); smem_bytes mirrors its RowSmem.
+ROW_BQ, ROW_KC, ROW_WARPS = 32, 64, 8
+
+
+def _group_size(bh: int, l: int, s: int, d: int, itemsize: int) -> int:
+    """The TPU kernel's (batch*head) group per grid cell (attention_vmem.py
+    ``_group_size``); the port uses it only inside ``vmem_eligible``."""
+    per_pair = (2 * l * d + s * d + s * (d + 1)) * itemsize * 2
+    score = l * s * (4 + 2)
+    for g in (16, 12, 8, 6, 4, 3, 2):
+        if bh % g == 0 and g * per_pair + score <= VMEM_BUDGET:
+            return g
+    return 1
+
+
+def vmem_eligible(b: int, h: int, l: int, s: int, d: int, itemsize: int = 2) -> bool:
+    """The JAX gate, number for number: head dim a multiple of 8 up to 128,
+    ``L*S >= 128^2``, ``6*L*S <= VMEM_BUDGET / 2`` (L = S <= 934) and a
+    group of at least 2 (batch*head) pairs."""
+    if d % 8 != 0 or d > 128:
+        return False
+    if l * s < 128 * 128:
+        return False
+    if l * s * 6 > VMEM_BUDGET // 2:
+        return False
+    return _group_size(b * h, l, s, d, itemsize) >= 2
+
+
+def attention_vmem_plain(q, k, v, lens: Optional[torch.Tensor], causal: bool = False):
+    """The plain PyTorch version: (B, H, L, Dh) x3 -> (B, H, L, Dh) in q's dtype."""
+    dt = q.dtype
+    scale = torch.full((), 1.0 / math.sqrt(q.shape[-1]), dtype=dt, device=q.device)
+    s = matmul_f32(q * scale, k.transpose(-1, -2))
+    ok = key_mask(lens, causal, q.shape[2], k.shape[2], q.device)
+    if ok is not None:
+        s = s.masked_fill(~ok, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).to(dt)
+    acc = matmul_f32(p, v)
+    denom = p.float().sum(dim=-1, keepdim=True)
+    return (acc / denom.clamp(min=1e-30)).to(dt)
+
+
+def smem_bytes(s: int, dh: int) -> int:
+    """Shared memory of one block of ``csrc/attention_vmem.cu`` (its RowSmem)."""
+    a128 = lambda x: (x + 127) // 128 * 128
+    ldk = (dh + 15) // 16 * 16 + 8
+    lds = (s + ROW_KC - 1) // ROW_KC * ROW_KC + 4
+    total = a128(ROW_BQ * ldk * 2)  # Q tile
+    total += a128(2 * ROW_KC * ldk * 2)  # two K/V chunk stages
+    total += a128(ROW_BQ * lds * 4)  # the f32 score rows (bf16 p over them)
+    total += a128(ROW_BQ * 4)  # row denominators
+    return total + ROW_WARPS * 16 * 16 * 4  # per-warp epilogue tiles
+
+
+def max_keys(dh: int) -> int:
+    """The longest key row the whole-row kernel holds for head dim ``dh``."""
+    s = ROW_KC
+    while smem_bytes(s + ROW_KC, dh) <= SMEM_LIMIT:
+        s += ROW_KC
+    return s
+
+
+def rowwise_attention(q, k, v, lens, out, causal: bool, vmem_rounding: bool) -> None:
+    """Launch the whole-row kernel of ``csrc/attention_vmem.cu`` into ``out``.
+    ``vmem_rounding``: attention_vmem's rounding points; else masked_sdpa's
+    (f32 softmax normalized, then rounded: the mha_block core)."""
+    b, h, l, dh = q.shape
+    s = k.shape[2]
+    smem = smem_bytes(s, dh)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"whole-row attention holds at most {max_keys(dh)} keys at Dh={dh} "
+            f"(S={s} needs {smem} > {SMEM_LIMIT} bytes of shared memory)"
+        )
+    q, k, v, lens_dev, strides = launch_args(q, k, v, lens, out)
+    if vmem_rounding:
+        scale = float(torch.tensor(1.0 / math.sqrt(dh), dtype=torch.bfloat16))
+    else:
+        scale = 1.0 / math.sqrt(dh)
+    lib = _build.load()
+    _build.check(
+        lib.scl_rowwise_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if lens_dev is None else lens_dev.data_ptr(), out.data_ptr(),
+            b, h, l, s, dh, strides, int(causal), int(vmem_rounding), scale,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        ),
+        "scl_rowwise_attention",
+    )
+
+
+def attention_vmem(q, k, v, lens: Optional[torch.Tensor] = None,
+                   causal: bool = False, plain: bool = False) -> torch.Tensor:
+    """(B, H, L, Dh) x3 [+ lens (B,)] -> (B, H, L, Dh). CPU tensor or
+    ``plain``: the plain version. CUDA tensor: the kernel, or an exception."""
+    if plain or q.device.type == "cpu":
+        return attention_vmem_plain(q, k, v, lens, causal)
+    check_attention_operands(q, k, v, lens, "attention_vmem")
+    b, h, l, dh = q.shape
+    out = empty_heads_out(b, h, l, dh, q.device)
+    rowwise_attention(q, k, v, lens, out, causal, vmem_rounding=True)
+    attention_vmem.launches += 1
+    return out
+
+
+attention_vmem.launches = 0

@@ -29,6 +29,26 @@ from .mha_block import (
 )
 from ..ops.basic import gelu, matmul_f32
 
+# The TPU kernel's VMEM cap (bytes), kept for the same reason as
+# mha_block.VMEM_BUDGET: it picks the computation the port is held to.
+VMEM_BUDGET = 16 * 1024 * 1024
+
+
+def ffn_eligible(b: int, t: int, d: int, f: int, itemsize: int = 2) -> bool:
+    """The JAX gate (kernels/ffn_block.py ``ffn_eligible``), number for
+    number: T >= 128 and the two weight matrices plus one batch element's
+    buffers within VMEM_BUDGET (T <= 477 at D = 768, F = 3072 in bf16).
+    ``b`` is unused, as in the reference."""
+    if t < 128:
+        return False
+    weights = 2 * d * f * itemsize
+    per_cell = (
+        2 * 2 * t * d * itemsize  # x + out, double buffered
+        + t * f * itemsize  # fc1 activation
+        + t * d * 4  # f32 epilogue row
+    )
+    return weights + per_cell <= VMEM_BUDGET
+
 
 def ffn_block_plain(x, w1, b1, w2, b2, ln_g, ln_b, ln_mode: str,
                     eps: float) -> torch.Tensor:

@@ -5,16 +5,16 @@ Both layer flavors of the model have the same algebra: fairseq
 TransformerSentenceEncoderLayer (HuBERT) and torch nn.TransformerEncoderLayer
 (the parallel branch), post-norm or pre-norm, GELU FFN, eval mode.
 
-Routing, decided by the activations alone (in the two wrappers):
-- CPU tensor -> the plain PyTorch versions;
-- CUDA bf16 tensor, no grad -> the hand-written kernels;
-- any other tensor (CUDA f32, one that requires grad, another device) ->
-  raise.
-``plain=True`` is the explicit request for the plain versions on any
-device; the card's checks compare the kernel path against it.
+The gate list is the JAX package's: bf16 activations, the "auto" attention
+backend and ``block_eligible``; any failure returns None and the caller runs
+the unfused layer (``multi_head_attention`` + the torch FFN chain). When
+``ffn_eligible`` fails, the attention half still runs fused and the FFN half
+is the torch chain (``linear``/``gelu``), which the JAX package leaves to XLA.
 
-The JAX package's ``_dispatch.py`` (shard_map over a TPU mesh) has no
-counterpart: under torch each rank already holds its local batch.
+The route depends on shapes, dtype and backend alone; the device picks
+the body: a CPU tensor, or ``plain=True``, runs the plain versions; a CUDA
+bf16 tensor the hand-written kernels; any other tensor on a kernel route
+raises.
 """
 
 from __future__ import annotations
@@ -23,8 +23,10 @@ from typing import Optional
 
 import torch
 
-from .ffn_block import ffn_block, ffn_block_plain
-from .mha_block import mha_layer_block, mha_layer_block_plain
+from .ffn_block import ffn_block, ffn_block_plain, ffn_eligible
+from .mha_block import block_eligible, mha_layer_block, mha_layer_block_plain
+from ..ops.attention import get_attention_backend
+from ..ops.basic import gelu, layer_norm, linear
 
 
 def fused_encoder_layer(
@@ -40,23 +42,31 @@ def fused_encoder_layer(
     ln1,  # {"scale", "bias"} around attention
     ln2,  # {"scale", "bias"} around the FFN
     plain: bool = False,
-) -> torch.Tensor:
-    d = x.shape[-1]
+) -> Optional[torch.Tensor]:
+    """The layer on the fused path, or None where the JAX gates send it to
+    the unfused layer."""
+    b, t, d = x.shape
+    isz = x.element_size()
+    if (x.dtype != torch.bfloat16 or get_attention_backend() != "auto"
+            or not block_eligible(b, t, d, heads, isz)):
+        return None
     bi = attn["in_proj"]["b"]
     bo = attn["out_proj"]["b"]
     if bi is None:
         bi = torch.zeros(3 * d, dtype=torch.float32, device=x.device)
     if bo is None:
         bo = torch.zeros(d, dtype=torch.float32, device=x.device)
-    if plain:
-        mha, ffn = mha_layer_block_plain, ffn_block_plain
-    else:
-        mha, ffn = mha_layer_block, ffn_block
+    mha = mha_layer_block_plain if plain else mha_layer_block
     h = mha(
         x, attn["in_proj"]["w"], bi, attn["out_proj"]["w"], bo,
         ln1["scale"], ln1["bias"], lens, heads, mode, eps,
     )
-    return ffn(
-        h, fc1["w"], fc1["b"], fc2["w"], fc2["b"], ln2["scale"], ln2["bias"],
-        mode, eps,
-    )
+    if ffn_eligible(b, t, d, fc1["w"].shape[1], isz):
+        ffn = ffn_block_plain if plain else ffn_block
+        return ffn(
+            h, fc1["w"], fc1["b"], fc2["w"], fc2["b"], ln2["scale"], ln2["bias"],
+            mode, eps,
+        )
+    h_in = layer_norm(ln2, h, eps) if mode == "pre" else h
+    out = linear(fc2, gelu(linear(fc1, h_in)))
+    return layer_norm(ln2, h + out, eps) if mode == "post" else h + out

@@ -12,7 +12,12 @@ per-head scaled dot product with a key-length mask, out-projection.
 On a CUDA bf16 tensor it runs as three or four launches of the hand-written
 kernels in ``csrc/``: [row LN for "pre"] -> QKV GEMM + f32 bias ->
 attention core -> out-proj GEMM with bias + residual epilogue [-> row LN for
-"post"]. On a CPU tensor it runs ``mha_layer_block_plain``, which keeps the
+"post"]. The attention core is ``csrc/attention_core.cu`` where a head's
+whole K row fits beside its 64-query tile (T <= 512 at Dh = 64, <= 448 at
+Dh = 96, Dh % 16 == 0), else the whole-row kernel of
+``csrc/attention_vmem.cu`` with this block's rounding points, which streams
+K and V and covers every T the gate ``block_eligible`` admits. On a CPU
+tensor it runs ``mha_layer_block_plain``, which keeps the
 TPU kernel's rounding points: f32 accumulation, f32 bias added before
 rounding qkv to the activation dtype, f32 masked softmax, f32 residual and
 LayerNorm.
@@ -25,13 +30,41 @@ from typing import Optional
 import torch
 
 from . import _build
+from . import attention_vmem as rowwise
+from ._attention_common import MAX_HEAD_DIM, SMEM_LIMIT
 from ._sdpa_ref import masked_sdpa
 from ..ops.basic import matmul_f32
 
 # Epilogue ids of scl_gemm_bf16 (csrc/gemm_epilogue.cu).
 EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESID_F32, EPI_BIAS_RESID = 0, 1, 2, 3
-SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 LN_MODES = ("post", "pre", "none")
+# The TPU kernel's VMEM cap (bytes). Kept as it is: the gate decides which
+# computation, with which rounding points, produces the layer's output, and
+# the port is held to the reference; retuning it for the H100 is later work
+# that needs measurements of its own.
+VMEM_BUDGET = 16 * 1024 * 1024
+
+
+def block_eligible(b: int, t: int, d: int, heads: int, itemsize: int = 2) -> bool:
+    """The JAX gate (kernels/mha_block.py ``block_eligible``), number for
+    number: Dh a multiple of 8 up to 128, ``T*T >= 128^2``, and the weights
+    plus one batch element's buffers within VMEM_BUDGET (T <= 782 at D = 768
+    in bf16). ``b`` is unused, as in the reference."""
+    if d % heads != 0:
+        return False
+    dh = d // heads
+    if dh % 8 != 0 or dh > 128:
+        return False
+    if t * t < 128 * 128:
+        return False
+    weights = 3 * d * d * itemsize + d * d * itemsize
+    per_cell = (
+        2 * 2 * t * d * itemsize  # x + out, double buffered
+        + 3 * t * d * itemsize  # qkv
+        + t * t * 4  # one head's scores f32
+        + t * d * itemsize  # assembled outputs
+    )
+    return weights + per_cell <= VMEM_BUDGET
 
 
 def ln_rows(y32: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float):
@@ -133,20 +166,50 @@ def layer_norm_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def core_smem_bytes(t: int, dh: int) -> int:
+    """Shared memory of one block of ``csrc/attention_core.cu`` (its Smem)."""
+    a128 = lambda x: (x + 127) // 128 * 128
+    ldq, sp = dh + 8, (t + 15) // 16 * 16
+    total = a128(64 * ldq * 2) + a128(sp * ldq * 2) + a128(64 * (sp + 4) * 4)
+    return total + 4 * 16 * 16 * 4
+
+
+def whole_key_core_fits(t: int, dh: int) -> bool:
+    """Whether ``csrc/attention_core.cu`` (a 64-query tile beside the whole
+    K row of its head) takes T, Dh; longer rows go to the whole-row kernel
+    of ``csrc/attention_vmem.cu``, which streams K and V in chunks."""
+    return dh % 16 == 0 and (t + 15) // 16 * 16 <= 512 and core_smem_bytes(t, dh) <= SMEM_LIMIT
+
+
+def attention_core_max_t(dh: int) -> int:
+    """The longest T the attention core of ``mha_layer_block`` takes at head
+    dim ``dh`` (0 if it takes no T there)."""
+    if dh % 8 or dh > MAX_HEAD_DIM:
+        return 0
+    return rowwise.max_keys(dh)
+
+
 def attention_core(qkv: torch.Tensor, lens: Optional[torch.Tensor], bsz: int,
                    t: int, d: int, heads: int) -> torch.Tensor:
-    """(B*T, 3D) bf16 qkv -> (B*T, D) bf16 head outputs (csrc/attention_core.cu)."""
+    """(B*T, 3D) bf16 qkv -> (B*T, D) bf16 head outputs: csrc/attention_core.cu
+    where the whole K row fits beside the query tile, else the whole-row
+    kernel with masked_sdpa's rounding, reading q, k, v straight out of qkv."""
     dh = d // heads
-    lib = _build.load()
-    smem = lib.scl_attention_smem_bytes(t, dh)
-    if dh % 16 or d % 8 or (t + 15) // 16 * 16 > 512 or smem > SMEM_LIMIT:
+    if d % heads or d % 8 or t > attention_core_max_t(dh):
         raise ValueError(
-            f"attention core does not take T={t}, Dh={dh} (needs Dh % 16 == 0, "
-            f"T <= 512 and {smem} <= {SMEM_LIMIT} bytes of shared memory)"
+            f"attention core does not take T={t}, Dh={dh} (needs Dh % 8 == 0, "
+            f"Dh <= {MAX_HEAD_DIM} and T <= {attention_core_max_t(dh)})"
         )
+    out = torch.empty((bsz * t, d), dtype=torch.bfloat16, device=qkv.device)
+    if not whole_key_core_fits(t, dh):
+        heads_of = lambda z: z.view(bsz, t, heads, dh).permute(0, 2, 1, 3)
+        q, k, v = (heads_of(z) for z in qkv.view(bsz, t, 3 * d).split(d, dim=-1))
+        rowwise.rowwise_attention(q, k, v, lens, heads_of(out), causal=False,
+                                  vmem_rounding=False)
+        return out
     if lens is not None:
         lens = lens.to(device=qkv.device, dtype=torch.int32).contiguous()
-    out = torch.empty((bsz * t, d), dtype=torch.bfloat16, device=qkv.device)
+    lib = _build.load()
     _build.check(
         lib.scl_attention(
             qkv.data_ptr(), _ptr(lens), out.data_ptr(), bsz, t, d, heads,

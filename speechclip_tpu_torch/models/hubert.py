@@ -10,8 +10,10 @@
   hidden_states = [pre-layer input] + [every layer output]
 
 The convolutions are stock torch (cuDNN on the card), as the JAX package
-leaves them to XLA. Every encoder layer runs through
-``kernels.fused_layer.fused_encoder_layer``.
+leaves them to XLA. An encoder layer runs through
+``kernels.fused_layer.fused_encoder_layer`` where its gates admit the
+shapes (T <= 782 at base width in bf16), else as the unfused layer with
+``ops.attention.multi_head_attention`` (``attention_vmem`` up to T = 934).
 
 Parameters: the JAX package's pytree keys; linear weights (in, out); conv
 weights in torch's (out, in / groups, k) layout.
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.fused_layer import fused_encoder_layer
+from ..ops.attention import multi_head_attention
 from ..ops.basic import Params, gelu, layer_norm, layer_norm_init, linear, normal
 from ..ops.masking import (
     conv_frame_valid_lengths,
@@ -199,8 +202,10 @@ def encoder_layer_apply(
     frame_lens: Optional[torch.Tensor],
     plain: bool = False,
 ) -> torch.Tensor:
-    """fairseq TransformerSentenceEncoderLayer, eval mode (post- or pre-norm)."""
-    return fused_encoder_layer(
+    """fairseq TransformerSentenceEncoderLayer, eval mode (post- or pre-norm):
+    the fused layer where its gates admit the shapes, else the unfused layer
+    of the JAX package (hubert.py ``encoder_layer_apply``)."""
+    fused = fused_encoder_layer(
         x,
         frame_lens,
         heads=cfg.encoder_heads,
@@ -213,6 +218,23 @@ def encoder_layer_apply(
         ln2=params["final_layer_norm"],
         plain=plain,
     )
+    if fused is not None:
+        return fused
+
+    def attn(h):
+        return multi_head_attention(
+            params["self_attn"], h, h, h, num_heads=cfg.encoder_heads,
+            key_valid_lens=frame_lens, plain=plain,
+        )[0]
+
+    def ffn(h):
+        return linear(params["fc2"], gelu(linear(params["fc1"], h)))
+
+    if cfg.layer_norm_first:
+        x = x + attn(layer_norm(params["self_attn_layer_norm"], x))
+        return x + ffn(layer_norm(params["final_layer_norm"], x))
+    x = layer_norm(params["self_attn_layer_norm"], x + attn(x))
+    return layer_norm(params["final_layer_norm"], x + ffn(x))
 
 
 def _encoder_prelude(

@@ -2,8 +2,10 @@
 speechclip_tpu/ops/transformer.py:38-186): N encoder layers (post-norm by
 default, GELU FFN) plus a final LayerNorm, eval mode.
 
-Every layer runs through ``kernels.fused_layer.fused_encoder_layer``; key
-masking is by per-batch valid lengths.
+A layer runs through ``kernels.fused_layer.fused_encoder_layer`` where its
+gates admit the shapes, else as the unfused layer with
+``ops.attention.multi_head_attention``; key masking is by per-batch valid
+lengths.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ from typing import Optional
 
 import torch
 
-from .basic import Params, layer_norm, layer_norm_init, linear_init, uniform
+from .attention import multi_head_attention
+from .basic import Params, gelu, layer_norm, layer_norm_init, linear, linear_init, uniform
 from ..kernels.fused_layer import fused_encoder_layer
 
 
@@ -58,11 +61,14 @@ def encoder_layer_apply(
     norm_first: bool = False,
     plain: bool = False,
 ) -> torch.Tensor:
+    """torch nn.TransformerEncoderLayer, eval mode: the fused layer where
+    its gates admit the shapes, else the unfused layer of the JAX package
+    (ops/transformer.py ``encoder_layer_apply``)."""
     if activation != "gelu":
         raise NotImplementedError(
-            f"activation {activation!r}: the fused layer carries GELU only"
+            f"activation {activation!r}: the parallel branch runs GELU layers only"
         )
-    return fused_encoder_layer(
+    fused = fused_encoder_layer(
         x,
         key_valid_lens,
         heads=nhead,
@@ -75,6 +81,23 @@ def encoder_layer_apply(
         ln2=params["norm2"],
         plain=plain,
     )
+    if fused is not None:
+        return fused
+
+    def sa(h):
+        return multi_head_attention(
+            params["self_attn"], h, h, h, num_heads=nhead,
+            key_valid_lens=key_valid_lens, plain=plain,
+        )[0]
+
+    def ff(h):
+        return linear(params["linear2"], gelu(linear(params["linear1"], h)))
+
+    if norm_first:
+        x = x + sa(layer_norm(params["norm1"], x, layer_norm_eps))
+        return x + ff(layer_norm(params["norm2"], x, layer_norm_eps))
+    x = layer_norm(params["norm1"], x + sa(x), layer_norm_eps)
+    return layer_norm(params["norm2"], x + ff(x), layer_norm_eps)
 
 
 def transformer_encoder_init(

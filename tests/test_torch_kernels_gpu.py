@@ -8,8 +8,14 @@ without one. On a machine with the card, and without jax installed, run:
 tests do not use.) This file imports torch only.
 
 Tolerance: bf16 outputs, same rounding points on both sides; a different
-summation order can flip an intermediate bf16 rounding, so per-row cosine
->= 0.999 and max abs diff <= 0.125 (4 ulp at |y| ~ 4-8 after LayerNorm).
+summation order can flip an intermediate bf16 rounding. Layer outputs
+(``mha_layer_block``, ``ffn_block``): per-row cosine >= 0.999 and max abs
+diff <= 0.125 (4 ulp at |y| ~ 4-8 after LayerNorm). Attention outputs
+(``attention_vmem``, ``flash_attention``) are means of v, far smaller, so
+they are held to limits tied to their own scale (``attention_agrees``: per
+row max abs <= 2 ulp of the row's largest |value|, cosine >= 0.99999, at
+most 5 % of elements differing); the planted-fault tests show that check
+failing on a one-key mask error and on other rounding points.
 """
 
 import pytest
@@ -35,6 +41,17 @@ def _close(got, want):
     cos = torch.nn.functional.cosine_similarity(g, w, dim=-1, eps=1e-12)
     assert float((g - w).abs().max()) <= ATOL
     assert float(cos.min()) >= MIN_COSINE
+
+
+def _attn_close(got, want):
+    from speechclip_tpu_torch.kernels._attention_common import (
+        attention_agreement,
+        attention_agrees,
+    )
+
+    assert got.dtype == want.dtype and got.shape == want.shape
+    stats = attention_agreement(got, want)
+    assert attention_agrees(stats), stats
 
 
 def _mha_args(dev, b, t, d, heads, mode, with_lens, seed=0):
@@ -120,7 +137,7 @@ def test_cuda_inputs_the_kernels_do_not_take_raise(cuda):
         mha_layer_block(*args)
     args[0] = args[0].detach()
     with pytest.raises(ValueError, match="attention core"):
-        mha_layer_block(*(args[:8] + [96] + args[9:]))  # Dh = 8: not a multiple of 16
+        mha_layer_block(*(args[:8] + [4] + args[9:]))  # Dh = 192: over the gate's 128
 
 
 def test_gemm_rejects_misaligned_operands(cuda):
@@ -134,3 +151,149 @@ def test_gemm_rejects_misaligned_operands(cuda):
         gemm(a, w, bias, EPI_BIAS)
     with pytest.raises(ValueError, match="K % 8"):
         gemm(a.clone(), w[:8], bias, EPI_BIAS)
+
+
+@pytest.mark.parametrize("heads, t", [(12, 600), (8, 600), (12, 782), (8, 782), (96, 600)])
+@pytest.mark.parametrize("mode", ["post", "none"])
+def test_mha_layer_block_at_repaired_lengths(cuda, heads, t, mode):
+    """T past the whole-key core (512 rows at Dh = 64, 448 at Dh = 96, and
+    Dh % 16 != 0) up to the gate's largest T = 782: the core streams K/V."""
+    from speechclip_tpu_torch.kernels.mha_block import (
+        block_eligible,
+        mha_layer_block,
+        mha_layer_block_plain,
+        whole_key_core_fits,
+    )
+
+    assert block_eligible(2, t, 768, heads) and not whole_key_core_fits(t, 768 // heads)
+    args = _mha_args(cuda, 2, t, 768, heads, mode, True, seed=t)
+    got = mha_layer_block(*args)
+    torch.cuda.synchronize()
+    _close(got, mha_layer_block_plain(*args))
+
+
+@pytest.mark.parametrize("heads", [16, 8])  # HuBERT-large; the large branch (Dh = 128)
+def test_mha_layer_block_at_d1024_gate_limit(cuda, heads):
+    from speechclip_tpu_torch.kernels.mha_block import (
+        block_eligible,
+        mha_layer_block,
+        mha_layer_block_plain,
+    )
+
+    assert block_eligible(2, 460, 1024, heads) and not block_eligible(2, 461, 1024, heads)
+    args = _mha_args(cuda, 2, 460, 1024, heads, "pre", True, seed=heads)
+    _close(mha_layer_block(*args), mha_layer_block_plain(*args))
+
+
+def test_smem_formulas_match_the_library(cuda):
+    from speechclip_tpu_torch.kernels import _build, attention_vmem, mha_block
+
+    lib = _build.load()
+    for dh in (8, 64, 72, 96, 128):
+        for t in (1, 77, 319, 448, 512, 850, 934, 1408):
+            assert attention_vmem.smem_bytes(t, dh) == lib.scl_rowwise_smem_bytes(t, dh)
+            assert mha_block.core_smem_bytes(t, dh) == lib.scl_attention_smem_bytes(t, dh)
+
+
+def _qkv(dev, b, h, l, s, dh, seed, lens="random", packed=False):
+    """bf16 (B, H, rows, Dh) q, k, v (head-split views of one packed buffer
+    when ``packed``, as the dispatcher passes them) and int32 lens."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    if packed:
+        assert l == s
+        qkv = torch.randn(b, l, 3, h, dh, generator=g, device=dev).to(bf)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    else:
+        q = torch.randn(b, h, l, dh, generator=g, device=dev).to(bf)
+        k, v = (torch.randn(b, h, s, dh, generator=g, device=dev).to(bf) for _ in range(2))
+    if lens == "random":
+        lens = torch.randint(s // 2, s + 1, (b,), generator=g, device=dev).to(torch.int32)
+    elif lens == "zero_row":
+        lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+        lens[0] = 0
+    return q, k, v, lens
+
+
+ATTENTION_SHAPES = [  # (b, h, l, s, dh, lens, causal, packed)
+    (16, 12, 849, 849, 64, "random", False, True),   # long-utterance HuBERT
+    (16, 8, 850, 850, 96, "random", False, True),    # long-utterance branch
+    (64, 8, 256, 256, 64, None, True, False),        # causal
+    (4, 4, 300, 300, 128, "random", False, False),   # Dh = 128
+    (4, 8, 200, 333, 96, "random", False, False),    # L != S
+    (4, 8, 333, 200, 64, "random", True, False),     # L != S, causal
+    (3, 6, 140, 140, 72, "zero_row", False, False),  # a lens = 0 row; Dh % 16 != 0
+    (3, 6, 140, 140, 64, "zero_row", True, False),
+    (2, 2, 934, 934, 8, "random", False, False),     # the gate's longest row, Dh = 8
+]
+
+
+@pytest.mark.parametrize("b, h, l, s, dh, lens, causal, packed", ATTENTION_SHAPES)
+def test_attention_vmem_kernel_matches_plain(cuda, b, h, l, s, dh, lens, causal, packed):
+    from speechclip_tpu_torch.kernels.attention_vmem import attention_vmem, attention_vmem_plain
+
+    q, k, v, lens_t = _qkv(cuda, b, h, l, s, dh, seed=l + dh, lens=lens, packed=packed)
+    before = attention_vmem.launches
+    got = attention_vmem(q, k, v, lens_t, causal)
+    torch.cuda.synchronize()
+    assert attention_vmem.launches == before + 1
+    _attn_close(got, attention_vmem_plain(q, k, v, lens_t, causal))
+
+
+FLASH_SHAPES = ATTENTION_SHAPES + [
+    (64, 12, 319, 319, 64, "random", False, True),   # the flash-backend encode
+    (64, 8, 77, 77, 64, None, True, False),          # the CLIP text tower
+    (2, 4, 1500, 1500, 64, "random", True, False),   # longer than any whole-row plan
+]
+
+
+@pytest.mark.parametrize("b, h, l, s, dh, lens, causal, packed", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain(cuda, b, h, l, s, dh, lens, causal, packed):
+    from speechclip_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    q, k, v, lens_t = _qkv(cuda, b, h, l, s, dh, seed=l + dh + 1, lens=lens, packed=packed)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, lens_t, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _attn_close(got, flash_attention_plain(q, k, v, lens_t, causal))
+
+
+@pytest.mark.parametrize("kernel, fault", [
+    ("attention_vmem", "lens_off_by_one"),
+    ("attention_vmem", "mha_rounding"),
+    ("flash_attention", "lens_off_by_one"),
+    ("flash_attention", "bf16_p"),
+])
+def test_attention_check_fails_planted_faults(cuda, kernel, fault):
+    """The kernel, sound, passes against its plain version at the 17 s
+    HuBERT shape and fails against the plain version with a planted fault:
+    a mask one key too long, masked_sdpa's rounding, or bf16 p in P V."""
+    from speechclip_tpu_torch.kernels import attention_vmem as av
+    from speechclip_tpu_torch.kernels import flash_attention as fa
+    from speechclip_tpu_torch.kernels._attention_common import (
+        attention_agreement,
+        attention_agrees,
+    )
+    from tests.test_torch_attention_agreement import faulty_plain
+
+    kern, plain = {"attention_vmem": (av.attention_vmem, av.attention_vmem_plain),
+                   "flash_attention": (fa.flash_attention, fa.flash_attention_plain)}[kernel]
+    q, k, v, lens = _qkv(cuda, 16, 12, 849, 849, 64, seed=5, packed=True)
+    lens = lens.clamp(max=848)  # every batch has a key past its length
+    got = kern(q, k, v, lens)
+    assert attention_agrees(attention_agreement(got, plain(q, k, v, lens)))
+    stats = attention_agreement(got, faulty_plain(kernel, fault, q, k, v, lens))
+    assert not attention_agrees(stats), stats
+
+
+def test_attention_kernels_raise_on_what_they_do_not_take(cuda):
+    from speechclip_tpu_torch.kernels.attention_vmem import attention_vmem
+    from speechclip_tpu_torch.kernels.flash_attention import flash_attention
+
+    q, k, v, lens = _qkv(cuda, 1, 1, 16, 16, 768, seed=0)  # the cascaded branch's one head
+    for kernel in (attention_vmem, flash_attention):
+        with pytest.raises(ValueError, match="head dim"):
+            kernel(q, k, v, lens)
+        with pytest.raises(TypeError, match="bf16"):
+            kernel(q[..., :64].float(), k[..., :64].float(), v[..., :64].float(), lens)

@@ -131,6 +131,8 @@ def test_non_cpu_non_cuda_tensors_raise():
     w = torch.empty(32, 96, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         mha_layer_block(x, w, None, w, None, None, None, None, 4, "post", 1e-5)
+    # bf16 and T*T >= 128^2: the fused layer's gates send it to the kernels
+    x = torch.empty(2, 128, 32, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         fused_encoder_layer(
             x, None, heads=4, mode="post", eps=1e-5,
@@ -143,11 +145,14 @@ def test_non_cpu_non_cuda_tensors_raise():
 def test_build_command_targets_sm90a_and_sources_exist():
     """The kernel build (not run here: no nvcc) compiles every csrc/*.cu
     for sm_90a into a library under build/kernels/."""
-    cmd = _build.nvcc_command("nvcc", _build.BUILD_DIR / "lib.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
+    compiles, link = _build.nvcc_commands("nvcc", _build.BUILD_DIR / "lib.so")
+    assert all("arch=compute_90a,code=sm_90a" in cmd for cmd in compiles + [link])
     srcs = _build.sources()
     names = {p.name for p in srcs}
-    assert {"attention_core.cu", "gemm_epilogue.cu", "common.cuh"} <= names
+    assert {"attention_core.cu", "gemm_epilogue.cu", "attention_vmem.cu",
+            "flash_attention.cu", "common.cuh"} <= names
     assert all(p.exists() for p in srcs)
-    assert all(str(p) in cmd for p in srcs if p.suffix == ".cu")
+    cu = [str(p) for p in srcs if p.suffix == ".cu"]
+    assert sorted(cmd[cmd.index("-c") + 1] for cmd in compiles) == sorted(cu)
+    assert all(cmd[-1] in link for cmd in compiles) and "-shared" in link
     assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")
