@@ -28,7 +28,25 @@ line each (a failed check exits non-zero before the last line):
    chain), each checked against the plain path and retrieved as in 3;
 6. the flash backend (``attention_backend("pallas")``): 64 utterances of
    6.4 s, 13 ``flash_attention`` launches and no fused kernel;
-7. encode + retrieve throughput of each path of 5 and 6, kernel and plain.
+7. encode + retrieve throughput of each path of 5 and 6, kernel and plain;
+8. the conv A/B: ``fused_conv_chain`` against the port's cuDNN conv1..6
+   chain (``models/hubert.py``) on the same weights and input, CUDA-event
+   medians taken in turns (times only: the two differ in GELU form and
+   rounding point);
+9. the cascaded branch (``shipped_cascaded_config()``: K = 8 keywords, one
+   768-wide attention head, kw-BN, VQ over the 8112-row Flickr vocabulary,
+   the CLIP text tower over K + 2 tokens) on 64 utterances of 6.4 s,
+   backend "auto" (12 ``mha_layer_block`` + 12 ``ffn_block``) and
+   "pallas" (25 ``flash_attention``: 12 HuBERT layers, the 768-wide head,
+   12 causal text layers), each against the all-plain path: pre-VQ cosine
+   scores, keyword ids, features of the rows whose ids all agree, top-k;
+10. encode + retrieve throughput of both cascaded paths, kernel and plain.
+
+Phase 2 also gives each kernel's bound (the larger of its FLOPs over 989
+TFLOP/s and its bytes over 3.35 TB/s, counted from that row's shapes and
+key lengths) and, for the attention kernels, the time of one
+``F.scaled_dot_product_attention`` call on the same inputs (timed only;
+the port never calls it).
 
 Before each path runs, every kernel's launch count is set to 0; it is read
 right after, so the counts in the summary are that path's own.
@@ -40,9 +58,10 @@ package beside this script, it exits non-zero and prints no result.
     python3 chip_smoke.py --profile
 
 runs phase 1, then, in place of the checks, one torch.profiler step per
-path of 3, 5 and 6 (wall and device ms, peak memory, the largest kernels)
-and an A/B of ``mha_layer_block``'s two attention cores at the main
-path's shapes; it prints no result line.
+path of 3, 5, 6 and 9 (wall and device ms, peak memory, the largest kernels),
+the HuBERT front end split into its parts (conv0, conv1..6, pos_conv), and
+an A/B of ``mha_layer_block``'s two attention cores at the main path's
+shapes; it prints no result line.
 """
 
 from __future__ import annotations
@@ -73,21 +92,41 @@ ATTENTION_SHAPES = {
         "flash backend": (64, 12, 319, 64, True, False, True),
         "hubert 17s": (16, 12, 849, 64, True, False, True),
         "clip text causal": (64, 8, 77, 64, False, True, False),
+        # the cascaded branch: one 768-wide head over T + K = 327 rows, and
+        # the CLIP text tower's causal K + 2 = 10 tokens
+        "cascaded 768": (64, 1, 327, 768, True, False, True),
+        "text tower K+2": (64, 8, 10, 64, False, True, True),
     },
 }
+# HuBERT-base conv1..conv6 (k, stride 2) on conv0's output for 6.4 s
+CONV_KERNELS = (3, 3, 3, 3, 2, 2)
+CONV_SHAPE = dict(b=64, t=20479, c=512)
+PEAK_FLOPS = 989e12  # H100 SXM dense bf16
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 WAV_SAMPLES = 102400
 # path label -> (batch, samples per buffer, shortest length, backend,
 # launches expected per forward)
 PATHS = {
     "main": (64, WAV_SAMPLES, WAV_SAMPLES // 2, "auto",
-             dict(mha_layer_block=13, ffn_block=13, attention_vmem=0, flash_attention=0)),
+             dict(mha_layer_block=13, ffn_block=13, attention_vmem=0, flash_attention=0,
+                  fused_conv_chain=0)),
     "long 17s": (16, 272000, 251200, "auto",
-                 dict(mha_layer_block=0, ffn_block=0, attention_vmem=13, flash_attention=0)),
+                 dict(mha_layer_block=0, ffn_block=0, attention_vmem=13, flash_attention=0,
+                      fused_conv_chain=0)),
     "long 12s": (16, 192000, 144000, "auto",
-                 dict(mha_layer_block=13, ffn_block=0, attention_vmem=0, flash_attention=0)),
+                 dict(mha_layer_block=13, ffn_block=0, attention_vmem=0, flash_attention=0,
+                      fused_conv_chain=0)),
     "flash backend": (64, WAV_SAMPLES, WAV_SAMPLES // 2, "pallas",
-                      dict(mha_layer_block=0, ffn_block=0, attention_vmem=0, flash_attention=13)),
+                      dict(mha_layer_block=0, ffn_block=0, attention_vmem=0, flash_attention=13,
+                           fused_conv_chain=0)),
 }
+CASCADED_PATHS = {
+    "cascaded auto": ("auto", dict(mha_layer_block=12, ffn_block=12, attention_vmem=0,
+                                   flash_attention=0, fused_conv_chain=0)),
+    "cascaded pallas": ("pallas", dict(mha_layer_block=0, ffn_block=0, attention_vmem=0,
+                                       flash_attention=25, fused_conv_chain=0)),
+}
+MIN_KEYWORD_AGREEMENT = 0.9  # share of the B*K keyword ids (VQ argmax)
 GALLERY = 5000
 TOPK = 10
 
@@ -125,6 +164,36 @@ def row_cosine_min(a, b) -> float:
 
     a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
     return float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
+
+
+def bound(flops: float, nbytes: float):
+    """(least ms the card could take, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def attention_keys(b, l, s, lens, causal) -> int:
+    """Query-key pairs the masks leave: sum over batches and rows of the
+    valid keys (the kernels skip the rest)."""
+    import torch
+
+    lens = torch.full((b,), s) if lens is None else lens.long().cpu()
+    row = torch.arange(l)[None, :]
+    keys = lens[:, None].clamp(max=s).expand(b, l)
+    if causal:
+        keys = torch.minimum(keys, row + 1)
+    return int(keys.sum())
+
+
+def layer_work(shape, lens):
+    """(FLOPs, bytes) of ``mha_layer_block`` and of ``ffn_block`` at a
+    layer row: inputs read once, outputs written once."""
+    b, t, d, f = shape["b"], shape["t"], shape["d"], shape["f"]
+    m = b * t
+    mha = (2 * m * d * 4 * d + 4 * d * t * int(lens.long().sum()),
+           2 * m * d * 2 + 4 * d * d * 2 + 6 * d * 4 + b * 4)
+    ffn = (4 * m * d * f, 2 * m * d * 2 + 2 * d * f * 2 + (f + 3 * d) * 4)
+    return mha, ffn
 
 
 def phase_card_and_build():
@@ -174,7 +243,7 @@ def _layer_inputs(shape, gen):
     return x, lens, mha, ffn
 
 
-def _check_row(name, label, got, want, ms, plain_ms, results):
+def _check_row(name, label, got, want, ms, plain_ms, results, work=None, library_ms=None):
     """Layer outputs (|y| ~ 4-8 after LayerNorm) are held to BF16_ATOL and
     MIN_COSINE; attention outputs, means of v far smaller than that, also
     to limits tied to their own scale (``attention_agrees``)."""
@@ -194,25 +263,32 @@ def _check_row(name, label, got, want, ms, plain_ms, results):
             f"min row cosine {st['min_cosine']:.7f} (tol {ac.MIN_ATTN_COSINE}), "
             f"elements differing {st['mismatch']:.6f} (tol {ac.MAX_MISMATCH})"
         )
+    bound_ms, bound_by = bound(*work)
+    lib = "" if library_ms is None else f", torch SDPA {library_ms:.4f} ms"
     say(
         f"phase 2 {name} [{label}]: max_abs_err {err:.6f} (tol {BF16_ATOL}), "
         f"min row cosine {cos:.6f} (tol {MIN_COSINE}){scaled}, kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms"
+        f"plain {plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms ({bound_by}; "
+        f"{work[0] / 1e9:.3f} GFLOP, {work[1] / 1e6:.3f} MB), {100 * bound_ms / ms:.1f} % of bound"
     )
     if not ok:
         fail(f"{name} [{label}] disagrees with its plain version")
-    results.setdefault(name, {})[label] = dict(err=err, ms=ms, plain_ms=plain_ms)
+    results.setdefault(name, {})[label] = dict(
+        err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=library_ms)
 
 
-def _compare(name, label, kern, plain, results):
+def _compare(name, label, kern, plain, results, work, library=None):
     """One phase-2 row: the kernel's output against its plain version's on
-    the same inputs, then both timed. These launches count for no path."""
+    the same inputs, then both timed (and the library call, if any). These
+    launches count for no path."""
     import torch
 
     got = kern()
     torch.cuda.synchronize()
     want = plain()
-    _check_row(name, label, got, want, cuda_time_ms(kern), cuda_time_ms(plain), results)
+    _check_row(name, label, got, want, cuda_time_ms(kern), cuda_time_ms(plain), results,
+               work, None if library is None else cuda_time_ms(library))
 
 
 def _attention_inputs(b, h, l, dh, with_lens, packed, gen):
@@ -253,11 +329,12 @@ def phase_kernels():
                     lens, h, "post", 1e-5)
         ffn_args = (x, f["w1"], f["b1"], f["w2"], f["b2"], f["ln_g"], f["ln_b"], "post", 1e-5)
         row = f"{label} B={shape['b']} T={shape['t']} H={h} Dh={shape['d'] // h} post"
+        mha_work, ffn_work = layer_work(shape, lens)
         _compare("mha_layer_block", row, lambda: mha_layer_block(*mha_args),
-                 lambda: mha_layer_block_plain(*mha_args), results)
+                 lambda: mha_layer_block_plain(*mha_args), results, mha_work)
         if with_ffn:
             _compare("ffn_block", row, lambda: ffn_block(*ffn_args),
-                     lambda: ffn_block_plain(*ffn_args), results)
+                     lambda: ffn_block_plain(*ffn_args), results, ffn_work)
     kernels = {"attention_vmem": (av.attention_vmem, av.attention_vmem_plain),
                "flash_attention": (fa.flash_attention, fa.flash_attention_plain)}
     for name, shapes in ATTENTION_SHAPES.items():
@@ -266,19 +343,87 @@ def phase_kernels():
             q, k, v, lens = _attention_inputs(b, h, l, dh, with_lens, packed, gen)
             row = (f"{label} B={b} H={h} L=S={l} Dh={dh} lens={'yes' if with_lens else 'no'} "
                    f"causal={'yes' if causal else 'no'}")
+            work = (4 * h * dh * attention_keys(b, l, l, lens, causal),
+                    4 * b * h * l * dh * 2 + (0 if lens is None else 4 * b))
             _compare(name, row, lambda: kern(q, k, v, lens, causal),
-                     lambda: plain(q, k, v, lens, causal), results)
+                     lambda: plain(q, k, v, lens, causal), results, work,
+                     library=_sdpa_call(q, k, v, lens, causal))
+    _conv_row(gen, results)
     return results
 
 
-def _model(batch_chunk: int):
-    from speechclip_tpu_torch import SpeechCLIPModel, base_config
+def _sdpa_call(q, k, v, lens, causal):
+    """One ``F.scaled_dot_product_attention`` call computing the same
+    function on the same inputs (the library yardstick; never in the port)."""
+    import torch
+    import torch.nn.functional as F
 
-    cfg = base_config()
+    from speechclip_tpu_torch.kernels._attention_common import key_mask
+
+    if lens is None:
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+    mask = key_mask(lens, causal, q.shape[2], k.shape[2], q.device)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def _conv_inputs(gen):
+    """conv0's output for 64 utterances of 6.4 s as the chain sees it (a
+    GELU of unit-variance values, (B, T, C)) and conv1..6 weights (k, C, C)
+    with the HuBERT init's scale."""
+    import torch
+
+    b, t, c = CONV_SHAPE["b"], CONV_SHAPE["t"], CONV_SHAPE["c"]
+    x = torch.nn.functional.gelu(torch.randn(b, t, c, generator=gen, device="cuda")).bfloat16()
+    ws = [(torch.randn(k, c, c, generator=gen, device="cuda") * (k * c) ** -0.5).bfloat16()
+          for k in CONV_KERNELS]
+    return x, ws
+
+
+def _conv_row(gen, results):
+    """Phase-2 row of ``fused_conv_chain``: the whole chain against its
+    plain version at the layer limits, and each layer alone, fed the plain
+    chain's input to it, within MAX_LAYER_MISMATCH."""
+    import torch
+
+    from speechclip_tpu_torch.kernels import conv_frontend as cf
+
+    x, ws = _conv_inputs(gen)
+    b, t, c = x.shape
+    h, worst = x, 0.0
+    for w, k in zip(ws, CONV_KERNELS):
+        want = cf.fused_conv_chain_plain(h, [w], (k,))
+        st = cf.conv_chain_agreement(cf.fused_conv_chain(h, [w], (k,)), want)
+        worst = max(worst, st["mismatch"])
+        if not (st["finite"] and st["mismatch"] <= cf.MAX_LAYER_MISMATCH):
+            fail(f"fused_conv_chain layer k={k} at T={h.shape[1]} disagrees with its plain "
+                 f"version: {st}")
+        h = want
+    del h, want
+    flops, tt = 0, t
+    for k in CONV_KERNELS:
+        tt = cf.layer_out_len(tt, k)
+        flops += 2 * b * tt * k * c * c
+    work = (flops, b * t * c * 2 + sum(w.numel() for w in ws) * 2 + b * tt * c * 2)
+    say(f"phase 2 fused_conv_chain per layer: worst share of elements differing {worst:.6f} "
+        f"(tol {cf.MAX_LAYER_MISMATCH})")
+    _compare("fused_conv_chain", f"hubert conv1..6 B={b} T={t} C={c} k={CONV_KERNELS}",
+             lambda: cf.fused_conv_chain(x, ws, CONV_KERNELS),
+             lambda: cf.fused_conv_chain_plain(x, ws, CONV_KERNELS), results, work)
+
+
+def _model(cfg, batch_chunk: int = 64):
+    """The model on the card, its conv frontend in chunks of ``batch_chunk``
+    utterances, and its seeded random (params, state) cast to the compute
+    dtype."""
+    from speechclip_tpu_torch import SpeechCLIPModel
+    from speechclip_tpu_torch.models.speechclip import cast_params
+
     cfg = dataclasses.replace(
         cfg, audio=dataclasses.replace(cfg.audio, conv_batch_chunk=batch_chunk)
     )
-    return SpeechCLIPModel(cfg)
+    model = SpeechCLIPModel(cfg)
+    params, state = model.init(0)
+    return model, cast_params(params, model.compute_dtype), cast_params(state, model.compute_dtype)
 
 
 def _wavs(b: int, samples: int, shortest: int, gen):
@@ -292,11 +437,18 @@ def _wavs(b: int, samples: int, shortest: int, gen):
 
 def _counters():
     from speechclip_tpu_torch.kernels.attention_vmem import attention_vmem
+    from speechclip_tpu_torch.kernels.conv_frontend import fused_conv_chain
     from speechclip_tpu_torch.kernels.ffn_block import ffn_block
     from speechclip_tpu_torch.kernels.flash_attention import flash_attention
     from speechclip_tpu_torch.kernels.mha_block import mha_layer_block
 
-    return {f.__name__: f for f in (mha_layer_block, ffn_block, attention_vmem, flash_attention)}
+    return {f.__name__: f for f in (mha_layer_block, ffn_block, attention_vmem, flash_attention,
+                                    fused_conv_chain)}
+
+
+def _reset(counters):
+    for f in counters.values():
+        f.launches = 0
 
 
 def phase_path(phase, label, model, params, gallery, seed):
@@ -314,22 +466,18 @@ def phase_path(phase, label, model, params, gallery, seed):
     wav, wav_len = _wavs(b, samples, shortest, gen)
     counters = _counters()
     with attention_backend(backend):
-        for f in counters.values():
-            f.launches = 0
-        feats = model.encode_speech(params, wav, wav_len)["parallel_audio_feat"]
+        _reset(counters)
+        feats = model.encode_speech(params, {}, wav, wav_len)["parallel_audio_feat"]
+        _, top = retrieve(feats, gallery, TOPK)
         torch.cuda.synchronize()
         launches = {name: f.launches for name, f in counters.items()}
-        _, top = retrieve(feats, gallery, TOPK)
-        plain_feats = model.encode_speech(params, wav, wav_len, plain=True)["parallel_audio_feat"]
+        plain_feats = model.encode_speech(params, {}, wav, wav_len, plain=True)["parallel_audio_feat"]
     _, plain_top = retrieve(plain_feats, gallery, TOPK)
     torch.cuda.synchronize()
 
     cos = row_cosine_min(feats, plain_feats)
     norms = feats.norm(dim=-1)
-    top1 = float((top[:, 0] == plain_top[:, 0]).float().mean())
-    overlap = sum(
-        len(set(a.tolist()) & set(c.tolist())) for a, c in zip(top, plain_top)
-    ) / float(top.numel())
+    top1, overlap = _top_agreement(top, plain_top)
     say(
         f"phase {phase} {label} path (backend {backend}): encode_speech B={b} x {samples} "
         f"samples (T={conv_output_length(model.audio_cfg, samples)}, lengths "
@@ -352,7 +500,16 @@ def phase_path(phase, label, model, params, gallery, seed):
     return launches
 
 
-def _utt_per_s(model, params, gallery, wav, wav_len, plain):
+def _top_agreement(top, plain_top):
+    """(top-1 agreement, top-k overlap) of two (B, k) index tensors."""
+    top1 = float((top[:, 0] == plain_top[:, 0]).float().mean())
+    overlap = sum(
+        len(set(a.tolist()) & set(c.tolist())) for a, c in zip(top, plain_top)
+    ) / float(top.numel())
+    return top1, overlap
+
+
+def _utt_per_s(model, params, gallery, wav, wav_len, plain, state=None, key="parallel_audio_feat"):
     """Encode + retrieve rate: median of 3 host-clock steps, each ending in
     a synchronize, after one warm-up."""
     import torch
@@ -360,8 +517,8 @@ def _utt_per_s(model, params, gallery, wav, wav_len, plain):
     from speechclip_tpu_torch import retrieve
 
     def step():
-        feats = model.encode_speech(params, wav, wav_len, plain=plain)
-        return retrieve(feats["parallel_audio_feat"], gallery, TOPK)[1]
+        feats = model.encode_speech(params, state or {}, wav, wav_len, plain=plain)
+        return retrieve(feats[key], gallery, TOPK)[1]
 
     step()
     torch.cuda.synchronize()
@@ -420,11 +577,150 @@ def phase_path_throughput(label, model, params, gallery, smi):
     return rates
 
 
-def phase_profile(model, params, gallery, smi):
+def phase_conv_ab(smi):
+    """``fused_conv_chain`` against the port's own conv1..6 (cuDNN
+    ``conv1d`` in bf16 + tanh GELU, as ``models/hubert.py`` runs them in
+    NCW) on the same weights and input: CUDA-event medians, in turns
+    (cuDNN, kernel, kernel, cuDNN). The chain is driven once first with the
+    launch counts at 0; that is the kernel's path."""
+    import torch
+
+    from speechclip_tpu_torch.kernels import conv_frontend as cf
+    from speechclip_tpu_torch.models.hubert import _conv1d
+    from speechclip_tpu_torch.ops.basic import gelu
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    x, ws = _conv_inputs(gen)
+    x_ncw = x.transpose(1, 2).contiguous()
+    w_oik = [w.permute(2, 1, 0).contiguous() for w in ws]
+
+    def cudnn_chain():
+        h = x_ncw
+        for w in w_oik:
+            h = gelu(_conv1d(h, w, stride=2))
+        return h
+
+    def kernel_chain():
+        return cf.fused_conv_chain(x, ws, CONV_KERNELS)
+
+    counters = _counters()
+    _reset(counters)
+    out = kernel_chain()
+    torch.cuda.synchronize()
+    launches = {name: f.launches for name, f in counters.items()}
+    ref = cudnn_chain().transpose(1, 2)
+    if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
+        fail(f"conv A/B: kernel output {tuple(out.shape)} vs cuDNN {tuple(ref.shape)}")
+    times = {"cudnn": [], "kernel": []}
+    for name in ("cudnn", "kernel", "kernel", "cudnn"):
+        times[name].append(cuda_time_ms(cudnn_chain if name == "cudnn" else kernel_chain))
+    say(f"phase 8 conv A/B B={x.shape[0]} T={x.shape[1]} C={x.shape[2]} k={CONV_KERNELS} on {smi}: "
+        f"fused_conv_chain {times['kernel']} ms, cuDNN conv1..6 chain {times['cudnn']} ms "
+        f"(CUDA-event medians of 20, in turns), launches {launches}, "
+        f"cosine of the two outputs {row_cosine_min(out, ref):.6f} (times only: erf GELU on "
+        f"f32 sums vs tanh GELU on bf16 convs)")
+    if launches["fused_conv_chain"] != 1 or sum(launches.values()) != 1:
+        fail(f"conv A/B: launches {launches}")
+    return launches
+
+
+def _cascaded_pre_vq(model, params, state, wav, wav_len, plain):
+    """The keywords' cosine scores against the token table before VQ."""
+    from speechclip_tpu_torch.models import branches
+
+    audio_feat, audio_len = model.forward_audio(params, wav, wav_len, plain=plain)
+    kw = branches.project_keywords_for_visualization(
+        params["cascaded_branch"], state["cascaded_branch"], model.config.cascaded_branch,
+        audio_feat, audio_len, plain)
+    return branches.cosine_scores(kw, params["clip"]["text"]["token_embedding"])
+
+
+def phase_cascaded(label, model, params, state, gallery, seed):
+    """Drive the cascaded branch once through ``encode_speech`` + ``retrieve``
+    with the launch counts at 0 just before and read just after; hold it to
+    the all-plain path on the card."""
+    import torch
+
+    from speechclip_tpu_torch import retrieve
+    from speechclip_tpu_torch.ops.attention import attention_backend
+
+    backend, expect = CASCADED_PATHS[label]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    wav, wav_len = _wavs(64, WAV_SAMPLES, WAV_SAMPLES // 2, gen)
+    counters = _counters()
+    with attention_backend(backend):
+        _reset(counters)
+        out = model.encode_speech(params, state, wav, wav_len)
+        _, top = retrieve(out["cascaded_audio_feat"], gallery, TOPK)
+        torch.cuda.synchronize()
+        launches = {name: f.launches for name, f in counters.items()}
+        ref = model.encode_speech(params, state, wav, wav_len, plain=True)
+        scores = _cascaded_pre_vq(model, params, state, wav, wav_len, False)
+        plain_scores = _cascaded_pre_vq(model, params, state, wav, wav_len, True)
+    _, plain_top = retrieve(ref["cascaded_audio_feat"], gallery, TOPK)
+    torch.cuda.synchronize()
+    feats, plain_feats = out["cascaded_audio_feat"], ref["cascaded_audio_feat"]
+    ids, plain_ids = out["vq_results"]["targets"][..., 0], ref["vq_results"]["targets"][..., 0]
+    id_share = float((ids == plain_ids).float().mean())
+    rows = (ids == plain_ids).all(dim=1)
+    score_cos = row_cosine_min(scores, plain_scores)
+    feat_cos = row_cosine_min(feats[rows], plain_feats[rows]) if bool(rows.any()) else 1.0
+    top1, overlap = _top_agreement(top, plain_top)
+    b, k = ids.shape
+    say(f"phase 9 {label} path (backend {backend}): encode_speech B={b} x {WAV_SAMPLES} samples, "
+        f"K={k}, vocabulary {scores.shape[-1]} -> {tuple(feats.shape)}, launches {launches} "
+        f"(expect {expect}); vs plain: pre-VQ scores min row cosine {score_cos:.6f} "
+        f"(tol {MIN_COSINE}), keyword ids agreeing {id_share:.4f} of {b * k} (tol "
+        f"{MIN_KEYWORD_AGREEMENT}), rows with all {k} ids agreeing {int(rows.sum())}/{b}, their "
+        f"feature min cosine {feat_cos:.6f} (tol {MIN_COSINE}); retrieve top-{TOPK} of "
+        f"{gallery.shape[0]}: top-1 agreement {top1:.4f}, top-{TOPK} overlap {overlap:.4f}; "
+        f"code perplexity {float(out['vq_results']['code_perplexity']):.3f}")
+    if tuple(feats.shape) != (b, gallery.shape[1]) or not bool(torch.isfinite(feats).all()):
+        fail(f"{label}: features {tuple(feats.shape)}, finite {bool(torch.isfinite(feats).all())}")
+    if launches != expect:
+        fail(f"{label}: kernel launches {launches}, expected {expect}")
+    if score_cos < MIN_COSINE or feat_cos < MIN_COSINE or id_share < MIN_KEYWORD_AGREEMENT:
+        fail(f"{label}: the kernel path disagrees with the plain path")
+    if tuple(top.shape) != (b, TOPK):
+        fail(f"{label}: top-k shape {tuple(top.shape)}")
+    return launches
+
+
+def phase_cascaded_throughput(model, params, state, gallery, smi):
+    import torch
+
+    from speechclip_tpu_torch.ops.attention import attention_backend
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for batch in (256, 128):
+        try:
+            wav, wav_len = _wavs(batch, WAV_SAMPLES, WAV_SAMPLES // 2, gen)
+            rates = {}
+            for label, (backend, _) in CASCADED_PATHS.items():
+                with attention_backend(backend):
+                    for p in ("kernel", "plain"):
+                        rates[label, p] = _utt_per_s(model, params, gallery, wav, wav_len,
+                                                     p == "plain", state, "cascaded_audio_feat")
+            break
+        except torch.cuda.OutOfMemoryError:
+            say(f"phase 10: batch {batch} does not fit; halving")
+            torch.cuda.empty_cache()
+    else:
+        fail("no cascaded throughput batch fits")
+    for label in CASCADED_PATHS:
+        say(f"phase 10 {label} encode+retrieve throughput at B={batch} on {smi}: kernel path "
+            f"{rates[label, 'kernel']:.2f} utt/s, plain path {rates[label, 'plain']:.2f} utt/s "
+            f"(median of 3, host clock, after one warm-up)")
+    return rates
+
+
+def phase_profile(model, params, gallery, smi, cascaded):
     """Where the time goes: per path, the wall time of one encode + retrieve
     step (median of 3, host clock), then one step under torch.profiler: the
     device time of its kernels, the largest of them, and the step's peak
-    memory. The main path runs at the throughput batch of phase 4."""
+    memory. The main and cascaded paths run at the throughput batch of
+    phases 4 and 10. ``cascaded``: (model, params, state) of the cascaded
+    branch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -432,15 +728,20 @@ def phase_profile(model, params, gallery, smi):
     from speechclip_tpu_torch import retrieve
     from speechclip_tpu_torch.ops.attention import attention_backend
 
-    for label, (b, samples, shortest, backend, _) in PATHS.items():
+    runs = [(label, b, samples, shortest, backend, model, params, {}, "parallel_audio_feat")
+            for label, (b, samples, shortest, backend, _) in PATHS.items()]
+    runs += [(label, 256, WAV_SAMPLES, WAV_SAMPLES // 2, backend, *cascaded, "cascaded_audio_feat")
+             for label, (backend, _) in CASCADED_PATHS.items()]
+    for label, b, samples, shortest, backend, model, params, state, key in runs:
         b = 256 if label == "main" else b
         gen = torch.Generator(device="cuda").manual_seed(8)
         wav, wav_len = _wavs(b, samples, shortest, gen)
         with attention_backend(backend):
-            wall_ms = 1000.0 * b / _utt_per_s(model, params, gallery, wav, wav_len, False)
+            wall_ms = 1000.0 * b / _utt_per_s(model, params, gallery, wav, wav_len, False,
+                                              state, key)
             torch.cuda.reset_peak_memory_stats()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                feats = model.encode_speech(params, wav, wav_len)["parallel_audio_feat"]
+                feats = model.encode_speech(params, state, wav, wav_len)[key]
                 retrieve(feats, gallery, TOPK)
                 torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -454,6 +755,57 @@ def phase_profile(model, params, gallery, smi):
                         for name, ms, n in dev[:12])
         say(f"profile {label} B={b} x {samples} samples (backend {backend}) on {smi}: "
             f"wall {wall_ms:.3f} ms, device {total:.3f} ms, peak {peak:.2f} GiB; top: {top}")
+
+
+def phase_frontend_split(model, params, smi):
+    """The HuBERT front end in parts, at the main path's shapes: conv0 +
+    GroupNorm + GELU and conv1..6 on one 64-utterance chunk of 6.4 s (as
+    ``models/hubert.py`` runs them), and the grouped positional conv on the
+    whole (256, 319, 768) batch; CUDA-event medians, and the kernels each
+    part launches (torch.profiler), so that the profile's conv kernels can
+    be told apart."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from speechclip_tpu_torch.models import hubert
+    from speechclip_tpu_torch.ops.basic import gelu
+
+    cfg, ae = model.audio_cfg, params["audio_encoder"]
+    convs = ae["feature_extractor"]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    wav, _ = _wavs(64, WAV_SAMPLES, WAV_SAMPLES // 2, gen)
+    wav = wav.to(model.compute_dtype)[:, None, :]
+
+    def conv0():
+        x = hubert._conv1d(wav, convs[0]["w"], stride=cfg.conv_layers[0][2])
+        return gelu(hubert._group_norm_per_channel(x, convs[0]["norm"]))
+
+    x0 = conv0()
+
+    def conv1_6():
+        x = x0
+        for layer, (_c, _k, stride) in zip(convs[1:], cfg.conv_layers[1:]):
+            x = gelu(hubert._conv1d(x, layer["w"], stride=stride))
+        return x
+
+    feat = torch.randn(256, 319, cfg.encoder_embed_dim, generator=gen,
+                       device="cuda").to(model.compute_dtype)
+
+    def pos_conv():
+        return hubert.pos_conv_apply(ae["encoder"]["pos_conv"], cfg, feat)
+
+    for name, fn in (("conv0 + GroupNorm + GELU, B=64", conv0), ("conv1..6 + GELU, B=64", conv1_6),
+                     ("pos_conv (k=128, 16 groups), B=256", pos_conv)):
+        ms = cuda_time_ms(fn)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = sorted(((e.key, e.self_device_time_total / 1000.0, e.count)
+                          for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                         key=lambda r: -r[1])
+        top = "; ".join(f"{k[:60]} {t:.3f} ms x{n}" for k, t, n in kernels[:4])
+        say(f"front end {name} on {smi}: {ms:.4f} ms (CUDA-event median of 20); kernels: {top}")
 
 
 def phase_core_ab():
@@ -497,18 +849,22 @@ def phase_core_ab():
                 fail(f"core A/B: {name} disagrees with masked_sdpa")
 
 
+# kernel -> (source, the TPU kernel it replaces, the phase-2 row whose
+# times and bound it reports, the path whose launches it reports)
 REPLACES = {
     "mha_layer_block": ("speechclip_tpu_torch/csrc/attention_core.cu",
-                        "speechclip_tpu/kernels/mha_block.py:59", "hubert"),
+                        "speechclip_tpu/kernels/mha_block.py:59", "hubert", "main"),
     "ffn_block": ("speechclip_tpu_torch/csrc/gemm_epilogue.cu",
-                  "speechclip_tpu/kernels/ffn_block.py:40", "hubert"),
+                  "speechclip_tpu/kernels/ffn_block.py:40", "hubert", "main"),
     "attention_vmem": ("speechclip_tpu_torch/csrc/attention_vmem.cu",
-                       "speechclip_tpu/kernels/attention_vmem.py:64", "hubert 17s"),
+                       "speechclip_tpu/kernels/attention_vmem.py:64", "hubert 17s", "long 17s"),
     "flash_attention": ("speechclip_tpu_torch/csrc/flash_attention.cu",
-                        "speechclip_tpu/kernels/flash_attention.py:38", "flash backend"),
+                        "speechclip_tpu/kernels/flash_attention.py:38", "cascaded 768",
+                        "cascaded pallas"),
+    "fused_conv_chain": ("speechclip_tpu_torch/csrc/conv_chain.cu",
+                         "speechclip_tpu/kernels/conv_frontend.py:74", "hubert conv1..6",
+                         "conv A/B"),
 }
-PATH_OF = {"mha_layer_block": "main", "ffn_block": "main", "attention_vmem": "long 17s",
-           "flash_attention": "flash backend"}
 
 
 def main(argv) -> int:
@@ -530,20 +886,20 @@ def main(argv) -> int:
         print(f"speechclip_tpu_torch not importable beside this script: {e}", file=sys.stderr)
         return 2
 
-    from speechclip_tpu_torch.models.speechclip import cast_params
+    from speechclip_tpu_torch import base_config, shipped_cascaded_config
 
     smi = phase_card_and_build()
     kern = None if profile_only else phase_kernels()
 
-    model = _model(batch_chunk=64)
+    model, params, _ = _model(base_config())
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = cast_params(model.init(gen), model.compute_dtype)
     gallery = torch.nn.functional.normalize(
         torch.randn(GALLERY, model.config.clip_embed_dim, generator=gen, device="cuda"),
         dim=-1,
     )
     if profile_only:
-        phase_profile(model, params, gallery, smi)
+        phase_profile(model, params, gallery, smi, _model(shipped_cascaded_config()))
+        phase_frontend_split(model, params, smi)
         phase_core_ab()
         return 0
     launches = {"main": phase_path(3, "main", model, params, gallery, seed=2)}
@@ -553,19 +909,32 @@ def main(argv) -> int:
     launches["flash backend"] = phase_path(6, "flash backend", model, params, gallery, seed=7)
     for label in ("long 17s", "long 12s", "flash backend"):
         phase_path_throughput(label, model, params, gallery, smi)
+    del model, params
+    torch.cuda.empty_cache()
+
+    launches["conv A/B"] = phase_conv_ab(smi)
+    model, params, state = _model(shipped_cascaded_config())
+    for i, label in enumerate(CASCADED_PATHS):
+        launches[label] = phase_cascaded(label, model, params, state, gallery, seed=12 + i)
+    phase_cascaded_throughput(model, params, state, gallery, smi)
 
     kernels = []
-    for name, (source, replaces, row) in REPLACES.items():
-        timed = next(r for label, r in kern[name].items() if label.startswith(row))
+    for name, (source, replaces, row, path) in REPLACES.items():
+        label, timed = next((label, r) for label, r in kern[name].items() if label.startswith(row))
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": launches[PATH_OF[name]][name],
+            "launches": launches[path][name],
             "max_abs_err": max(r["err"] for r in kern[name].values()),
             "ms": timed["ms"],
             "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound_ms"],
+            "bound_by": timed["bound_by"],
+            "library_ms": timed["library_ms"],
+            "path": path,
+            "shape": label,
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

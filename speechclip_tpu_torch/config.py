@@ -6,6 +6,14 @@ a 768 -> 512 projection into the ViT-B/32 image-embedding space, bf16).
 ``tiny_config()`` keeps that topology at tiny widths for the CPU tests.
 Both mirror the JAX package's ``flagship_config()`` /
 ``flagship_tiny_config()`` with the cascaded objective weight set to 0.
+
+The cascaded branch (K keyword CLS rows -> one 768-wide attention head ->
+kw-BN -> VQ over the CLIP subword vocabulary -> the CLIP text tower):
+``base_cascaded_config()`` is the JAX ``bench_variant_config("base_casc")``
+(full 49408-row vocabulary); ``shipped_cascaded_config()`` is
+``configs/base/spchclp_c.yaml`` (the reduced Flickr vocabulary, 8112 rows);
+``tiny_flagship_config()`` is ``flagship_tiny_config()`` with both branches
+live.
 """
 
 from __future__ import annotations
@@ -32,6 +40,44 @@ class BranchConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class CascadedBranchConfig:
+    """``model_settings.cascaded_branch``, eval mode: the branch body
+    (``transformer_type`` and its ``transformer_args``), the keywords
+    (``keyword.number``, ``keyword.kw_projection.dimensions``,
+    ``keyword.batchnorms``) and the VQ's ``vq.args``."""
+
+    transformer_type: str = "MultiheadAttentionAndNorm"
+    n_layers: int = 1
+    d_model: int = 768
+    nhead: int = 1
+    dim_feedforward: int = 3072
+    activation: str = "gelu"
+    layer_norm_eps: float = 1e-5
+    norm_first: bool = False
+    keyword_number: int = 8
+    kw_projection: Optional[Tuple[int, ...]] = None
+    batchnorm_type: Optional[str] = "eachKw"  # None: no kw-BN
+    bn_std_scale: Union[float, Tuple[float, ...]] = 1.0
+    bn_parallel: bool = True
+    vq_temp: Union[str, float] = "fixed=0.1"
+    use_gumbel: bool = False
+    hard: bool = True
+    ground_truth_perplexity: Optional[float] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    """The CLIP text tower (ViT-B/32's by default)."""
+
+    vocab_size: int = 49408
+    context_length: int = 77
+    width: int = 512
+    layers: int = 12
+    heads: int = 8
+    output_dim: int = 512
+
+
+@dataclasses.dataclass(frozen=True)
 class SpeechCLIPConfig:
     audio: HubertConfig = HUBERT_BASE
     audio_encoder_type: str = "FairseqHubert"
@@ -44,15 +90,37 @@ class SpeechCLIPConfig:
     parallel_branch: BranchConfig = BranchConfig()
     # model_settings.parallel_branch_projection.dimensions, when set
     parallel_branch_projection: Optional[Tuple[int, ...]] = None
+    cascaded_branch: CascadedBranchConfig = CascadedBranchConfig()
+    # model_settings.cascaded_branch_projection.dimensions, when set
+    cascaded_branch_projection: Optional[Tuple[int, ...]] = None
+    clip_text: CLIPTextConfig = CLIPTextConfig()
+    # clip.reduce_subword_embbedding: a (V_red, 2) table of original ids and
+    # counts; the text tower's token table is cut to those rows
+    reduce_subword_embedding: Optional[str] = None
     clip_embed_dim: int = 512  # ViT-B/32 image embedding width
     precision: Union[int, str] = 16  # 16 / "bf16" -> bf16, 32 -> f32
+
+
+FLICKR_VOCAB = "assets/flickr_stat/text_clip_vocab_usage_byfreq.npy"
 
 
 def base_config() -> SpeechCLIPConfig:
     return SpeechCLIPConfig()
 
 
-def tiny_config() -> SpeechCLIPConfig:
+def base_cascaded_config() -> SpeechCLIPConfig:
+    """SpeechCLIP base, cascaded branch only, full CLIP vocabulary."""
+    return SpeechCLIPConfig(parallel_objective_weight=0.0, cascaded_objective_weight=1.0)
+
+
+def shipped_cascaded_config() -> SpeechCLIPConfig:
+    """``configs/base/spchclp_c.yaml``: the cascaded branch over the reduced
+    Flickr subword vocabulary."""
+    return dataclasses.replace(base_cascaded_config(), reduce_subword_embedding=FLICKR_VOCAB)
+
+
+def tiny_flagship_config() -> SpeechCLIPConfig:
+    """Both branches live at tiny widths (``flagship_tiny_config()``)."""
     return SpeechCLIPConfig(
         audio=HubertConfig(
             conv_layers=((16, 10, 5), (16, 3, 2), (16, 3, 2)),
@@ -62,6 +130,13 @@ def tiny_config() -> SpeechCLIPConfig:
             encoder_heads=4,
             downsample_rate=20,
         ),
+        cascaded_objective_weight=1.0,
         parallel_branch=BranchConfig(d_model=32, nhead=4, dim_feedforward=64),
+        cascaded_branch=CascadedBranchConfig(d_model=32, dim_feedforward=64, keyword_number=4),
+        clip_text=CLIPTextConfig(vocab_size=64, width=32, layers=2, heads=4, output_dim=16),
         clip_embed_dim=16,
     )
+
+
+def tiny_config() -> SpeechCLIPConfig:
+    return dataclasses.replace(tiny_flagship_config(), cascaded_objective_weight=0.0)

@@ -5,8 +5,11 @@ The input is the JAX params pytree with every leaf already a numpy array
 packages keep linear weights as (in, out) for ``y = x @ w + b``, so those
 copy straight across. Convolution kernels change layout: JAX's WIO
 ``(k, in / groups, out)`` becomes torch's ``(out, in / groups, k)``.
-Subtrees the port does not run (the CLIP towers, the loss temperature, the
-cascaded branch) are dropped.
+Subtrees the port does not run (the CLIP image tower, the loss
+temperature) are dropped; the CLIP text tower (``clip.text``) is carried
+with the cascaded branch, which runs it. The state tree (the cascaded
+branch's kw-BN running statistics) comes across with
+``speechclip_state_from_jax``.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ from typing import Any
 import numpy as np
 import torch
 
-PORT_KEYS = ("audio_encoder", "weighted_sum", "parallel_branch", "p_branch_proj")
+PORT_KEYS = ("audio_encoder", "weighted_sum", "parallel_branch", "p_branch_proj",
+             "cascaded_branch", "c_branch_proj")
 
 
 def _tensors(tree: Any) -> Any:
@@ -37,6 +41,8 @@ def speechclip_params_from_jax(tree: dict) -> dict:
     """JAX ``SpeechCLIPModel.init`` params (numpy leaves) -> the port's f32
     params dict on the CPU (cast with ``models.speechclip.cast_params``)."""
     params = {k: _tensors(tree[k]) for k in PORT_KEYS if tree.get(k) is not None}
+    if "cascaded_branch" in params:
+        params["clip"] = {"text": _tensors(tree["clip"]["text"])}
     ae = params.get("audio_encoder")
     if ae is not None:
         for layer in ae["feature_extractor"]:
@@ -44,3 +50,9 @@ def speechclip_params_from_jax(tree: dict) -> dict:
         pos = ae["encoder"]["pos_conv"]
         pos["w"] = _wio_to_oik(pos["w"])
     return params
+
+
+def speechclip_state_from_jax(state: dict) -> dict:
+    """JAX ``SpeechCLIPModel.init`` state (numpy leaves; the kw-BN running
+    mean and var under ``cascaded_branch.bn``) -> the port's f32 state."""
+    return {k: _tensors(v) for k, v in state.items()}

@@ -37,6 +37,18 @@
 // latency hiding of 2 blocks per SM (87 KB of shared memory each at Dh =
 // 128) bound it. The head dim is a template parameter padded to 16 (zero
 // columns in shared memory), 16..128.
+//
+// Wider heads (the cascaded branch's single 768-wide head) take
+// flash_kernel_wide: a 64 x 768 K or V stage would be 96 KB and one row's f32
+// output accumulator 384 registers a thread, so the head dim is cut into
+// 128-wide chunks (the TPU kernel pads Dh to a multiple of 128 the same
+// way). One block owns (b, h, 64-query tile, one 128-wide chunk of output
+// columns): for each 64-key block it accumulates S = Q K^T over every Dh
+// chunk, streaming (Q chunk, K chunk) pairs through two shared-memory
+// stages, then runs the same online softmax and adds P V for its own 128
+// columns only. Q K^T is recomputed once per output chunk (6x at Dh = 768),
+// which at the cascaded shape is a few tens of GFLOP; the rounding points
+// are those of the narrow kernel (f32 scores and softmax, p = hi + lo).
 
 #include "common.cuh"
 
@@ -244,6 +256,197 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(scl::AttnArgs a) {
   }
 }
 
+constexpr int DC = 128;  // head-dim chunk of the wide kernel
+constexpr int LDC = DC + 8;
+
+// One 64-row x 128-column chunk of a (rows, Dh) operand into shared memory;
+// rows past n_rows and columns past dh are zero-filled.
+__device__ __forceinline__ void load_chunk(__nv_bfloat16* dst, const __nv_bfloat16* base,
+                                           long long row_stride, int r0, int n_rows,
+                                           int c0, int dh) {
+  constexpr int CH = DC / 8;
+  for (int i = threadIdx.x; i < BK * CH; i += THREADS) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool ok = r0 + r < n_rows && c0 + c < dh;
+    scl::cp_async_16(&dst[r * LDC + c], ok ? base + (r0 + r) * row_stride + c0 + c : base, ok);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) flash_kernel_wide(scl::AttnArgs a, int n_chunks) {
+  constexpr int NK = DC / 16;  // k16 steps per chunk of Q K^T
+  constexpr int NO = DC / 8;   // n8 output tiles of P V
+  constexpr int NS = BK / 8;   // n8 score tiles per key block
+  constexpr int TILE = BK * LDC;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);  // 2 stages
+  __nv_bfloat16* Ks = Qs + 2 * TILE;                             // 2 stages
+  __nv_bfloat16* Vs = Ks + 2 * TILE;                             // 2 stages
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const int q0 = (blockIdx.x / n_chunks) * BQ, oc0 = (blockIdx.x % n_chunks) * DC;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int S = a.S, L = a.L, dh = a.dh;
+  const int len = a.lens ? min(a.lens[b], S) : S;
+  const __nv_bfloat16* qb = a.q + b * a.qs[0] + h * a.qs[1] + q0 * a.qs[2];
+  const __nv_bfloat16* kb = a.k + b * a.ks[0] + h * a.ks[1];
+  const __nv_bfloat16* vb = a.v + b * a.vs[0] + h * a.vs[1];
+
+  int n_blocks = (S + BK - 1) / BK;
+  if (len > 0) {
+    n_blocks = min(n_blocks, (len + BK - 1) / BK);
+    if (a.causal) n_blocks = min(n_blocks, (min(q0 + BQ, L) - 1) / BK + 1);
+  }
+  const int steps = n_blocks * n_chunks;
+  // step i loads Q chunk j and K block kbk's chunk j (i = kbk * n_chunks + j)
+  // into stage i & 1, and with j == 0 block kbk's V columns into stage kbk & 1
+  auto load_step = [&](int i) {
+    const int kbk = i / n_chunks, j = i % n_chunks;
+    load_chunk(Qs + (i & 1) * TILE, qb, a.qs[2], 0, L - q0, j * DC, dh);
+    load_chunk(Ks + (i & 1) * TILE, kb, a.ks[2], kbk * BK, S, j * DC, dh);
+    if (j == 0) load_chunk(Vs + (kbk & 1) * TILE, vb, a.vs[2], kbk * BK, S, oc0, dh);
+    scl::cp_async_commit();
+  };
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float s[NS][4];
+  float m0 = scl::kNegInf, m1 = scl::kNegInf, l0 = 0.f, l1 = 0.f;
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+
+  load_step(0);
+  for (int i = 0; i < steps; ++i) {
+    if (i + 1 < steps) {
+      load_step(i + 1);
+      scl::cp_async_wait<1>();
+    } else {
+      scl::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int kbk = i / n_chunks, j = i % n_chunks;
+    if (j == 0) {
+#pragma unroll
+      for (int t = 0; t < NS; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+    }
+    const __nv_bfloat16* Qst = Qs + (i & 1) * TILE + warp * 16 * LDC;
+    const __nv_bfloat16* Kst = Ks + (i & 1) * TILE;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      const __nv_bfloat16* p = Qst + kk * 16 + tig * 2;
+      uint32_t qf[4];
+      qf[0] = *reinterpret_cast<const uint32_t*>(p + g * LDC);
+      qf[1] = *reinterpret_cast<const uint32_t*>(p + (g + 8) * LDC);
+      qf[2] = *reinterpret_cast<const uint32_t*>(p + g * LDC + 8);
+      qf[3] = *reinterpret_cast<const uint32_t*>(p + (g + 8) * LDC + 8);
+#pragma unroll
+      for (int t = 0; t < NS; ++t) {
+        const __nv_bfloat16* kp = Kst + (t * 8 + g) * LDC + kk * 16 + tig * 2;
+        mma16816(s[t], qf, *reinterpret_cast<const uint32_t*>(kp),
+                 *reinterpret_cast<const uint32_t*>(kp + 8));
+      }
+    }
+    if (j == n_chunks - 1) {
+      // scale, mask and the online softmax, as in flash_kernel
+      float mx0 = scl::kNegInf, mx1 = scl::kNegInf;
+#pragma unroll
+      for (int t = 0; t < NS; ++t) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = kbk * BK + t * 8 + tig * 2 + (e & 1);
+          const int row = e < 2 ? row0 : row1;
+          float x = s[t][e] * a.scale;
+          if (col >= S) {
+            x = -INFINITY;
+          } else if (col >= len || (a.causal && col > row)) {
+            x = scl::kNegInf;
+          }
+          s[t][e] = x;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[t][0], s[t][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[t][2], s[t][3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
+      m0 = mn0, m1 = mn1;
+      l0 *= al0, l1 *= al1;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][0] *= al0, acc[n][1] *= al0;
+        acc[n][2] *= al1, acc[n][3] *= al1;
+      }
+#pragma unroll
+      for (int t = 0; t < NS; ++t) {
+        s[t][0] = expf(s[t][0] - mn0), s[t][1] = expf(s[t][1] - mn0);
+        s[t][2] = expf(s[t][2] - mn1), s[t][3] = expf(s[t][3] - mn1);
+        l0 += s[t][0] + s[t][1];
+        l1 += s[t][2] + s[t][3];
+      }
+      const __nv_bfloat16* Vst = Vs + (kbk & 1) * TILE;
+#pragma unroll
+      for (int t = 0; t < BK / 16; ++t) {
+        uint32_t hi[4], lo[4];
+        const float* c0 = s[2 * t];
+        const float* c1 = s[2 * t + 1];
+        const float pv[8] = {c0[0], c0[1], c0[2], c0[3], c1[0], c1[1], c1[2], c1[3]};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const __nv_bfloat16 h0 = __float2bfloat16_rn(pv[2 * r]);
+          const __nv_bfloat16 h1 = __float2bfloat16_rn(pv[2 * r + 1]);
+          hi[r] = pack2(h0, h1);
+          lo[r] = pack2f(pv[2 * r] - __bfloat162float(h0), pv[2 * r + 1] - __bfloat162float(h1));
+        }
+        const __nv_bfloat16* vr = Vst + (t * 16 + tig * 2) * LDC + g;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          const __nv_bfloat16* p = vr + n * 8;
+          const uint32_t b0 = pack2(p[0], p[LDC]);
+          const uint32_t b1 = pack2(p[8 * LDC], p[9 * LDC]);
+          mma16816(acc[n], hi, b0, b1);
+          mma16816(acc[n], lo, b0, b1);
+        }
+      }
+    }
+    __syncthreads();  // stage i & 1 (and this block's V stage) is refilled later
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  __nv_bfloat16* ob = a.out + b * a.os[0] + h * a.os[1];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int col = oc0 + n * 8 + tig * 2;
+    if (col < dh) {
+      if (row0 < L)
+        *reinterpret_cast<uint32_t*>(ob + row0 * a.os[2] + col) =
+            pack2f(acc[n][0] / d0, acc[n][1] / d0);
+      if (row1 < L)
+        *reinterpret_cast<uint32_t*>(ob + row1 * a.os[2] + col) =
+            pack2f(acc[n][2] / d1, acc[n][3] / d1);
+    }
+  }
+}
+
+int launch_wide(const scl::AttnArgs& a, cudaStream_t stream) {
+  const int smem = 6 * BK * LDC * 2;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_chunks = (a.dh + DC - 1) / DC;
+  const long long grid_x = static_cast<long long>((a.L + BQ - 1) / BQ) * n_chunks;
+  if (grid_x > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(static_cast<unsigned>(grid_x), a.H, a.B);
+  flash_kernel_wide<<<grid, THREADS, smem, stream>>>(a, n_chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int DK>
 int launch(const scl::AttnArgs& a, cudaStream_t stream) {
   const int smem = (BQ + 4 * BK) * (DK + 8) * 2;
@@ -261,11 +464,12 @@ extern "C" int scl_flash_attention(const void* q, const void* k, const void* v,
                                    const void* lens, void* out, int B, int H, int L,
                                    int S, int dh, const long long* strides, int causal,
                                    float scale, void* stream) {
-  if (dh % 8 != 0 || dh > 128 || L < 1 || S < 1 || H > 65535 || B > 65535)
+  if (dh % 8 != 0 || L < 1 || S < 1 || H > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const scl::AttnArgs a =
       scl::make_attn_args(q, k, v, lens, out, B, H, L, S, dh, strides, causal, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dh > 128) return launch_wide(a, st);
   switch (scl::round_up(dh, 16)) {
     case 16: return launch<16>(a, st);
     case 32: return launch<32>(a, st);

@@ -75,8 +75,16 @@ def key_mask(lens: Optional[torch.Tensor], causal: bool, l: int, s: int, device)
     return ok
 
 
-def check_attention_operands(q, k, v, lens, what: str):
-    """What the attention kernels accept; anything else raises."""
+def check_head_dim(dh: int, what: str, max_head_dim: Optional[int] = MAX_HEAD_DIM):
+    """Head dims a multiple of 8, up to ``max_head_dim`` when one is given."""
+    if dh % 8 or (max_head_dim is not None and dh > max_head_dim):
+        limit = "" if max_head_dim is None else f" up to {max_head_dim}"
+        raise ValueError(f"{what}: head dim {dh} must be a multiple of 8{limit}")
+
+
+def check_attention_operands(q, k, v, lens, what: str, max_head_dim: Optional[int] = MAX_HEAD_DIM):
+    """What the attention kernels accept (head dims a multiple of 8, up to
+    ``max_head_dim`` when one is given); anything else raises."""
     for t in (q, k, v):
         if t.device.type != "cuda":
             raise ValueError(f"{what}: kernel path needs CUDA tensors, got {t.device}")
@@ -93,8 +101,7 @@ def check_attention_operands(q, k, v, lens, what: str):
             f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
             "must be (B, H, L, Dh), (B, H, S, Dh), (B, H, S, Dh)"
         )
-    if dh % 8 or dh > MAX_HEAD_DIM:
-        raise ValueError(f"{what}: head dim {dh} must be a multiple of 8 up to {MAX_HEAD_DIM}")
+    check_head_dim(dh, what, max_head_dim)
     if lens is not None and lens.shape != (b,):
         raise ValueError(f"{what}: lens must be ({b},), got {tuple(lens.shape)}")
 

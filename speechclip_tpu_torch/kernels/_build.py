@@ -93,6 +93,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, i, i, i, i, i, strides, i, ctypes.c_float, p,
     ]
     lib.scl_flash_attention.restype = i
+    lib.scl_conv_chain_layer.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.scl_conv_chain_layer.restype = i
 
 
 def build() -> Path:

@@ -13,10 +13,11 @@ here, as in ``masked_sdpa``; the TPU kernel divides that sum by S rounded up
 to its 128-key block instead, the only place its padding shows.
 
 On a CUDA bf16 tensor it launches ``csrc/flash_attention.cu``; on a CPU
-tensor, or with ``plain=True``, it runs ``flash_attention_plain``. The TPU
-kernel has no head-dim gate; this kernel takes Dh % 8 == 0 up to 128 and
-raises on wider heads (the cascaded branch's single 768-wide head is listed
-in ROADMAP.md).
+tensor, or with ``plain=True``, it runs ``flash_attention_plain``. Like the
+TPU kernel it has no head-dim limit: Dh % 8 == 0 is all it asks. Heads up
+to 128 wide run ``flash_kernel<Dh>``; wider ones (the cascaded branch's
+single 768-wide head) run ``flash_kernel_wide``, which cuts Dh into
+128-wide chunks, one block per chunk of output columns.
 """
 
 from __future__ import annotations
@@ -31,8 +32,9 @@ from ._sdpa_ref import NEG_INF
 from ._attention_common import check_attention_operands, empty_heads_out, key_mask, launch_args
 
 # Tile constants of csrc/flash_attention.cu: query rows per block (16 per
-# warp) and keys per streamed K/V block.
-FLASH_BQ, FLASH_BK = 64, 64
+# warp), keys per streamed K/V block, and the head-dim chunk of the wide
+# kernel (Dh > 128).
+FLASH_BQ, FLASH_BK, WIDE_CHUNK = 64, 64, 128
 
 
 def flash_attention_plain(q, k, v, lens: Optional[torch.Tensor], causal: bool = False):
@@ -49,8 +51,12 @@ def flash_attention_plain(q, k, v, lens: Optional[torch.Tensor], causal: bool = 
 
 
 def smem_bytes(dh: int) -> int:
-    """Shared memory of one block of ``csrc/flash_attention.cu``: the Q tile
-    and two stages of K and V blocks, rows padded to 16 + 8 elements."""
+    """Shared memory of one block of ``csrc/flash_attention.cu``: up to Dh =
+    128, the Q tile and two stages of K and V blocks, rows padded to 16 + 8
+    elements; past it, two stages each of a Q chunk, a K chunk and a V
+    chunk, 128 + 8 elements a row."""
+    if dh > WIDE_CHUNK:
+        return 6 * FLASH_BK * (WIDE_CHUNK + 8) * 2
     ld = (dh + 15) // 16 * 16 + 8
     return (FLASH_BQ + 4 * FLASH_BK) * ld * 2
 
@@ -61,7 +67,7 @@ def flash_attention(q, k, v, lens: Optional[torch.Tensor] = None,
     ``plain``: the plain version. CUDA tensor: the kernel, or an exception."""
     if plain or q.device.type == "cpu":
         return flash_attention_plain(q, k, v, lens, causal)
-    check_attention_operands(q, k, v, lens, "flash_attention")
+    check_attention_operands(q, k, v, lens, "flash_attention", max_head_dim=None)
     b, h, l, dh = q.shape
     s = k.shape[2]
     out = empty_heads_out(b, h, l, dh, q.device)

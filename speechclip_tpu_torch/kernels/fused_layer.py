@@ -1,5 +1,7 @@
-"""One transformer encoder layer as the two fused half-layers (port of
-speechclip_tpu/kernels/fused_layer.py ``fused_encoder_layer``).
+"""One transformer encoder layer as the two fused half-layers, and the
+cascaded branch's MHA-and-norm as one (port of
+speechclip_tpu/kernels/fused_layer.py ``fused_encoder_layer`` and
+``fused_mha_and_norm``).
 
 Both layer flavors of the model have the same algebra: fairseq
 TransformerSentenceEncoderLayer (HuBERT) and torch nn.TransformerEncoderLayer
@@ -70,3 +72,33 @@ def fused_encoder_layer(
     h_in = layer_norm(ln2, h, eps) if mode == "pre" else h
     out = linear(fc2, gelu(linear(fc1, h_in)))
     return layer_norm(ln2, h + out, eps) if mode == "post" else h + out
+
+
+def fused_mha_and_norm(
+    src: torch.Tensor,  # (B, T, D)
+    lens: Optional[torch.Tensor],
+    *,
+    heads: int,
+    eps: float,
+    attn,  # {"in_proj", "out_proj"}
+    norm,  # {"scale", "bias"}
+    plain: bool = False,
+) -> Optional[torch.Tensor]:
+    """LayerNorm(MHA(src) + src) as ``mha_layer_block`` with ln_mode
+    "post", or None where the JAX gates (bf16, backend "auto",
+    ``block_eligible``) send it to the unfused path. The cascaded branch's
+    one 768-wide head fails ``block_eligible`` (Dh > 128), so it always
+    returns None there."""
+    b, t, d = src.shape
+    if (src.dtype != torch.bfloat16 or get_attention_backend() != "auto"
+            or not block_eligible(b, t, d, heads, src.element_size())):
+        return None
+    bi = attn["in_proj"]["b"]
+    bo = attn["out_proj"]["b"]
+    if bi is None:
+        bi = torch.zeros(3 * d, dtype=torch.float32, device=src.device)
+    if bo is None:
+        bo = torch.zeros(d, dtype=torch.float32, device=src.device)
+    mha = mha_layer_block_plain if plain else mha_layer_block
+    return mha(src, attn["in_proj"]["w"], bi, attn["out_proj"]["w"], bo,
+               norm["scale"], norm["bias"], lens, heads, "post", eps)

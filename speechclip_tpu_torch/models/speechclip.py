@@ -1,28 +1,42 @@
-"""SpeechCLIP speech side, parallel branch, eval mode (port of the parallel
-subset of speechclip_tpu/models/speechclip.py: ``init``, ``forward_audio``
-and ``encode_speech``).
+"""The SpeechCLIP speech side, eval mode (port of
+speechclip_tpu/models/speechclip.py: ``init``, ``forward_audio``,
+``encode_speech``, ``extract_hidden_states``, ``get_attention_weights``
+and ``get_attention_map``), with the parallel branch, the cascaded branch
+or both.
 
 Parameters are a plain nested dict with the JAX package's keys
-(``audio_encoder``, ``weighted_sum``, ``parallel_branch``, optional
-``p_branch_proj``). ``cast_params`` moves them to a device once: matrices
-(and conv kernels, and the cls rows) to the compute dtype, vectors (biases,
-LayerNorm scale and bias, weighted-sum logits) kept in f32, as the TPU
-kernels read them.
+(``audio_encoder``, ``weighted_sum``, ``parallel_branch``,
+``p_branch_proj``, ``cascaded_branch``, ``c_branch_proj``, and
+``clip.text`` for the cascaded branch's CLIP text tower); the state dict
+holds the kw-BN running statistics (``cascaded_branch.bn``).
+``cast_params`` moves either to a device once: matrices (and conv kernels,
+the cls rows) to the compute dtype, vectors (biases, LayerNorm scale and
+bias, weighted-sum logits, kw-BN) kept in f32, as the TPU kernels read
+them. The CLIP token table stays f32 too: the JAX model keeps its params
+f32, and the VQ scores keywords against that table in f32, where a
+near-tie argmax can flip on a bf16-rounded table.
+
+The model and ``cast_params`` run on the card unless the caller asks for
+the CPU (``device="cpu"``); without a card they raise.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import os
+from pathlib import Path
+from typing import Any, Dict, Tuple
 
 import torch
 
 from ..config import SpeechCLIPConfig
 from ..ops.basic import Params, l2_normalize
 from ..ops.mlp import mlp_apply, mlp_init
+from ..ops.transformer import TRANSFORMER_TYPES
 from ..ops.weighted_sum import weighted_sum_apply, weighted_sum_init
-from . import branches, hubert
+from . import branches, clip as clip_mod, hubert
 
 WEIGHTED_SUM_MODE = "weighted_sum"
+REPO_ROOT = Path(__file__).resolve().parents[2]
 
 
 def compute_dtype(precision) -> torch.dtype:
@@ -32,66 +46,118 @@ def compute_dtype(precision) -> torch.dtype:
     return torch.float32
 
 
-def cast_params(params, dtype: torch.dtype, device=None):
-    """Tensors of rank >= 2 -> ``dtype``; rank <= 1 -> f32; all on
-    ``device``. Lists, dicts and None are kept as they are."""
-    if params is None:
-        return None
-    if isinstance(params, dict):
-        return {k: cast_params(v, dtype, device) for k, v in params.items()}
-    if isinstance(params, (list, tuple)):
-        return type(params)(cast_params(v, dtype, device) for v in params)
-    return params.to(device=device, dtype=dtype if params.dim() >= 2 else torch.float32)
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without a card raises
+    (nothing quietly runs on the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the port on the CPU")
+    return dev
+
+
+F32_KEYS = ("token_embedding",)  # matrices cast_params keeps in f32
+
+
+def cast_params(params, dtype: torch.dtype, device="cuda"):
+    """Tensors of rank >= 2 -> ``dtype`` (those under F32_KEYS -> f32);
+    rank <= 1 -> f32; all on ``device`` (the card unless asked otherwise).
+    Lists, dicts and None are kept as they are."""
+    dev = resolve_device(device)
+
+    def cast(t, key=None):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: cast(v, k) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(cast(v) for v in t)
+        keep = t.dim() < 2 or key in F32_KEYS
+        return t.to(device=dev, dtype=torch.float32 if keep else dtype)
+
+    return cast(params)
+
+
+def resolve_asset_path(path: str) -> str:
+    """A config's asset path as given, else relative to the repository root
+    (the shipped vocabulary tables live under ``assets/``)."""
+    if os.path.exists(path) or os.path.isabs(path):
+        return path
+    return str(REPO_ROOT / path)
 
 
 class SpeechCLIPModel:
     """Host-side description of the model; the math lives in the package's
     functions over the params dict."""
 
-    def __init__(self, config: SpeechCLIPConfig):
+    def __init__(self, config: SpeechCLIPConfig, device="cuda"):
         if config.audio_encoder_type != "FairseqHubert":
             raise NotImplementedError(
                 f"audio encoder {config.audio_encoder_type!r}: custom upstreams "
                 "wait for the ROADMAP item 'Variants' (models/upstream.py)"
-            )
-        if config.cascaded_objective_weight > 0:
-            raise NotImplementedError(
-                "the cascaded branch waits for the ROADMAP item 'Cascaded branch'"
             )
         if config.wsum_remat:
             raise NotImplementedError(
                 "wsum_remat (the frozen weighted-sum custom VJP) waits for the "
                 "ROADMAP item 'Training'"
             )
-        if config.parallel_objective_weight <= 0:
-            raise ValueError("this port runs the parallel branch; its weight is 0")
+        self.use_parallel = config.parallel_objective_weight > 0
+        self.use_cascaded = config.cascaded_objective_weight > 0
+        if not (self.use_parallel or self.use_cascaded):
+            raise ValueError("both objective weights are 0: no branch to run")
+        if config.cascaded_branch.transformer_type not in TRANSFORMER_TYPES:
+            raise NotImplementedError(config.cascaded_branch.transformer_type)
+        self.device = resolve_device(device)
         self.config = config
         self.audio_cfg = config.audio
+        self.clip_cfg = config.clip_text
         self.compute_dtype = compute_dtype(config.precision)
         self.hidden_norm_type = (
             (config.normalize_type or "s3prl") if config.normalize_hiddenstates else None
         )
+        self.keyword_num = config.cascaded_branch.keyword_number
+        self.reduced_vocab = None
+        if config.reduce_subword_embedding:
+            self.reduced_vocab = clip_mod.load_reduced_vocab(
+                resolve_asset_path(config.reduce_subword_embedding)
+            )
+        # CLIP vocabulary convention: SOT and EOT are the last two ids
+        full_sot, full_eot = self.clip_cfg.vocab_size - 2, self.clip_cfg.vocab_size - 1
+        if self.reduced_vocab is not None:
+            self.sot_id = self.reduced_vocab.original_to_reduced[full_sot]
+            self.eot_id = self.reduced_vocab.original_to_reduced[full_eot]
+        else:
+            self.sot_id, self.eot_id = full_sot, full_eot
 
-    def init(self, generator: torch.Generator) -> Params:
-        """Random f32 params on ``generator.device`` (cast them with
-        ``cast_params`` before running)."""
+    def init(self, seed: int = 0) -> Tuple[Params, Params]:
+        """Random f32 (params, state) on the model's device from a generator
+        seeded with ``seed`` (cast them with ``cast_params`` before
+        running)."""
         cfg = self.config
-        params: Params = {
-            "audio_encoder": hubert.hubert_init(generator, self.audio_cfg),
-            "parallel_branch": branches.parallel_branch_init(
-                generator,
-                cfg.parallel_branch,
-                self.audio_cfg.encoder_embed_dim,
-                cfg.clip_embed_dim,
-            ),
-        }
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        params: Params = {"audio_encoder": hubert.hubert_init(gen, self.audio_cfg)}
+        state: Params = {}
         if cfg.feat_select_idx == WEIGHTED_SUM_MODE:
-            params["weighted_sum"] = weighted_sum_init(
-                self.audio_cfg.num_hidden_states, generator.device
+            params["weighted_sum"] = weighted_sum_init(self.audio_cfg.num_hidden_states, self.device)
+        if self.use_cascaded:
+            clip_params = {"text": clip_mod.text_init(gen, self.clip_cfg)}
+            if self.reduced_vocab is not None:
+                clip_params = clip_mod.reduce_token_embedding(clip_params, self.reduced_vocab)
+            params["clip"] = clip_params
+            params["cascaded_branch"], c_state = branches.cascaded_branch_init(
+                gen, cfg.cascaded_branch, self.audio_cfg.encoder_embed_dim,
+                self.clip_cfg.width, clip_params["text"]["token_embedding"],
+            )
+            if c_state:
+                state["cascaded_branch"] = c_state
+        if self.use_parallel:
+            params["parallel_branch"] = branches.parallel_branch_init(
+                gen, cfg.parallel_branch, self.audio_cfg.encoder_embed_dim, cfg.clip_embed_dim,
             )
         if cfg.parallel_branch_projection is not None:
-            params["p_branch_proj"] = mlp_init(generator, cfg.parallel_branch_projection)
-        return params
+            params["p_branch_proj"] = mlp_init(gen, cfg.parallel_branch_projection)
+        if cfg.cascaded_branch_projection is not None:
+            params["c_branch_proj"] = mlp_init(gen, cfg.cascaded_branch_projection)
+        return params, state
 
     def forward_audio(
         self,
@@ -99,9 +165,12 @@ class SpeechCLIPModel:
         wav: torch.Tensor,  # (B, L) float or int16 PCM, zero-padded
         wav_len: torch.Tensor,  # (B,) int
         plain: bool = False,
+        return_hidden_states: bool = False,
     ):
-        """-> (audio features, feature lengths). int16 PCM is rescaled by
-        1/32768 in f32 first (exact), then cast to the compute dtype."""
+        """-> (audio features, feature lengths[, hidden states]) on the
+        model's device. int16 PCM is rescaled by 1/32768 in f32 first
+        (exact), then cast to the compute dtype."""
+        wav, wav_len = wav.to(self.device), wav_len.to(self.device)
         if wav.dtype == torch.int16:
             wav = wav.float() * (1.0 / 32768.0)
         wav = wav.to(self.compute_dtype)
@@ -127,26 +196,114 @@ class SpeechCLIPModel:
             feat = [hidden_states[i] for i in select]
         else:
             raise KeyError(select)
+        if return_hidden_states:
+            return feat, feat_len, hidden_states
         return feat, feat_len
 
     def encode_speech(
         self,
         params: Params,
+        state: Params,
         wav: torch.Tensor,
         wav_len: torch.Tensor,
         plain: bool = False,
     ) -> Dict[str, Any]:
-        """-> {"parallel_audio_feat": (B, E) f32, L2-normalized}.
-        ``plain=True`` runs every encoder layer through the plain PyTorch
-        versions of the kernels, on any device."""
+        """-> {"cascaded_audio_feat", "vq_results", "keywords"} for the
+        cascaded branch and {"parallel_audio_feat"} for the parallel one
+        (features (B, E) f32, L2-normalized). ``plain=True`` runs every
+        kernel route through the plain PyTorch versions, on any device."""
         audio_feat, audio_len = self.forward_audio(params, wav, wav_len, plain=plain)
-        feat = branches.parallel_branch_apply(
-            params["parallel_branch"],
-            self.config.parallel_branch,
-            audio_feat,
-            audio_len,
-            plain=plain,
+        out: Dict[str, Any] = {}
+        if self.use_cascaded:
+            feat, vq_results, keywords = branches.cascaded_branch_apply(
+                params["cascaded_branch"], state.get("cascaded_branch", {}),
+                self.config.cascaded_branch, params["clip"], self.clip_cfg,
+                self.sot_id, self.eot_id, audio_feat, audio_len, plain=plain,
+            )
+            if "c_branch_proj" in params:
+                feat = mlp_apply(params["c_branch_proj"], feat)
+            out["cascaded_audio_feat"] = l2_normalize(feat.float())
+            out["vq_results"] = vq_results
+            out["keywords"] = keywords
+        if self.use_parallel:
+            feat = branches.parallel_branch_apply(
+                params["parallel_branch"], self.config.parallel_branch,
+                audio_feat, audio_len, plain=plain,
+            )
+            if "p_branch_proj" in params:
+                feat = mlp_apply(params["p_branch_proj"], feat)
+            out["parallel_audio_feat"] = l2_normalize(feat.float())
+        return out
+
+    def extract_hidden_states(self, params: Params, wav: torch.Tensor,
+                              wav_len: torch.Tensor, plain: bool = False):
+        """-> (last hidden state, every hidden state): HuBERT's, then each
+        live branch's (CLS rows stripped, the branch input dropped)."""
+        audio_feat, audio_len, hidden_states = self.forward_audio(
+            params, wav, wav_len, plain=plain, return_hidden_states=True
         )
-        if "p_branch_proj" in params:
-            feat = mlp_apply(params["p_branch_proj"], feat)
-        return {"parallel_audio_feat": l2_normalize(feat.float())}
+        hidden_states = tuple(hidden_states)
+        if self.use_cascaded:
+            extra = branches.cascaded_branch_hidden_states(
+                params["cascaded_branch"], self.config.cascaded_branch,
+                audio_feat, audio_len, plain,
+            )
+            hidden_states = hidden_states + tuple(extra[1:])
+        if self.use_parallel:
+            extra = branches.parallel_branch_hidden_states(
+                params["parallel_branch"], self.config.parallel_branch,
+                audio_feat, audio_len, plain,
+            )
+            hidden_states = hidden_states + tuple(extra[1:])
+        return hidden_states[-1], hidden_states
+
+    def get_attention_weights(self, params: Params, wav: torch.Tensor,
+                              wav_len: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """The cascaded branch's per-head CLS attention weights (B, H, K, K+T)."""
+        audio_feat, audio_len = self.forward_audio(params, wav, wav_len, plain=plain)
+        return branches.cascaded_branch_attention_map(
+            params["cascaded_branch"], self.config.cascaded_branch, audio_feat, audio_len, plain,
+        )
+
+    def get_attention_map(self, params: Params, state: Params, wav: torch.Tensor,
+                          wav_len: torch.Tensor, tokenizer=None, top_k: int = 10,
+                          plain: bool = False):
+        """-> (per utterance the CLS weights (H, K, K + len_i), per
+        utterance and keyword the top-k nearest subwords). Without a
+        tokenizer the subwords are original token ids. The special tokens
+        (SOT, EOT and original id 0) are suppressed by identity, wherever
+        they sit in a reduced table."""
+        audio_feat, audio_len = self.forward_audio(params, wav, wav_len, plain=plain)
+        branch_cfg = self.config.cascaded_branch
+        weights = branches.cascaded_branch_attention_map(
+            params["cascaded_branch"], branch_cfg, audio_feat, audio_len, plain,
+        )
+        keywords = branches.project_keywords_for_visualization(
+            params["cascaded_branch"], state.get("cascaded_branch", {}), branch_cfg,
+            audio_feat, audio_len, plain,
+        )
+        scores = branches.cosine_scores(keywords, params["clip"]["text"]["token_embedding"])
+        suppress = {self.sot_id, self.eot_id}
+        if self.reduced_vocab is not None:
+            row0 = self.reduced_vocab.original_to_reduced.get(0)
+            if row0 is not None:
+                suppress.add(row0)
+        else:
+            suppress.add(0)
+        for tok in sorted(suppress):
+            scores[..., tok] -= 100.0
+        top_ids = torch.topk(scores, top_k, dim=-1).indices.cpu().numpy()
+        weights_np = weights.cpu().numpy()
+        lens = audio_len.cpu().numpy()
+        cls_weights = [weights_np[i, :, :, : int(lens[i]) + self.keyword_num]
+                       for i in range(weights_np.shape[0])]
+        topk_kw = []
+        for per_utt in top_ids:
+            rows = []
+            for per_kw in per_utt:
+                ids = [self.reduced_vocab.reduced_to_original[int(i)] if self.reduced_vocab
+                       is not None else int(i) for i in per_kw]
+                rows.append([tokenizer.decoder[o].replace("</w>", "") for o in ids]
+                            if tokenizer is not None else ids)
+            topk_kw.append(rows)
+        return cls_weights, topk_kw

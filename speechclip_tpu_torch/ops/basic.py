@@ -24,6 +24,12 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """QuickGELU ``x * sigmoid(1.702 x)`` of the CLIP towers, in the
+    activation dtype (speechclip_tpu/ops/basic.py:39-42)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
 def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
     """``x @ w + b`` in the activation dtype (the JAX package casts both
     the weight and the bias to ``x.dtype``)."""

@@ -1,0 +1,99 @@
+"""Vector quantization over the CLIP subword vocabulary at eval (port of
+speechclip_tpu/ops/vq.py): special tokens are masked out of the (B, K, V)
+cosine scores at f32 ``finfo.min``, the argmax becomes a one-hot over the
+vocabulary, and the codebook-usage diagnostics (perplexities, per-keyword
+entropy, diversity loss) come with it. The straight-through and Gumbel
+estimators are training-time and wait for the training slice; at eval the
+JAX package returns the hard one-hot whatever ``hard`` and ``use_gumbel``
+say, and so does this port.
+"""
+
+from __future__ import annotations
+
+import ast
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from .basic import Params
+
+MASK_VALUE = torch.finfo(torch.float32).min
+
+
+def parse_temp_spec(temp) -> Tuple[str, tuple]:
+    """-> (temp_type, payload): ``learnable=x`` / ``fixed=x`` -> (x,),
+    ``"(max, min, decay)"`` -> the scheduled triple."""
+    if isinstance(temp, (int, float)):
+        return "fixed", (float(temp),)
+    if not isinstance(temp, str):
+        raise TypeError(f"temperature spec {temp!r}")
+    if temp.startswith("learnable="):
+        return "learnable", (float(ast.literal_eval(temp[len("learnable="):])),)
+    if temp.startswith("fixed="):
+        return "fixed", (float(ast.literal_eval(temp[len("fixed="):])),)
+    triple = ast.literal_eval(temp)
+    if len(triple) != 3:
+        raise ValueError(f"temperature schedule {temp!r} is not (max, min, decay)")
+    return "scheduled", tuple(float(t) for t in triple)
+
+
+def vq_init(temp, device=None) -> Params:
+    """Empty unless the temperature is learnable."""
+    temp_type, payload = parse_temp_spec(temp)
+    if temp_type == "learnable":
+        return {"curr_temp": torch.tensor([payload[0]], dtype=torch.float32, device=device)}
+    return {}
+
+
+def current_temperature(params: Params, temp_spec,
+                        num_updates: Optional[torch.Tensor] = None) -> torch.Tensor:
+    temp_type, payload = parse_temp_spec(temp_spec)
+    if temp_type == "learnable":
+        return params["curr_temp"][0]
+    if temp_type == "fixed":
+        return torch.tensor(payload[0], dtype=torch.float32)
+    max_t, min_t, decay = payload
+    if num_updates is None:
+        return torch.tensor(max_t, dtype=torch.float32)
+    t = max_t * torch.pow(torch.tensor(decay), num_updates.float())
+    return torch.clamp(t, min=min_t)
+
+
+def vq_apply(
+    params: Params,
+    x: torch.Tensor,  # (B, K, V) cosine scores
+    *,
+    temp_spec,
+    prob_mask: Sequence[int] = (0, 2, 3),
+    num_updates: Optional[torch.Tensor] = None,
+    ground_truth_perplexity: Optional[float] = None,
+) -> dict:
+    """Eval-mode VQ -> the JAX package's result dict: subword_prob (the
+    one-hot, f32), targets (B, K, 1), code_perplexity, prob_perplexity,
+    ent_per_t (K,), diversity_loss, temp, num_vars."""
+    num_vars = x.shape[-1]
+    x = x.float()
+    if prob_mask:
+        masked = torch.zeros(num_vars, dtype=torch.bool, device=x.device)
+        masked[list(prob_mask)] = True
+        x = x.masked_fill(masked, MASK_VALUE)
+    result = {"num_vars": num_vars}
+    k = x.argmax(dim=-1)  # the first of equal maxima, as jnp.argmax
+    hard_x = torch.nn.functional.one_hot(k, num_vars).float()
+    hard_probs = hard_x.reshape(-1, num_vars).mean(dim=0)
+    result["code_perplexity"] = torch.exp(-(hard_probs * torch.log(hard_probs + 1e-7)).sum())
+    soft = torch.softmax(x, dim=-1)
+    avg_probs = soft.reshape(-1, num_vars).mean(dim=0)
+    result["prob_perplexity"] = torch.exp(-(avg_probs * torch.log(avg_probs + 1e-7)).sum())
+    result["ent_per_t"] = (-(soft * torch.log(soft + 1e-9)).sum(dim=-1)).mean(dim=0)
+    result["temp"] = current_temperature(params, temp_spec, num_updates)
+    result["subword_prob"] = hard_x
+    if ground_truth_perplexity is not None:
+        result["diversity_loss"] = (
+            (result["prob_perplexity"] - ground_truth_perplexity) ** 2
+            / (num_vars - ground_truth_perplexity) ** 2
+        )
+    else:
+        result["diversity_loss"] = (num_vars - result["prob_perplexity"]) / num_vars
+    result["targets"] = k[..., None]
+    return result

@@ -51,7 +51,7 @@ def branch():
     feat = rng.standard_normal((3, T, 32)).astype(np.float32)
     return dict(
         jcfg=bcfg, pcfg=port_config_from_jax(cfg).parallel_branch,
-        jparams=jparams, pparams={dt: cast_params(pparams, dt) for dt in DTYPES},
+        jparams=jparams, pparams={dt: cast_params(pparams, dt, device="cpu") for dt in DTYPES},
         feat=feat,
     )
 

@@ -1,5 +1,6 @@
 """The port's presets against the JAX package's, field by field, and the
-config/params bridge the other ``test_torch_*`` files share."""
+config/params bridge the other ``test_torch_*`` files share; the rule that
+the entry points run on the card unless asked for the CPU."""
 
 import dataclasses
 
@@ -9,13 +10,21 @@ import torch
 
 import jax
 
-from speechclip_tpu.config import flagship_config, flagship_tiny_config
+from speechclip_tpu.config import (
+    bench_variant_config,
+    flagship_config,
+    flagship_tiny_config,
+    load_config,
+)
 from speechclip_tpu.models import hubert as jax_hubert
 from speechclip_tpu.models.speechclip import SpeechCLIPModel as JaxModel
 from speechclip_tpu_torch import config as port_config
-from speechclip_tpu_torch.convert.from_jax import speechclip_params_from_jax
+from speechclip_tpu_torch.convert.from_jax import (
+    speechclip_params_from_jax,
+    speechclip_state_from_jax,
+)
 from speechclip_tpu_torch.models.hubert import HubertConfig
-from speechclip_tpu_torch.models.speechclip import SpeechCLIPModel, cast_params
+from speechclip_tpu_torch.models.speechclip import REPO_ROOT, SpeechCLIPModel, cast_params
 
 torch.set_num_threads(2)
 
@@ -32,13 +41,46 @@ def parallel_only(cfg):
     return cfg
 
 
+def _dims(node):
+    return None if node is None else tuple(node.dimensions)
+
+
+def cascaded_config_from_jax(cb) -> port_config.CascadedBranchConfig:
+    """The port's cascaded-branch config for JAX's
+    ``model_settings.cascaded_branch``."""
+    ta, kw, vq = cb.transformer_args, cb.keyword, cb.vq.args
+    bn = kw.get("batchnorms")
+    std = None if bn is None else bn.get("std_scale", 1.0)
+    return port_config.CascadedBranchConfig(
+        transformer_type=cb.transformer_type,
+        n_layers=ta.get("n_layers", 1),
+        d_model=ta.d_model,
+        nhead=ta.nhead,
+        dim_feedforward=ta.get("dim_feedforward", 3072),
+        activation=ta.get("activation", "gelu"),
+        layer_norm_eps=ta.get("layer_norm_eps", 1e-5),
+        norm_first=ta.get("norm_first", False),
+        keyword_number=kw.number,
+        kw_projection=_dims(kw.get("kw_projection")),
+        batchnorm_type=None if bn is None else bn.type,
+        bn_std_scale=1.0 if std is None else (tuple(std) if isinstance(std, list) else std),
+        bn_parallel=False if bn is None else bn.get("parallel", False),
+        vq_temp=vq.temp,
+        use_gumbel=vq.get("use_gumbel", False),
+        hard=vq.get("hard", True),
+        ground_truth_perplexity=vq.get("groundTruthPerplexity"),
+    )
+
+
 def port_config_from_jax(cfg) -> port_config.SpeechCLIPConfig:
-    """The port's config for a JAX ConfigNode (parallel branch only)."""
+    """The port's config for a JAX ConfigNode: both branches' settings, the
+    CLIP text tower and the reduced vocabulary."""
     jm = JaxModel(cfg)
     ae, ms = cfg.audio_encoder, cfg.model_settings
     ta = ms.parallel_branch.transformer_args
     select = ae.feat_select_idx
     proj = ms.get("parallel_branch_projection")
+    text = dataclasses.asdict(jm.clip_cfg.text)
     return port_config.SpeechCLIPConfig(
         audio=HubertConfig(**{
             k: v for k, v in dataclasses.asdict(jm.audio_cfg).items()
@@ -62,6 +104,10 @@ def port_config_from_jax(cfg) -> port_config.SpeechCLIPConfig:
             need_projection=ms.parallel_branch.get("need_projection", True),
         ),
         parallel_branch_projection=None if proj is None else tuple(proj.dimensions),
+        cascaded_branch=cascaded_config_from_jax(ms.cascaded_branch),
+        cascaded_branch_projection=_dims(ms.get("cascaded_branch_projection")),
+        clip_text=port_config.CLIPTextConfig(**text),
+        reduce_subword_embedding=cfg.clip.get("reduce_subword_embbedding"),
         clip_embed_dim=jm.clip_cfg.embed_dim,
         precision=cfg.trainer.precision,
     )
@@ -75,26 +121,43 @@ def tiny_models():
     cfg = parallel_only(flagship_tiny_config())
     cfg.trainer.precision = 32
     jparams, _ = jax.jit(JaxModel(cfg).init)(jax.random.key(0))
-    pm = SpeechCLIPModel(port_config_from_jax(cfg))
+    pm = SpeechCLIPModel(port_config_from_jax(cfg), device="cpu")
     pparams = cast_params(
         speechclip_params_from_jax(jax.tree.map(np.asarray, jparams)),
-        pm.compute_dtype,
+        pm.compute_dtype, device="cpu",
     )
     return jparams, pm, pparams
 
 
+def shipped_cascaded():
+    """``configs/base/spchclp_c.yaml``, as the JAX package loads it."""
+    return load_config(str(REPO_ROOT / "configs/base/spchclp_c.yaml"))
+
+
 @pytest.mark.parametrize(
     "jax_preset, port_preset",
-    [(flagship_config, port_config.base_config),
-     (flagship_tiny_config, port_config.tiny_config)],
-    ids=["base", "tiny"],
+    [(lambda: parallel_only(flagship_config()), port_config.base_config),
+     (lambda: parallel_only(flagship_tiny_config()), port_config.tiny_config),
+     (lambda: bench_variant_config("base_casc"), port_config.base_cascaded_config),
+     (shipped_cascaded, port_config.shipped_cascaded_config),
+     (flagship_tiny_config, port_config.tiny_flagship_config)],
+    ids=["base", "tiny", "base_casc", "spchclp_c", "tiny_flagship"],
 )
 def test_presets_match_jax_field_by_field(jax_preset, port_preset):
-    want = dataclasses.asdict(port_config_from_jax(parallel_only(jax_preset())))
+    want = dataclasses.asdict(port_config_from_jax(jax_preset()))
     got = dataclasses.asdict(port_preset())
     assert set(got) == set(want)
     for key in want:
         assert got[key] == want[key], key
+
+
+def test_shipped_cascaded_vocabulary_is_the_flickr_table():
+    """8112 rows; SOT and EOT map to reduced ids 2 and 3, as in the JAX model."""
+    pm = SpeechCLIPModel(port_config.shipped_cascaded_config(), device="cpu")
+    jm = JaxModel(shipped_cascaded())
+    assert pm.reduced_vocab.size == jm.reduced_vocab.size == 8112
+    assert (pm.sot_id, pm.eot_id) == (jm.sot_id, jm.eot_id) == (2, 3)
+    np.testing.assert_array_equal(pm.reduced_vocab.selected_ids, jm.reduced_vocab.selected_ids)
 
 
 def test_base_hubert_is_jax_hubert_base():
@@ -109,13 +172,33 @@ def test_base_hubert_is_jax_hubert_base():
 
 @pytest.mark.parametrize(
     "field, value",
-    [("cascaded_objective_weight", 1.0), ("wsum_remat", True),
-     ("audio_encoder_type", "s3prl_plus")],
+    [("wsum_remat", True), ("audio_encoder_type", "s3prl_plus")],
 )
 def test_out_of_slice_configs_raise(field, value):
     cfg = dataclasses.replace(port_config.tiny_config(), **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpeechCLIPModel(cfg)
+        SpeechCLIPModel(cfg, device="cpu")
+
+
+def test_a_config_with_no_live_branch_raises():
+    cfg = dataclasses.replace(port_config.tiny_config(), parallel_objective_weight=0.0)
+    with pytest.raises(ValueError, match="no branch"):
+        SpeechCLIPModel(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["model", "cast_params"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """Without ``device="cpu"`` the model and ``cast_params`` go to the card,
+    and raise where there is none: nothing quietly runs on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if entry == "model":
+            SpeechCLIPModel(port_config.tiny_config())
+        else:
+            cast_params({"w": torch.zeros(2, 2)}, torch.bfloat16)
+    model = SpeechCLIPModel(port_config.tiny_config(), device="cpu")
+    params, _ = model.init(0)
+    assert {t.device.type for t in jax.tree.leaves(params)} == {"cpu"}
 
 
 def test_conv_weights_change_layout_linear_weights_do_not(tiny_models):
@@ -133,12 +216,12 @@ def test_conv_weights_change_layout_linear_weights_do_not(tiny_models):
     np.testing.assert_array_equal(
         np.asarray(jl0["self_attn"]["in_proj"]["w"]), pl0["self_attn"]["in_proj"]["w"].numpy()
     )
-    assert "clip" not in pparams and "criterion" not in pparams
+    assert "clip" not in pparams and "criterion" not in pparams  # parallel only: no text tower
 
 
 def test_cast_params_keeps_vectors_f32(tiny_models):
     _, _, p = tiny_models
-    p16 = cast_params(p, torch.bfloat16)
+    p16 = cast_params(p, torch.bfloat16, device="cpu")
     layer = p16["audio_encoder"]["encoder"]["layers"][0]
     assert layer["fc1"]["w"].dtype == torch.bfloat16
     assert layer["fc1"]["b"].dtype == torch.float32
@@ -151,6 +234,24 @@ def test_port_init_shapes_match_jax_init(tiny_models):
     """The port's own seeded init builds the same tree of shapes as the
     JAX init it mirrors (values differ: other generator)."""
     _, pm, carried = tiny_models
-    own = pm.init(torch.Generator().manual_seed(0))
+    own, state = pm.init(0)
+    shapes = lambda t: jax.tree.map(lambda a: tuple(a.shape), t)
+    assert shapes(own) == shapes(carried) and state == {}
+
+
+@pytest.mark.parametrize("preset", [flagship_tiny_config, shipped_cascaded])
+def test_cascaded_init_shapes_match_jax_init(preset):
+    """Both branches (tiny) and the shipped cascaded config (reduced
+    vocabulary, full width, traced only): the same trees of shapes for
+    params and state as the JAX init carried over."""
+    cfg = preset()
+    jparams, jstate = jax.eval_shape(JaxModel(cfg).init, jax.random.key(0))
+    zeros = lambda t: jax.tree.map(lambda a: np.zeros(a.shape, np.float32), t)
+    carried = speechclip_params_from_jax(zeros(jparams))
+    carried_state = speechclip_state_from_jax(zeros(jstate))
+    pm = SpeechCLIPModel(port_config_from_jax(cfg), device="cpu")
+    own, state = pm.init(0)
     shapes = lambda t: jax.tree.map(lambda a: tuple(a.shape), t)
     assert shapes(own) == shapes(carried)
+    assert shapes(state) == shapes(carried_state)
+    assert "visual" not in own["clip"]

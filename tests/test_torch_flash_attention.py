@@ -2,8 +2,10 @@
 interpret mode on the CPU (``_flash_forward``), over the grid of
 tests/test_torch_attention_vmem.py (H/Dh = 12/64, 8/96, 4/128; L = S in
 {128, 160}; one cross shape; key lengths, none, causal with key lengths; f32
-and bf16), plus rows that are not a multiple of the TPU's 128-row block and
-the CLIP text tower's causal L = 77.
+and bf16), plus rows that are not a multiple of the TPU's 128-row block,
+the CLIP text tower's causal L = 77 and K + 2 = 10, and the cascaded
+branch's single 768-wide head with key lengths (the TPU kernel pads no
+head dim away: Dh = 768 is six of its 128-lane blocks).
 
 Tolerances are those of tests/test_torch_attention_vmem.py. The JAX kernel
 works in f32 throughout and rounds once, as the port's plain version does,
@@ -42,6 +44,9 @@ def test_plain_matches_jax_kernel(heads, dh, mask, length, dtype):
     ((2, 12, 319, 319, 64), "lens"),  # the flash-backend HuBERT shape
     ((2, 8, 77, 77, 64), "causal"),  # the CLIP text tower
     ((2, 8, 77, 77, 64), "none"),
+    ((2, 8, 10, 10, 64), "causal"),  # the text tower over K + 2 tokens
+    ((2, 1, 75, 75, 768), "lens"),  # the cascaded branch's one head
+    ((2, 1, 40, 40, 200), "lens"),  # a wide head that is not a multiple of 128
 ])
 def test_plain_matches_jax_kernel_odd_shapes(shape, mask, dtype):
     run_both(jax_flash, pfa.flash_attention_plain, shape, mask, dtype, seed=sum(shape))
@@ -79,5 +84,19 @@ def test_non_cpu_non_cuda_tensors_raise():
 
 
 def test_smem_plan_fits_two_blocks_per_sm():
-    for dh in range(8, 129, 8):
+    for dh in list(range(8, 129, 8)) + [136, 768, 1024]:
         assert 2 * pfa.smem_bytes(dh) <= 228 * 1024
+
+
+def test_head_dim_rule_takes_any_width_that_divides_by_8():
+    """The flash wrapper raises only on head dims the kernel cannot take
+    (Dh % 8 != 0), whatever the width; ``attention_vmem`` keeps its 128."""
+    from speechclip_tpu_torch.kernels._attention_common import check_head_dim
+
+    for dh in (8, 64, 128, 136, 200, 768, 1024):
+        check_head_dim(dh, "flash_attention", None)
+    for dh in (100, 770):
+        with pytest.raises(ValueError, match=f"head dim {dh}"):
+            check_head_dim(dh, "flash_attention", None)
+    with pytest.raises(ValueError, match="up to 128"):
+        check_head_dim(768, "attention_vmem", 128)

@@ -94,5 +94,5 @@ def test_branch_projection_mlp_is_applied(slice_setup):
     want, _ = _jax_encode_and_retrieve(
         jm, jparams, jwav, jnp.asarray(LENS), slice_setup["gallery"]
     )
-    got = pm.encode_speech(pparams, pwav, torch.from_numpy(LENS))["parallel_audio_feat"]
+    got = pm.encode_speech(pparams, {}, pwav, torch.from_numpy(LENS))["parallel_audio_feat"]
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)

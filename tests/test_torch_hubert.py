@@ -53,7 +53,7 @@ def towers():
     wav *= np.arange(WAV_LEN)[None, :] < LENS[:, None]
     return dict(
         jcfg=jm.audio_cfg, pcfg=port_config_from_jax(jm.config).audio, jae=jae,
-        pae={dt: cast_params(pae, dt) for dt in DTYPES},
+        pae={dt: cast_params(pae, dt, device="cpu") for dt in DTYPES},
         wav=wav,
     )
 

@@ -15,7 +15,11 @@ diff <= 0.125 (4 ulp at |y| ~ 4-8 after LayerNorm). Attention outputs
 they are held to limits tied to their own scale (``attention_agrees``: per
 row max abs <= 2 ulp of the row's largest |value|, cosine >= 0.99999, at
 most 5 % of elements differing); the planted-fault tests show that check
-failing on a one-key mask error and on other rounding points.
+failing on a one-key mask error, on other rounding points and on a
+dropped 128-wide head-dim chunk. The conv chain (``fused_conv_chain``) is
+held, layer by layer on the same input, to at most 0.5 % of elements
+differing (``MAX_LAYER_MISMATCH``), and as a whole chain to the layer
+limits; a tanh GELU planted in its plain version fails the first.
 """
 
 import pytest
@@ -244,6 +248,11 @@ FLASH_SHAPES = ATTENTION_SHAPES + [
     (64, 12, 319, 319, 64, "random", False, True),   # the flash-backend encode
     (64, 8, 77, 77, 64, None, True, False),          # the CLIP text tower
     (2, 4, 1500, 1500, 64, "random", True, False),   # longer than any whole-row plan
+    (64, 1, 327, 327, 768, "random", False, True),   # the cascaded branch's one head
+    (4, 1, 200, 200, 768, "zero_row", False, False),  # a lens = 0 row at Dh = 768
+    (3, 1, 333, 120, 768, "random", False, False),   # L != S at Dh = 768
+    (2, 2, 150, 150, 200, "random", True, False),    # wide, not a multiple of 128, causal
+    (64, 8, 10, 10, 64, None, True, True),           # the text tower over K + 2 tokens
 ]
 
 
@@ -288,12 +297,115 @@ def test_attention_check_fails_planted_faults(cuda, kernel, fault):
 
 
 def test_attention_kernels_raise_on_what_they_do_not_take(cuda):
+    """``attention_vmem`` stops at Dh = 128 (the cascaded branch's 768-wide
+    head raises there); ``flash_attention`` takes it and raises only on Dh
+    % 8 != 0."""
     from speechclip_tpu_torch.kernels.attention_vmem import attention_vmem
     from speechclip_tpu_torch.kernels.flash_attention import flash_attention
 
-    q, k, v, lens = _qkv(cuda, 1, 1, 16, 16, 768, seed=0)  # the cascaded branch's one head
+    q, k, v, lens = _qkv(cuda, 1, 1, 16, 16, 768, seed=0)
+    with pytest.raises(ValueError, match="head dim"):
+        attention_vmem(q, k, v, lens)
+    assert flash_attention(q, k, v, lens).shape == q.shape
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :100], k[..., :100], v[..., :100], lens)
     for kernel in (attention_vmem, flash_attention):
-        with pytest.raises(ValueError, match="head dim"):
-            kernel(q, k, v, lens)
         with pytest.raises(TypeError, match="bf16"):
             kernel(q[..., :64].float(), k[..., :64].float(), v[..., :64].float(), lens)
+
+
+def test_flash_check_fails_a_dropped_head_dim_chunk(cuda):
+    """At the cascaded shape the sound wide kernel passes; against a plain
+    version whose scores leave out one 128-wide chunk of Dh it fails."""
+    from speechclip_tpu_torch.kernels._attention_common import (
+        attention_agreement,
+        attention_agrees,
+    )
+    from speechclip_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    q, k, v, lens = _qkv(cuda, 64, 1, 327, 327, 768, seed=9, packed=True)
+    got = flash_attention(q, k, v, lens)
+    assert attention_agrees(attention_agreement(got, flash_attention_plain(q, k, v, lens)))
+    keep = torch.ones(768, device=cuda)
+    keep[256:384] = 0  # the third chunk's products left out of Q K^T
+    qd = (q.float() * keep).to(q.dtype)
+    faulty = flash_attention_plain(qd, k, v, lens)
+    stats = attention_agreement(got, faulty)
+    assert not attention_agrees(stats), stats
+
+
+def _conv_inputs(dev, b, t, c, kernels, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.nn.functional.gelu(torch.randn(b, t, c, generator=g, device=dev)).bfloat16()
+    ws = [(torch.randn(k, c, c, generator=g, device=dev) * (k * c) ** -0.5).bfloat16()
+          for k in kernels]
+    return x, ws
+
+
+def _conv_agrees(got, want, layer):
+    from speechclip_tpu_torch.kernels.conv_frontend import (
+        MAX_LAYER_MISMATCH,
+        conv_chain_agreement,
+    )
+
+    st = conv_chain_agreement(got, want)
+    ok = st["finite"] and st["max_abs_err"] <= ATOL and st["min_cosine"] >= MIN_COSINE
+    return ok and (not layer or st["mismatch"] <= MAX_LAYER_MISMATCH), st
+
+
+@pytest.mark.parametrize("b, t, c, kernels", [
+    (3, 2100, 512, (3, 3, 3, 3, 2, 2)),  # HuBERT conv1..6, ragged T_out
+    (2, 413, 64, (3, 2)),
+    (1, 1301, 136, (2, 3, 2)),
+    (5, 20479, 512, (3,)),  # conv1 at 6.4 s
+])
+def test_conv_chain_kernel_matches_plain(cuda, b, t, c, kernels):
+    from speechclip_tpu_torch.kernels.conv_frontend import (
+        chain_out_len,
+        fused_conv_chain,
+        fused_conv_chain_plain,
+    )
+
+    x, ws = _conv_inputs(cuda, b, t, c, kernels, seed=t)
+    before = fused_conv_chain.launches
+    got = fused_conv_chain(x, ws, kernels)
+    torch.cuda.synchronize()
+    assert fused_conv_chain.launches == before + 1
+    assert got.shape == (b, chain_out_len(t, kernels), c)
+    ok, st = _conv_agrees(got, fused_conv_chain_plain(x, ws, kernels), layer=False)
+    assert ok, st
+    h = x  # each layer alone, on the plain chain's input to it
+    for w, k in zip(ws, kernels):
+        want = fused_conv_chain_plain(h, [w], (k,))
+        ok, st = _conv_agrees(fused_conv_chain(h, [w], (k,)), want, layer=True)
+        assert ok, (k, st)
+        h = want
+
+
+def test_conv_chain_check_fails_tanh_gelu(cuda):
+    """The per-layer check passes the sound kernel and fails a plain
+    version with tanh GELU in place of erf."""
+    from speechclip_tpu_torch.kernels.conv_frontend import fused_conv_chain
+
+    x, ws = _conv_inputs(cuda, 4, 4001, 512, (3,), seed=1)
+    got = fused_conv_chain(x, ws, (3,))
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        y = torch.nn.functional.conv1d(x.float().transpose(1, 2),
+                                       ws[0].float().permute(2, 1, 0), stride=2)
+    sound = torch.nn.functional.gelu(y).transpose(1, 2).bfloat16()
+    tanh = torch.nn.functional.gelu(y, approximate="tanh").transpose(1, 2).bfloat16()
+    assert _conv_agrees(got, sound, layer=True)[0]
+    ok, st = _conv_agrees(got, tanh, layer=True)
+    assert not ok, st
+
+
+def test_conv_chain_raises_on_what_it_does_not_take(cuda):
+    from speechclip_tpu_torch.kernels.conv_frontend import fused_conv_chain
+
+    x, ws = _conv_inputs(cuda, 1, 100, 16, (3,), seed=2)
+    with pytest.raises(TypeError, match="bf16"):
+        fused_conv_chain(x.float(), ws, (3,))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fused_conv_chain(x[..., :12], [w[:, :12, :12] for w in ws], (3,))
+    with pytest.raises(ValueError, match="window"):
+        fused_conv_chain(x[:, :2], ws, (3,))

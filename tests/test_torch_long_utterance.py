@@ -111,16 +111,16 @@ def wavs(samples):
 def test_encode_speech_matches_jax_on_the_route(jparams, spies, scenario, precision):
     samples, backend, kernels = SCENARIOS[scenario]
     cfg = jax_config(precision)
-    jm, pm = JaxModel(cfg), SpeechCLIPModel(port_config_from_jax(cfg))
+    jm, pm = JaxModel(cfg), SpeechCLIPModel(port_config_from_jax(cfg), device="cpu")
     assert pm.audio_cfg.encoder_embed_dim == 768 and pm.config.parallel_branch.nhead == 8
     pparams = cast_params(speechclip_params_from_jax(jax.tree.map(np.asarray, jparams)),
-                          pm.compute_dtype)
+                          pm.compute_dtype, device="cpu")
     wav, lens = wavs(samples)
     with jattn.attention_backend(backend):
         want = jax.jit(lambda p, w, l: jm.encode_speech(p, {}, w, l)["parallel_audio_feat"])(
             jparams, jnp.asarray(wav), jnp.asarray(lens))
     with pattn.attention_backend(backend):
-        got = pm.encode_speech(pparams, torch.from_numpy(wav), torch.from_numpy(lens))
+        got = pm.encode_speech(pparams, {}, torch.from_numpy(wav), torch.from_numpy(lens))
     got = got["parallel_audio_feat"].numpy()
     want = np.asarray(want)
     if precision == 16:

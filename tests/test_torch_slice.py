@@ -69,11 +69,11 @@ def _wav(setup, wav_kind):
 
 def _models(setup, cfg, extra_params=None):
     jm = JaxModel(cfg)
-    pm = SpeechCLIPModel(port_config_from_jax(cfg))
+    pm = SpeechCLIPModel(port_config_from_jax(cfg), device="cpu")
     jparams, pparams = dict(setup["jparams"]), dict(setup["pparams32"])
     for k, (jv, pv) in (extra_params or {}).items():
         jparams[k], pparams[k] = jv, pv
-    return jm, jparams, pm, cast_params(pparams, pm.compute_dtype)
+    return jm, jparams, pm, cast_params(pparams, pm.compute_dtype, device="cpu")
 
 
 def _jax_encode_and_retrieve(jm, jparams, wav, lens, gallery):
@@ -99,7 +99,7 @@ def test_encode_speech_and_retrieve_match_jax(slice_setup, precision, wav_kind):
     want_feat, want_top = _jax_encode_and_retrieve(
         jm, jparams, jwav, jnp.asarray(LENS), slice_setup["gallery"]
     )
-    feat = pm.encode_speech(pparams, pwav, torch.from_numpy(LENS))["parallel_audio_feat"]
+    feat = pm.encode_speech(pparams, {}, pwav, torch.from_numpy(LENS))["parallel_audio_feat"]
     _, top = retrieve(feat, torch.from_numpy(slice_setup["gallery"]), TOPK)
     assert feat.dtype == torch.float32 and feat.shape == want_feat.shape
     assert torch.isfinite(feat).all()
@@ -116,7 +116,7 @@ def test_int16_wav_is_the_exact_rescale(slice_setup):
     _, _, pm, pparams = _models(slice_setup, jax_config(32))
     lens = torch.from_numpy(LENS)
     feats = [
-        pm.encode_speech(pparams, _wav(slice_setup, kind)[1], lens)["parallel_audio_feat"]
+        pm.encode_speech(pparams, {}, _wav(slice_setup, kind)[1], lens)["parallel_audio_feat"]
         for kind in ("int16", "float32")
     ]
     torch.testing.assert_close(feats[0], feats[1], rtol=0, atol=0)
@@ -135,7 +135,9 @@ def test_recall_at_k_matches_jax():
 
 def test_port_imports_no_jax_yaml_or_reference_package():
     """The port runs without jax, yaml or speechclip_tpu (the card's machine
-    has no PyYAML). A subprocess: this test process has imported jax."""
+    has no PyYAML): both branches, the conv chain, the shipped cascaded
+    config's vocabulary table. A subprocess: this test process has imported
+    jax."""
     code = textwrap.dedent(
         """
         import sys
@@ -144,18 +146,25 @@ def test_port_imports_no_jax_yaml_or_reference_package():
         from speechclip_tpu_torch.models.speechclip import cast_params
         from speechclip_tpu_torch.kernels import _build, fused_layer  # noqa: F401
         from speechclip_tpu_torch.convert import from_jax  # noqa: F401
+        from speechclip_tpu_torch.kernels import conv_frontend, flash_attention  # noqa: F401
+        from speechclip_tpu_torch.models import branches, clip  # noqa: F401
+        from speechclip_tpu_torch.ops import kw_bn, vq  # noqa: F401
 
         torch.set_num_threads(1)
-        model = port.SpeechCLIPModel(port.tiny_config())
-        params = cast_params(model.init(torch.Generator().manual_seed(0)),
-                             model.compute_dtype)
+        model = port.SpeechCLIPModel(port.tiny_flagship_config(), device="cpu")
+        params, state = model.init(0)
+        params, state = (cast_params(t, model.compute_dtype, device="cpu") for t in (params, state))
         wav = torch.randn(2, 800)
-        feat = model.encode_speech(params, wav, torch.tensor([800, 500]))
-        feat = feat["parallel_audio_feat"]
+        out = model.encode_speech(params, state, wav, torch.tensor([800, 500]))
         gallery = torch.nn.functional.normalize(torch.randn(8, 16), dim=-1)
-        _, top = port.retrieve(feat, gallery, 3)
-        assert feat.shape == (2, 16) and top.shape == (2, 3)
-        assert bool(torch.isfinite(feat).all())
+        for key in ("parallel_audio_feat", "cascaded_audio_feat"):
+            feat = out[key]
+            _, top = port.retrieve(feat, gallery, 3)
+            assert feat.shape == (2, 16) and top.shape == (2, 3)
+            assert bool(torch.isfinite(feat).all())
+        x = torch.randn(1, 40, 8)
+        conv_frontend.fused_conv_chain(x, [torch.randn(3, 8, 8)], (3,))
+        port.SpeechCLIPModel(port.shipped_cascaded_config(), device="cpu")
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "yaml", "speechclip_tpu"))
         assert not bad, bad
@@ -171,9 +180,9 @@ def test_port_imports_no_jax_yaml_or_reference_package():
 
 
 def test_seeded_port_init_is_reproducible():
-    pm = SpeechCLIPModel(port_config_from_jax(jax_config(32)))
-    a = pm.init(torch.Generator().manual_seed(3))
-    b = pm.init(torch.Generator().manual_seed(3))
+    pm = SpeechCLIPModel(port_config_from_jax(flagship_tiny_config()), device="cpu")
+    a = pm.init(3)
+    b = pm.init(3)
     leaves_a, leaves_b = jax.tree.leaves(a), jax.tree.leaves(b)
     assert len(leaves_a) == len(leaves_b)
     assert all(torch.equal(x, y) for x, y in zip(leaves_a, leaves_b))
