@@ -46,7 +46,11 @@ Phase 2 also gives each kernel's bound (the larger of its FLOPs over 989
 TFLOP/s and its bytes over 3.35 TB/s, counted from that row's shapes and
 key lengths) and, for the attention kernels, the time of one
 ``F.scaled_dot_product_attention`` call on the same inputs (timed only;
-the port never calls it).
+the port never calls it). The event times of a row include the host's
+launch path, which dominates rows under ~0.1 ms; so each attention row
+also gives the kernel's and SDPA's device time per call from one
+torch.profiler pass over 20 calls of each (the kernels each launched,
+summed; ours told apart by name), after every event timing of phase 2.
 
 Before each path runs, every kernel's launch count is set to 0; it is read
 right after, so the counts in the summary are that path's own.
@@ -67,7 +71,9 @@ shapes; it prints no result line.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -157,6 +163,48 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+# The port's attention kernels as the profiler names them (every one takes
+# scl::AttnArgs); any other kernel in a device-time pass is the library's.
+PORT_ATTENTION_KERNELS = re.compile(
+    r"scl::AttnArgs|\b(rowwise_kernel|flash_kernel|wide_scores_kernel|wide_pv_kernel)\b")
+
+
+def device_ms(kern, library, reps: int = 20):
+    """(kernel, library) device ms per call from one torch.profiler pass over
+    ``reps`` calls of each, after one warm-up call: the self device time of
+    every kernel each launched, summed. A pass that records no device time
+    is run once more; None where none showed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    kern()
+    library()
+    torch.cuda.synchronize()
+    ours = other = 0.0
+    for _attempt in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                kern()
+            for _ in range(reps):
+                library()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                ms = e.self_device_time_total / 1000.0
+                if PORT_ATTENTION_KERNELS.search(e.key):
+                    ours += ms
+                else:
+                    other += ms
+        if ours or other:
+            break
+    return (ours / reps if ours else None), (other / reps if other else None)
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 def row_cosine_min(a, b) -> float:
@@ -275,13 +323,14 @@ def _check_row(name, label, got, want, ms, plain_ms, results, work=None, library
         fail(f"{name} [{label}] disagrees with its plain version")
     results.setdefault(name, {})[label] = dict(
         err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=library_ms)
+        library_ms=library_ms, device_ms=None, library_device_ms=None)
 
 
-def _compare(name, label, kern, plain, results, work, library=None):
+def _compare(name, label, kern, plain, results, work, library=None, deferred=None):
     """One phase-2 row: the kernel's output against its plain version's on
-    the same inputs, then both timed (and the library call, if any). These
-    launches count for no path."""
+    the same inputs, then both timed (and the library call, if any, whose
+    row goes on ``deferred`` for its device times). These launches count for
+    no path."""
     import torch
 
     got = kern()
@@ -289,6 +338,21 @@ def _compare(name, label, kern, plain, results, work, library=None):
     want = plain()
     _check_row(name, label, got, want, cuda_time_ms(kern), cuda_time_ms(plain), results,
                work, None if library is None else cuda_time_ms(library))
+    if library is not None:
+        deferred.append((name, label, kern, library))
+
+
+def _device_rows(deferred, results):
+    """Each attention row's kernel and SDPA device time per call, taken
+    after every event timing of phase 2: once torch.profiler has run, the
+    host's launch path stays slower in that process, which single-call
+    event times would absorb."""
+    for name, label, kern, library in deferred:
+        row = results[name][label]
+        row["device_ms"], row["library_device_ms"] = device_ms(kern, library)
+        say(f"phase 2 {name} [{label}]: device time per call (torch.profiler, 20 calls "
+            f"each): kernel {_ms(row['device_ms'])}, torch SDPA {_ms(row['library_device_ms'])}; "
+            f"event times kernel {row['ms']:.4f} ms, torch SDPA {row['library_ms']:.4f} ms")
 
 
 def _attention_inputs(b, h, l, dh, with_lens, packed, gen):
@@ -337,6 +401,7 @@ def phase_kernels():
                      lambda: ffn_block_plain(*ffn_args), results, ffn_work)
     kernels = {"attention_vmem": (av.attention_vmem, av.attention_vmem_plain),
                "flash_attention": (fa.flash_attention, fa.flash_attention_plain)}
+    deferred = []
     for name, shapes in ATTENTION_SHAPES.items():
         kern, plain = kernels[name]
         for label, (b, h, l, dh, with_lens, causal, packed) in shapes.items():
@@ -345,10 +410,11 @@ def phase_kernels():
                    f"causal={'yes' if causal else 'no'}")
             work = (4 * h * dh * attention_keys(b, l, l, lens, causal),
                     4 * b * h * l * dh * 2 + (0 if lens is None else 4 * b))
-            _compare(name, row, lambda: kern(q, k, v, lens, causal),
-                     lambda: plain(q, k, v, lens, causal), results, work,
-                     library=_sdpa_call(q, k, v, lens, causal))
+            _compare(name, row, functools.partial(kern, q, k, v, lens, causal),
+                     functools.partial(plain, q, k, v, lens, causal), results, work,
+                     library=_sdpa_call(q, k, v, lens, causal), deferred=deferred)
     _conv_row(gen, results)
+    _device_rows(deferred, results)
     return results
 
 
@@ -933,6 +999,8 @@ def main(argv) -> int:
             "bound_ms": timed["bound_ms"],
             "bound_by": timed["bound_by"],
             "library_ms": timed["library_ms"],
+            "device_ms": timed["device_ms"],
+            "library_device_ms": timed["library_device_ms"],
             "path": path,
             "shape": label,
         })

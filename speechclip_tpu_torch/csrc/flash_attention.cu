@@ -11,12 +11,7 @@
 // result (except that a row with no valid key divides by the padded S), and
 // is not copied.
 //
-// Here one block of 4 warps owns a 64-query tile of one (batch, head), 16
-// rows per warp, and streams 64-key K/V blocks through two shared-memory
-// stages (cp.async, the next block in flight under this one's math). The
-// products run on the tensor cores as mma.sync m16n8k16 with the score and
-// output tiles in registers (the FlashAttention-2 layout: an S accumulator
-// fragment is reused as the A fragment of P V without leaving registers).
+// Rounding points kept here:
 //   Q K^T: bf16 operands, f32 accumulation; the inputs are bf16, so every
 //     product is exact and only the summation order differs from f32. The
 //     scale is applied to the f32 scores (the TPU scales the f32 q first:
@@ -25,104 +20,83 @@
 //     and both halves go through the tensor cores against the exact bf16 v,
 //     so p carries 16 significant bits (relative error <= 2^-17), close to
 //     the TPU's f32 P V.
-// Blocks past the batch's key length are skipped (their p is exactly 0 once
-// the row has one valid key), and so, when causal, are blocks wholly above
-// the diagonal; a batch with lens = 0 scans every block, so its rows are the
-// mean of v over all S keys.
 //
-// What bounds it on the H100: 6 * 64 * S * Dh tensor-core FLOP per block
-// (Q K^T once, P V twice for the split) against (64 + 2 S) * Dh * 2 bytes
-// of K/V re-read per query tile, ~95 FLOP/byte from L2:
-// below the ridge, so K/V reuse across query tiles in the 50 MB L2 and the
-// latency hiding of 2 blocks per SM (87 KB of shared memory each at Dh =
-// 128) bound it. The head dim is a template parameter padded to 16 (zero
-// columns in shared memory), 16..128.
+// Heads up to 128 wide: flash_kernel<Dh_pad>, the FlashAttention-2 layout of
+// csrc/attention_tiles.cuh (16 query rows per warp, 4 warps per 64-query
+// tile, 64-key K/V blocks through two cp.async stages, mma.sync with the
+// score fragments reused as P operands in registers, ldmatrix fragments).
+// Rows of at most 128 take one block per (batch, head) with one warp per
+// 16-row slab (1 warp for the cascaded tail's K + 2 = 10 tokens, 5 for the
+// CLIP text tower's 77), so no second tile re-reads K and V for a ragged
+// edge. Warps whose rows all lie past L, or (causal) above a key block,
+// skip its math. What bounds it on the H100: 6 * 64 * S * Dh tensor-core
+// FLOP per block (Q K^T once, P V twice for the split) against (64 + 2 S) *
+// Dh * 2 bytes of K/V per query tile, ~95 FLOP/byte from L2: below the
+// ridge, so K/V reuse in the 50 MB L2 and latency hiding (87 KB of shared
+// memory at Dh = 128, 2 blocks per SM) bound it; at the flash backend's
+// (64, 12, 319, 64) it reaches ~25 % of its bytes bound on the device.
 //
-// Wider heads (the cascaded branch's single 768-wide head) take
-// flash_kernel_wide: a 64 x 768 K or V stage would be 96 KB and one row's f32
-// output accumulator 384 registers a thread, so the head dim is cut into
-// 128-wide chunks (the TPU kernel pads Dh to a multiple of 128 the same
-// way). One block owns (b, h, 64-query tile, one 128-wide chunk of output
-// columns): for each 64-key block it accumulates S = Q K^T over every Dh
-// chunk, streaming (Q chunk, K chunk) pairs through two shared-memory
-// stages, then runs the same online softmax and adds P V for its own 128
-// columns only. Q K^T is recomputed once per output chunk (6x at Dh = 768),
-// which at the cascaded shape is a few tens of GFLOP; the rounding points
-// are those of the narrow kernel (f32 scores and softmax, p = hi + lo).
+// Wider heads (the cascaded branch's single 768-wide head) take two passes,
+// because a 64 x 768 K or V stage (96 KB) and a row's 768 f32 accumulators
+// do not fit one block. Output columns must then be cut into chunks, and a
+// block per chunk that formed its own full-width scores would recompute
+// Q K^T once per chunk (6x at Dh = 768: ~63 GFLOP executed for a function
+// that needs ~16). So Q K^T is computed once per (query tile, key block):
+//   wide_scores_kernel: one block per (batch, head, 64-query tile, 64-key
+//     block) sums Q K^T over 64-wide Dh chunks (two cp.async stages of Q and
+//     K chunks), scales and masks it exactly as the narrow kernel does, and
+//     writes the f32 tile to a scratch (B, H, ceil64(L), ceil64(S)) buffer;
+//   wide_pv_kernel: one block per (batch, head, 64-query tile, 128-wide
+//     output chunk) streams those score tiles and its V columns through two
+//     stages and runs the narrow kernel's online softmax and split P V.
+// Every output chunk reads the same f32 scores, so all of a row's chunks see
+// bit-identical m and l. The scratch (27 MB of live scores at the cascaded
+// shape, (64, 1, 327, 768)) stays in the 50 MB L2 while the six chunk blocks
+// of a query tile, adjacent in the grid, read it. The alternative, a cluster
+// of one block per Dh chunk summing partial scores through distributed
+// shared memory, was not built: each block would read all six 16 KB partials
+// of every key block across the SM-to-SM network (~1.1 GB at that shape),
+// several times the L2 traffic of the scratch. Any Dh % 8 == 0 runs, with no
+// limit from a cluster size. At (64, 1, 327, 768) the two passes take ~0.19
+// ms on the device, ~20 % of the bytes bound (0.038 ms). Numbers: PERF.md.
 
-#include "common.cuh"
+#include "attention_tiles.cuh"
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per block, 16 per warp
-constexpr int BK = 64;  // keys per streamed block
-constexpr int THREADS = 128;
+constexpr int BQ = scl::kTileQ;
+constexpr int BK = scl::kTileK;
+constexpr int THREADS = scl::kTileThreads;
+constexpr int SHORT_ROWS = 128;       // rows a narrow block may take whole
+constexpr int MAX_THREADS = SHORT_ROWS * 2;  // 8 warps of 16 rows
 
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack2f(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D += A B, m16n8k16, bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
+// One block of blockDim.x / 32 warps (4; for L <= 128, one per 16-row slab
+// of L, so a short row is one block per head) owns a query tile of 16 rows
+// per warp.
 template <int DK>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                          long long row_stride, int r0, int n_rows,
-                                          int dh) {
-  constexpr int LD = DK + 8, CH = DK / 8;
-  for (int i = threadIdx.x; i < BK * CH; i += THREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool ok = r0 + r < n_rows && c < dh;
-    scl::cp_async_16(&dst[r * LD + c], ok ? base + (r0 + r) * row_stride + c : base, ok);
-  }
-}
-
-template <int DK>
-__global__ void __launch_bounds__(THREADS) flash_kernel(scl::AttnArgs a) {
-  constexpr int LD = DK + 8;      // shared row stride (bf16 elements)
-  constexpr int NK = DK / 16;     // k16 steps of Q K^T
-  constexpr int NO = DK / 8;      // n8 output tiles of P V
-  constexpr int NS = BK / 8;      // n8 score tiles per key block
+__global__ void __launch_bounds__(MAX_THREADS) flash_kernel(scl::AttnArgs a) {
+  constexpr int LD = DK + 8;  // shared row stride (bf16 elements)
+  constexpr int NK = DK / 16, NO = DK / 8;
+  const int tq = blockDim.x / 2;  // query rows per block: 16 per warp
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + BQ * LD;        // 2 stages
-  __nv_bfloat16* Vs = Ks + 2 * BK * LD;    // 2 stages
+  __nv_bfloat16* Ks = Qs + tq * LD;      // 2 stages
+  __nv_bfloat16* Vs = Ks + 2 * BK * LD;  // 2 stages
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tig = lane % 4;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * tq, h = blockIdx.y, b = blockIdx.z;
   const int S = a.S, L = a.L, dh = a.dh;
   const int len = a.lens ? min(a.lens[b], S) : S;
   const __nv_bfloat16* qb = a.q + b * a.qs[0] + h * a.qs[1];
   const __nv_bfloat16* kb = a.k + b * a.ks[0] + h * a.ks[1];
   const __nv_bfloat16* vb = a.v + b * a.vs[0] + h * a.vs[1];
+  const int n_blocks = scl::key_blocks(S, len, a.causal, q0, L, tq);
+  const bool live = q0 + warp * 16 < L;
+  const int row0 = q0 + warp * 16 + lane / 4;
 
-  int n_blocks = (S + BK - 1) / BK;
-  if (len > 0) {
-    n_blocks = min(n_blocks, (len + BK - 1) / BK);
-    if (a.causal) {  // up to the block holding the tile's last row
-      const int last_row = min(q0 + BQ, L) - 1;
-      n_blocks = min(n_blocks, last_row / BK + 1);
-    }
-  }
-
-  // Q tile (BQ rows = BK, so load_tile serves) and the first K/V block.
-  load_tile<DK>(Qs, qb + q0 * a.qs[2], a.qs[2], 0, L - q0, dh);
-  load_tile<DK>(Ks, kb, a.ks[2], 0, S, dh);
-  load_tile<DK>(Vs, vb, a.vs[2], 0, S, dh);
+  scl::load_tile<DK>(Qs, qb + q0 * a.qs[2], a.qs[2], 0, L - q0, dh, tq);
+  scl::load_tile<DK>(Ks, kb, a.ks[2], 0, S, dh);
+  scl::load_tile<DK>(Vs, vb, a.vs[2], 0, S, dh);
   scl::cp_async_commit();
 
   uint32_t qf[NK][4];
@@ -130,346 +104,225 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(scl::AttnArgs a) {
 #pragma unroll
   for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float m0 = scl::kNegInf, m1 = scl::kNegInf, l0 = 0.f, l1 = 0.f;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
 
   for (int kbk = 0; kbk < n_blocks; ++kbk) {
     if (kbk + 1 < n_blocks) {
       const int nxt = (kbk + 1) & 1;
-      load_tile<DK>(Ks + nxt * BK * LD, kb, a.ks[2], (kbk + 1) * BK, S, dh);
-      load_tile<DK>(Vs + nxt * BK * LD, vb, a.vs[2], (kbk + 1) * BK, S, dh);
+      scl::load_tile<DK>(Ks + nxt * BK * LD, kb, a.ks[2], (kbk + 1) * BK, S, dh);
+      scl::load_tile<DK>(Vs + nxt * BK * LD, vb, a.vs[2], (kbk + 1) * BK, S, dh);
       scl::cp_async_commit();
       scl::cp_async_wait<1>();
     } else {
       scl::cp_async_wait<0>();
     }
     __syncthreads();
-    if (kbk == 0) {
-      const __nv_bfloat16* qw = Qs + warp * 16 * LD;
+    // causal: a block wholly above the warp's rows adds exact zeros (key 0 is
+    // valid for every row when len > 0, so m is already finite)
+    const bool above = a.causal && len > 0 && kbk * BK > q0 + warp * 16 + 15;
+    if (live && !above) {
+      if (kbk == 0) scl::load_a<DK, LD>(qf, Qs + warp * 16 * LD, lane);
+      float s[8][4];
 #pragma unroll
-      for (int kk = 0; kk < NK; ++kk) {
-        const __nv_bfloat16* p = qw + kk * 16 + tig * 2;
-        qf[kk][0] = *reinterpret_cast<const uint32_t*>(p + g * LD);
-        qf[kk][1] = *reinterpret_cast<const uint32_t*>(p + (g + 8) * LD);
-        qf[kk][2] = *reinterpret_cast<const uint32_t*>(p + g * LD + 8);
-        qf[kk][3] = *reinterpret_cast<const uint32_t*>(p + (g + 8) * LD + 8);
-      }
-    }
-    const __nv_bfloat16* Kst = Ks + (kbk & 1) * BK * LD;
-    const __nv_bfloat16* Vst = Vs + (kbk & 1) * BK * LD;
-
-    // S = Q K^T (f32), then scale and mask.
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < NK; ++kk) {
-        const __nv_bfloat16* p = Kst + (j * 8 + g) * LD + kk * 16 + tig * 2;
-        mma16816(s[j], qf[kk], *reinterpret_cast<const uint32_t*>(p),
-                 *reinterpret_cast<const uint32_t*>(p + 8));
-      }
-    }
-    float mx0 = scl::kNegInf, mx1 = scl::kNegInf;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kbk * BK + j * 8 + tig * 2 + (e & 1);
-        const int row = e < 2 ? row0 : row1;
-        float x = s[j][e] * a.scale;
-        if (col >= S) {
-          x = -INFINITY;  // past the keys: weight exactly 0, even in a masked row
-        } else if (col >= len || (a.causal && col > row)) {
-          x = scl::kNegInf;
-        }
-        s[j][e] = x;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    // a row's 8-column slices live in the 4 lanes of a quad
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-    m0 = mn0, m1 = mn1;
-    l0 *= al0, l1 *= al1;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= al0, acc[n][1] *= al0;
-      acc[n][2] *= al1, acc[n][3] *= al1;
-    }
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = expf(s[j][0] - mn0), s[j][1] = expf(s[j][1] - mn0);
-      s[j][2] = expf(s[j][2] - mn1), s[j][3] = expf(s[j][3] - mn1);
-      l0 += s[j][0] + s[j][1];
-      l1 += s[j][2] + s[j][3];
-    }
-
-    // acc += P V over the block's four 16-key slabs, p = hi + lo.
-#pragma unroll
-    for (int t = 0; t < BK / 16; ++t) {
-      uint32_t hi[4], lo[4];
-      const float* c0 = s[2 * t];
-      const float* c1 = s[2 * t + 1];
-      const float pv[8] = {c0[0], c0[1], c0[2], c0[3], c1[0], c1[1], c1[2], c1[3]};
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const __nv_bfloat16 h0 = __float2bfloat16_rn(pv[2 * r]);
-        const __nv_bfloat16 h1 = __float2bfloat16_rn(pv[2 * r + 1]);
-        hi[r] = pack2(h0, h1);
-        lo[r] = pack2f(pv[2 * r] - __bfloat162float(h0), pv[2 * r + 1] - __bfloat162float(h1));
-      }
-      const __nv_bfloat16* vr = Vst + (t * 16 + tig * 2) * LD + g;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const __nv_bfloat16* p = vr + n * 8;
-        const uint32_t b0 = pack2(p[0], p[LD]);
-        const uint32_t b1 = pack2(p[8 * LD], p[9 * LD]);
-        mma16816(acc[n], hi, b0, b1);
-        mma16816(acc[n], lo, b0, b1);
-      }
+      for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      scl::qk_block<DK, LD>(s, qf, Ks + (kbk & 1) * BK * LD, lane);
+      scl::mask_scores(s, a.scale, kbk, S, len, a.causal, row0, lane);
+      scl::online_softmax<NO>(s, acc, m0, m1, l0, l1);
+      uint32_t hi[4][4], lo[4][4];
+      scl::p_frags_split(hi, lo, s);
+      scl::pv_block<DK, LD, true>(acc, hi, lo, Vs + (kbk & 1) * BK * LD, lane);
     }
     __syncthreads();  // this stage is refilled two blocks from now
   }
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  __nv_bfloat16* ob = a.out + b * a.os[0] + h * a.os[1];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int col = n * 8 + tig * 2;
-    if (col < dh) {
-      if (row0 < L)
-        *reinterpret_cast<uint32_t*>(ob + row0 * a.os[2] + col) =
-            pack2f(acc[n][0] / d0, acc[n][1] / d0);
-      if (row1 < L)
-        *reinterpret_cast<uint32_t*>(ob + row1 * a.os[2] + col) =
-            pack2f(acc[n][2] / d1, acc[n][3] / d1);
-    }
+  if (live) {
+    const float d0 = fmaxf(scl::quad_sum(l0), 1e-30f), d1 = fmaxf(scl::quad_sum(l1), 1e-30f);
+    scl::store_rows<NO>(a.out + b * a.os[0] + h * a.os[1], a.os[2], acc, d0, d1, row0, L, 0,
+                        dh, lane);
   }
 }
 
-constexpr int DC = 128;  // head-dim chunk of the wide kernel
-constexpr int LDC = DC + 8;
+constexpr int DC1 = 64;   // head-dim chunk of the score pass
+constexpr int DC = 128;   // output-column chunk of the P V pass
+constexpr int LDS = BK + 8;  // f32 row stride of a shared score tile
 
-// One 64-row x 128-column chunk of a (rows, Dh) operand into shared memory;
-// rows past n_rows and columns past dh are zero-filled.
-__device__ __forceinline__ void load_chunk(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                           long long row_stride, int r0, int n_rows,
-                                           int c0, int dh) {
-  constexpr int CH = DC / 8;
-  for (int i = threadIdx.x; i < BK * CH; i += THREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool ok = r0 + r < n_rows && c0 + c < dh;
-    scl::cp_async_16(&dst[r * LDC + c], ok ? base + (r0 + r) * row_stride + c0 + c : base, ok);
-  }
-}
-
-__global__ void __launch_bounds__(THREADS) flash_kernel_wide(scl::AttnArgs a, int n_chunks) {
-  constexpr int NK = DC / 16;  // k16 steps per chunk of Q K^T
-  constexpr int NO = DC / 8;   // n8 output tiles of P V
-  constexpr int NS = BK / 8;   // n8 score tiles per key block
-  constexpr int TILE = BK * LDC;
+__global__ void __launch_bounds__(THREADS)
+    wide_scores_kernel(scl::AttnArgs a, float* scores, int n_kb, int ld_rows, int ld_cols) {
+  constexpr int LD = DC1 + 8, TILE = BK * LD;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);  // 2 stages
   __nv_bfloat16* Ks = Qs + 2 * TILE;                             // 2 stages
-  __nv_bfloat16* Vs = Ks + 2 * TILE;                             // 2 stages
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tig = lane % 4;
+  const int q0 = (blockIdx.x / n_kb) * BQ, kbk = blockIdx.x % n_kb;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int S = a.S, L = a.L, dh = a.dh;
+  const int len = a.lens ? min(a.lens[b], S) : S;
+  if (kbk >= scl::key_blocks(S, len, a.causal, q0, L)) return;  // no P V reads it
+  const __nv_bfloat16* qb = a.q + b * a.qs[0] + h * a.qs[1] + q0 * a.qs[2];
+  const __nv_bfloat16* kb = a.k + b * a.ks[0] + h * a.ks[1];
+  const bool live = q0 + warp * 16 < L;
+  const int row0 = q0 + warp * 16 + lane / 4;
+  const int steps = (dh + DC1 - 1) / DC1;
+
+  auto load_step = [&](int c) {
+    scl::load_tile<DC1>(Qs + (c & 1) * TILE, qb + c * DC1, a.qs[2], 0, L - q0, dh - c * DC1);
+    scl::load_tile<DC1>(Ks + (c & 1) * TILE, kb + c * DC1, a.ks[2], kbk * BK, S, dh - c * DC1);
+    scl::cp_async_commit();
+  };
+  float s[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  load_step(0);
+  for (int c = 0; c < steps; ++c) {
+    if (c + 1 < steps) {
+      load_step(c + 1);
+      scl::cp_async_wait<1>();
+    } else {
+      scl::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (live) {
+      uint32_t qf[DC1 / 16][4];
+      scl::load_a<DC1, LD>(qf, Qs + (c & 1) * TILE + warp * 16 * LD, lane);
+      scl::qk_block<DC1, LD>(s, qf, Ks + (c & 1) * TILE, lane);
+    }
+    __syncthreads();
+  }
+  if (!live) return;
+  scl::mask_scores(s, a.scale, kbk, S, len, a.causal, row0, lane);
+  float* out = scores + ((static_cast<long long>(b) * a.H + h) * ld_rows + row0) * ld_cols +
+               kbk * BK + (lane % 4) * 2;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    *reinterpret_cast<float2*>(out + j * 8) = make_float2(s[j][0], s[j][1]);
+    *reinterpret_cast<float2*>(out + 8LL * ld_cols + j * 8) = make_float2(s[j][2], s[j][3]);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+    wide_pv_kernel(scl::AttnArgs a, const float* scores, int n_chunks, int ld_rows,
+                   int ld_cols) {
+  constexpr int LDV = DC + 8, NO = DC / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Ss = reinterpret_cast<float*>(smem);                              // 2 stages
+  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(Ss + 2 * BQ * LDS);  // 2 stages
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int q0 = (blockIdx.x / n_chunks) * BQ, oc0 = (blockIdx.x % n_chunks) * DC;
   const int h = blockIdx.y, b = blockIdx.z;
   const int S = a.S, L = a.L, dh = a.dh;
   const int len = a.lens ? min(a.lens[b], S) : S;
-  const __nv_bfloat16* qb = a.q + b * a.qs[0] + h * a.qs[1] + q0 * a.qs[2];
-  const __nv_bfloat16* kb = a.k + b * a.ks[0] + h * a.ks[1];
-  const __nv_bfloat16* vb = a.v + b * a.vs[0] + h * a.vs[1];
+  const int n_blocks = scl::key_blocks(S, len, a.causal, q0, L);
+  const float* sb = scores + ((static_cast<long long>(b) * a.H + h) * ld_rows + q0) * ld_cols;
+  const __nv_bfloat16* vb = a.v + b * a.vs[0] + h * a.vs[1] + oc0;
+  const bool live = q0 + warp * 16 < L;
+  const int row0 = q0 + warp * 16 + lane / 4;
 
-  int n_blocks = (S + BK - 1) / BK;
-  if (len > 0) {
-    n_blocks = min(n_blocks, (len + BK - 1) / BK);
-    if (a.causal) n_blocks = min(n_blocks, (min(q0 + BQ, L) - 1) / BK + 1);
-  }
-  const int steps = n_blocks * n_chunks;
-  // step i loads Q chunk j and K block kbk's chunk j (i = kbk * n_chunks + j)
-  // into stage i & 1, and with j == 0 block kbk's V columns into stage kbk & 1
-  auto load_step = [&](int i) {
-    const int kbk = i / n_chunks, j = i % n_chunks;
-    load_chunk(Qs + (i & 1) * TILE, qb, a.qs[2], 0, L - q0, j * DC, dh);
-    load_chunk(Ks + (i & 1) * TILE, kb, a.ks[2], kbk * BK, S, j * DC, dh);
-    if (j == 0) load_chunk(Vs + (kbk & 1) * TILE, vb, a.vs[2], kbk * BK, S, oc0, dh);
+  auto load_block = [&](int kbk) {
+    float* dst = Ss + (kbk & 1) * BQ * LDS;
+    for (int i = threadIdx.x; i < BQ * (BK / 4); i += THREADS) {
+      const int r = i / (BK / 4), c = (i % (BK / 4)) * 4;
+      scl::cp_async_16(&dst[r * LDS + c], sb + r * static_cast<long long>(ld_cols) + kbk * BK + c,
+                       true);
+    }
+    scl::load_tile<DC>(Vs + (kbk & 1) * BK * LDV, vb, a.vs[2], kbk * BK, S, dh - oc0);
     scl::cp_async_commit();
   };
 
   float acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float s[NS][4];
   float m0 = scl::kNegInf, m1 = scl::kNegInf, l0 = 0.f, l1 = 0.f;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
 
-  load_step(0);
-  for (int i = 0; i < steps; ++i) {
-    if (i + 1 < steps) {
-      load_step(i + 1);
+  load_block(0);
+  for (int kbk = 0; kbk < n_blocks; ++kbk) {
+    if (kbk + 1 < n_blocks) {
+      load_block(kbk + 1);
       scl::cp_async_wait<1>();
     } else {
       scl::cp_async_wait<0>();
     }
     __syncthreads();
-    const int kbk = i / n_chunks, j = i % n_chunks;
-    if (j == 0) {
+    if (live) {
+      const float* sr = Ss + (kbk & 1) * BQ * LDS + (warp * 16 + lane / 4) * LDS + (lane % 4) * 2;
+      float s[8][4];
 #pragma unroll
-      for (int t = 0; t < NS; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+      for (int j = 0; j < 8; ++j) {
+        const float2 x0 = *reinterpret_cast<const float2*>(sr + j * 8);
+        const float2 x1 = *reinterpret_cast<const float2*>(sr + 8 * LDS + j * 8);
+        s[j][0] = x0.x, s[j][1] = x0.y, s[j][2] = x1.x, s[j][3] = x1.y;
+      }
+      scl::online_softmax<NO>(s, acc, m0, m1, l0, l1);
+      uint32_t hi[4][4], lo[4][4];
+      scl::p_frags_split(hi, lo, s);
+      scl::pv_block<DC, LDV, true>(acc, hi, lo, Vs + (kbk & 1) * BK * LDV, lane);
     }
-    const __nv_bfloat16* Qst = Qs + (i & 1) * TILE + warp * 16 * LDC;
-    const __nv_bfloat16* Kst = Ks + (i & 1) * TILE;
-#pragma unroll
-    for (int kk = 0; kk < NK; ++kk) {
-      const __nv_bfloat16* p = Qst + kk * 16 + tig * 2;
-      uint32_t qf[4];
-      qf[0] = *reinterpret_cast<const uint32_t*>(p + g * LDC);
-      qf[1] = *reinterpret_cast<const uint32_t*>(p + (g + 8) * LDC);
-      qf[2] = *reinterpret_cast<const uint32_t*>(p + g * LDC + 8);
-      qf[3] = *reinterpret_cast<const uint32_t*>(p + (g + 8) * LDC + 8);
-#pragma unroll
-      for (int t = 0; t < NS; ++t) {
-        const __nv_bfloat16* kp = Kst + (t * 8 + g) * LDC + kk * 16 + tig * 2;
-        mma16816(s[t], qf, *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
-      }
-    }
-    if (j == n_chunks - 1) {
-      // scale, mask and the online softmax, as in flash_kernel
-      float mx0 = scl::kNegInf, mx1 = scl::kNegInf;
-#pragma unroll
-      for (int t = 0; t < NS; ++t) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = kbk * BK + t * 8 + tig * 2 + (e & 1);
-          const int row = e < 2 ? row0 : row1;
-          float x = s[t][e] * a.scale;
-          if (col >= S) {
-            x = -INFINITY;
-          } else if (col >= len || (a.causal && col > row)) {
-            x = scl::kNegInf;
-          }
-          s[t][e] = x;
-        }
-        mx0 = fmaxf(mx0, fmaxf(s[t][0], s[t][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[t][2], s[t][3]));
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-      m0 = mn0, m1 = mn1;
-      l0 *= al0, l1 *= al1;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        acc[n][0] *= al0, acc[n][1] *= al0;
-        acc[n][2] *= al1, acc[n][3] *= al1;
-      }
-#pragma unroll
-      for (int t = 0; t < NS; ++t) {
-        s[t][0] = expf(s[t][0] - mn0), s[t][1] = expf(s[t][1] - mn0);
-        s[t][2] = expf(s[t][2] - mn1), s[t][3] = expf(s[t][3] - mn1);
-        l0 += s[t][0] + s[t][1];
-        l1 += s[t][2] + s[t][3];
-      }
-      const __nv_bfloat16* Vst = Vs + (kbk & 1) * TILE;
-#pragma unroll
-      for (int t = 0; t < BK / 16; ++t) {
-        uint32_t hi[4], lo[4];
-        const float* c0 = s[2 * t];
-        const float* c1 = s[2 * t + 1];
-        const float pv[8] = {c0[0], c0[1], c0[2], c0[3], c1[0], c1[1], c1[2], c1[3]};
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const __nv_bfloat16 h0 = __float2bfloat16_rn(pv[2 * r]);
-          const __nv_bfloat16 h1 = __float2bfloat16_rn(pv[2 * r + 1]);
-          hi[r] = pack2(h0, h1);
-          lo[r] = pack2f(pv[2 * r] - __bfloat162float(h0), pv[2 * r + 1] - __bfloat162float(h1));
-        }
-        const __nv_bfloat16* vr = Vst + (t * 16 + tig * 2) * LDC + g;
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          const __nv_bfloat16* p = vr + n * 8;
-          const uint32_t b0 = pack2(p[0], p[LDC]);
-          const uint32_t b1 = pack2(p[8 * LDC], p[9 * LDC]);
-          mma16816(acc[n], hi, b0, b1);
-          mma16816(acc[n], lo, b0, b1);
-        }
-      }
-    }
-    __syncthreads();  // stage i & 1 (and this block's V stage) is refilled later
+    __syncthreads();  // this stage is refilled two blocks from now
   }
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  __nv_bfloat16* ob = a.out + b * a.os[0] + h * a.os[1];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int col = oc0 + n * 8 + tig * 2;
-    if (col < dh) {
-      if (row0 < L)
-        *reinterpret_cast<uint32_t*>(ob + row0 * a.os[2] + col) =
-            pack2f(acc[n][0] / d0, acc[n][1] / d0);
-      if (row1 < L)
-        *reinterpret_cast<uint32_t*>(ob + row1 * a.os[2] + col) =
-            pack2f(acc[n][2] / d1, acc[n][3] / d1);
-    }
+  if (live) {
+    const float d0 = fmaxf(scl::quad_sum(l0), 1e-30f), d1 = fmaxf(scl::quad_sum(l1), 1e-30f);
+    scl::store_rows<NO>(a.out + b * a.os[0] + h * a.os[1], a.os[2], acc, d0, d1, row0, L, oc0,
+                        dh, lane);
   }
 }
 
-int launch_wide(const scl::AttnArgs& a, cudaStream_t stream) {
-  const int smem = 6 * BK * LDC * 2;
+constexpr int kScoresSmem = 4 * BK * (DC1 + 8) * 2;
+constexpr int kPvSmem = 2 * BQ * LDS * 4 + 2 * BK * (DC + 8) * 2;
+
+int launch_wide(const scl::AttnArgs& a, float* scores, cudaStream_t stream) {
+  const int n_qt = (a.L - 1) / BQ + 1, n_kb = (a.S - 1) / BK + 1;
+  const int ld_rows = n_qt * BQ, ld_cols = n_kb * BK;
+  const int n_chunks = (a.dh - 1) / DC + 1;
+  if (static_cast<long long>(n_qt) * n_kb > 2147483647LL ||
+      static_cast<long long>(n_qt) * n_chunks > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      wide_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kScoresSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(wide_pv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kPvSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_chunks = (a.dh + DC - 1) / DC;
-  const long long grid_x = static_cast<long long>((a.L + BQ - 1) / BQ) * n_chunks;
-  if (grid_x > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(static_cast<unsigned>(grid_x), a.H, a.B);
-  flash_kernel_wide<<<grid, THREADS, smem, stream>>>(a, n_chunks);
+  wide_scores_kernel<<<dim3(n_qt * n_kb, a.H, a.B), THREADS, kScoresSmem, stream>>>(
+      a, scores, n_kb, ld_rows, ld_cols);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wide_pv_kernel<<<dim3(n_qt * n_chunks, a.H, a.B), THREADS, kPvSmem, stream>>>(
+      a, scores, n_chunks, ld_rows, ld_cols);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DK>
 int launch(const scl::AttnArgs& a, cudaStream_t stream) {
-  const int smem = (BQ + 4 * BK) * (DK + 8) * 2;
+  // rows up to 128 take one block per head, a warp per 16-row slab
+  const int tq = a.L <= SHORT_ROWS ? scl::round_up(a.L, 16) : BQ;
+  const int smem = (tq + 4 * BK) * (DK + 8) * 2;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<DK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_kernel<DK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (SHORT_ROWS + 4 * BK) * (DK + 8) * 2);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((a.L + BQ - 1) / BQ, a.H, a.B);
-  flash_kernel<DK><<<grid, THREADS, smem, stream>>>(a);
+  dim3 grid((a.L - 1) / tq + 1, a.H, a.B);
+  flash_kernel<DK><<<grid, tq * 2, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// `scores`: for dh > 128, an f32 scratch of B * H * ceil64(L) * ceil64(S)
+// elements (the wrapper allocates it); unused otherwise.
 extern "C" int scl_flash_attention(const void* q, const void* k, const void* v,
                                    const void* lens, void* out, int B, int H, int L,
                                    int S, int dh, const long long* strides, int causal,
-                                   float scale, void* stream) {
+                                   float scale, void* scores, void* stream) {
   if (dh % 8 != 0 || L < 1 || S < 1 || H > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const scl::AttnArgs a =
       scl::make_attn_args(q, k, v, lens, out, B, H, L, S, dh, strides, causal, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh > 128) return launch_wide(a, st);
+  if (dh > 128) {
+    if (scores == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_wide(a, static_cast<float*>(scores), st);
+  }
   switch (scl::round_up(dh, 16)) {
     case 16: return launch<16>(a, st);
     case 32: return launch<32>(a, st);

@@ -16,6 +16,7 @@ import torch
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 MAX_HEAD_DIM = 128
+MAX_ROWS = 2**31 - 1  # rows of one head (L or S): the launchers take C ints
 
 # Agreement of a bf16 attention output with its plain version. The outputs
 # are weighted means of v (|out| ~ 0.05-3 here), so a fixed absolute limit

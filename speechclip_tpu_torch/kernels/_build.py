@@ -87,10 +87,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, i, i, i, i, i, strides, i, i, ctypes.c_float, p,
     ]
     lib.scl_rowwise_attention.restype = i
-    lib.scl_rowwise_smem_bytes.argtypes = [i, i]
+    lib.scl_rowwise_smem_bytes.argtypes = [i]
     lib.scl_rowwise_smem_bytes.restype = i
     lib.scl_flash_attention.argtypes = [
-        p, p, p, p, p, i, i, i, i, i, strides, i, ctypes.c_float, p,
+        p, p, p, p, p, i, i, i, i, i, strides, i, ctypes.c_float, p, p,
     ]
     lib.scl_flash_attention.restype = i
     lib.scl_conv_chain_layer.argtypes = [p, p, p, i, i, i, i, i, p]

@@ -14,7 +14,10 @@ optional causal flag, with the TPU kernel's rounding points:
 That is not ``masked_sdpa``'s rounding, which normalizes in f32 first.
 
 On a CUDA bf16 tensor it launches ``csrc/attention_vmem.cu``; on a CPU
-tensor, or with ``plain=True``, it runs ``attention_vmem_plain``.
+tensor, or with ``plain=True``, it runs ``attention_vmem_plain``. The
+kernel sweeps K twice (the row max, then the rounded p and P V) with its
+scores in registers, so its shared memory depends on Dh alone and it takes
+rows of any length.
 
 The gate keeps the TPU package's VMEM numbers on purpose: the gates decide
 which computation, with which rounding points, produces a layer's output,
@@ -31,7 +34,6 @@ import torch
 
 from . import _build
 from ._attention_common import (
-    SMEM_LIMIT,
     check_attention_operands,
     empty_heads_out,
     key_mask,
@@ -41,9 +43,9 @@ from ._sdpa_ref import NEG_INF
 from ..ops.basic import matmul_f32
 
 VMEM_BUDGET = 10 * 1024 * 1024  # the TPU kernel's per-cell VMEM cap (bytes)
-# Tile constants of csrc/attention_vmem.cu (query rows per block, keys per
-# streamed K/V chunk, warps per block); smem_bytes mirrors its RowSmem.
-ROW_BQ, ROW_KC, ROW_WARPS = 32, 64, 8
+# Tile constants of csrc/attention_vmem.cu: query rows per block (16 per
+# warp) and keys per streamed K/V block.
+ROW_BQ, ROW_BK = 64, 64
 
 
 def _group_size(bh: int, l: int, s: int, d: int, itemsize: int) -> int:
@@ -84,24 +86,11 @@ def attention_vmem_plain(q, k, v, lens: Optional[torch.Tensor], causal: bool = F
     return (acc / denom.clamp(min=1e-30)).to(dt)
 
 
-def smem_bytes(s: int, dh: int) -> int:
-    """Shared memory of one block of ``csrc/attention_vmem.cu`` (its RowSmem)."""
-    a128 = lambda x: (x + 127) // 128 * 128
-    ldk = (dh + 15) // 16 * 16 + 8
-    lds = (s + ROW_KC - 1) // ROW_KC * ROW_KC + 4
-    total = a128(ROW_BQ * ldk * 2)  # Q tile
-    total += a128(2 * ROW_KC * ldk * 2)  # two K/V chunk stages
-    total += a128(ROW_BQ * lds * 4)  # the f32 score rows (bf16 p over them)
-    total += a128(ROW_BQ * 4)  # row denominators
-    return total + ROW_WARPS * 16 * 16 * 4  # per-warp epilogue tiles
-
-
-def max_keys(dh: int) -> int:
-    """The longest key row the whole-row kernel holds for head dim ``dh``."""
-    s = ROW_KC
-    while smem_bytes(s + ROW_KC, dh) <= SMEM_LIMIT:
-        s += ROW_KC
-    return s
+def smem_bytes(dh: int) -> int:
+    """Shared memory of one block of ``csrc/attention_vmem.cu``: the Q tile
+    and two stages each of K and V blocks, rows padded to 16 + 8 elements.
+    It does not depend on the row length."""
+    return (ROW_BQ + 4 * ROW_BK) * ((dh + 15) // 16 * 16 + 8) * 2
 
 
 def rowwise_attention(q, k, v, lens, out, causal: bool, vmem_rounding: bool) -> None:
@@ -110,12 +99,6 @@ def rowwise_attention(q, k, v, lens, out, causal: bool, vmem_rounding: bool) -> 
     (f32 softmax normalized, then rounded: the mha_block core)."""
     b, h, l, dh = q.shape
     s = k.shape[2]
-    smem = smem_bytes(s, dh)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"whole-row attention holds at most {max_keys(dh)} keys at Dh={dh} "
-            f"(S={s} needs {smem} > {SMEM_LIMIT} bytes of shared memory)"
-        )
     q, k, v, lens_dev, strides = launch_args(q, k, v, lens, out)
     if vmem_rounding:
         scale = float(torch.tensor(1.0 / math.sqrt(dh), dtype=torch.bfloat16))

@@ -15,9 +15,13 @@ to its 128-key block instead, the only place its padding shows.
 On a CUDA bf16 tensor it launches ``csrc/flash_attention.cu``; on a CPU
 tensor, or with ``plain=True``, it runs ``flash_attention_plain``. Like the
 TPU kernel it has no head-dim limit: Dh % 8 == 0 is all it asks. Heads up
-to 128 wide run ``flash_kernel<Dh>``; wider ones (the cascaded branch's
-single 768-wide head) run ``flash_kernel_wide``, which cuts Dh into
-128-wide chunks, one block per chunk of output columns.
+to 128 wide run ``flash_kernel<Dh>`` (a block of 4 warps per 64-row query
+tile; rows up to 128 take one block per (batch, head), a warp per 16-row
+slab); wider ones (the cascaded branch's single 768-wide head) run two
+kernels: ``wide_scores_kernel`` computes the scaled, masked f32 scores once
+per (query tile, key block) into a scratch buffer this wrapper allocates,
+and ``wide_pv_kernel`` runs the online softmax and P V for one 128-wide
+chunk of output columns per block.
 """
 
 from __future__ import annotations
@@ -32,9 +36,10 @@ from ._sdpa_ref import NEG_INF
 from ._attention_common import check_attention_operands, empty_heads_out, key_mask, launch_args
 
 # Tile constants of csrc/flash_attention.cu: query rows per block (16 per
-# warp), keys per streamed K/V block, and the head-dim chunk of the wide
-# kernel (Dh > 128).
-FLASH_BQ, FLASH_BK, WIDE_CHUNK = 64, 64, 128
+# warp), keys per streamed K/V block, and for Dh > 128 the head-dim chunk of
+# the score pass and the output-column chunk of the P V pass.
+FLASH_BQ, FLASH_BK, SCORE_CHUNK, WIDE_CHUNK = 64, 64, 64, 128
+SHORT_ROWS = 128  # rows up to this run one block per (batch, head)
 
 
 def flash_attention_plain(q, k, v, lens: Optional[torch.Tensor], causal: bool = False):
@@ -51,14 +56,25 @@ def flash_attention_plain(q, k, v, lens: Optional[torch.Tensor], causal: bool = 
 
 
 def smem_bytes(dh: int) -> int:
-    """Shared memory of one block of ``csrc/flash_attention.cu``: up to Dh =
-    128, the Q tile and two stages of K and V blocks, rows padded to 16 + 8
-    elements; past it, two stages each of a Q chunk, a K chunk and a V
-    chunk, 128 + 8 elements a row."""
+    """Shared memory of one block of ``csrc/flash_attention.cu`` at its
+    largest: up to Dh = 128, the Q tile (128 rows where L <= 128 takes one
+    block) and two stages of K and V blocks, rows padded to 16 + 8
+    elements; past it, the larger of the score pass (two stages of a Q and a
+    K chunk, 64 + 8 elements a row) and the P V pass (two stages of an f32
+    score tile, 64 + 8 a row, and of a V chunk, 128 + 8 a row)."""
     if dh > WIDE_CHUNK:
-        return 6 * FLASH_BK * (WIDE_CHUNK + 8) * 2
+        scores = 4 * FLASH_BK * (SCORE_CHUNK + 8) * 2
+        pv = 2 * FLASH_BQ * (FLASH_BK + 8) * 4 + 2 * FLASH_BK * (WIDE_CHUNK + 8) * 2
+        return max(scores, pv)
     ld = (dh + 15) // 16 * 16 + 8
-    return (FLASH_BQ + 4 * FLASH_BK) * ld * 2
+    return (SHORT_ROWS + 4 * FLASH_BK) * ld * 2
+
+
+def wide_scores_shape(b: int, h: int, l: int, s: int):
+    """The f32 scratch of the wide kernels: (B, H, L, S) scores with L and S
+    rounded up to whole 64-row tiles."""
+    up = lambda x: -(-x // FLASH_BK) * FLASH_BK
+    return (b, h, up(l), up(s))
 
 
 def flash_attention(q, k, v, lens: Optional[torch.Tensor] = None,
@@ -71,6 +87,9 @@ def flash_attention(q, k, v, lens: Optional[torch.Tensor] = None,
     b, h, l, dh = q.shape
     s = k.shape[2]
     out = empty_heads_out(b, h, l, dh, q.device)
+    scores = None
+    if dh > WIDE_CHUNK:
+        scores = torch.empty(wide_scores_shape(b, h, l, s), dtype=torch.float32, device=q.device)
     q, k, v, lens_dev, strides = launch_args(q, k, v, lens, out)
     lib = _build.load()
     _build.check(
@@ -78,6 +97,7 @@ def flash_attention(q, k, v, lens: Optional[torch.Tensor] = None,
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if lens_dev is None else lens_dev.data_ptr(), out.data_ptr(),
             b, h, l, s, dh, strides, int(causal), 1.0 / math.sqrt(dh),
+            None if scores is None else scores.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream,
         ),
         "scl_flash_attention",

@@ -16,11 +16,10 @@ attention core -> out-proj GEMM with bias + residual epilogue [-> row LN for
 whole K row fits beside its 64-query tile (T <= 512 at Dh = 64, <= 448 at
 Dh = 96, Dh % 16 == 0), else the whole-row kernel of
 ``csrc/attention_vmem.cu`` with this block's rounding points, which streams
-K and V and covers every T the gate ``block_eligible`` admits. On a CPU
-tensor it runs ``mha_layer_block_plain``, which keeps the
-TPU kernel's rounding points: f32 accumulation, f32 bias added before
-rounding qkv to the activation dtype, f32 masked softmax, f32 residual and
-LayerNorm.
+K and V and takes rows of any length. On a CPU tensor it runs
+``mha_layer_block_plain``, which keeps the TPU kernel's rounding points:
+f32 accumulation, f32 bias added before rounding qkv to the activation
+dtype, f32 masked softmax, f32 residual and LayerNorm.
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ import torch
 
 from . import _build
 from . import attention_vmem as rowwise
-from ._attention_common import MAX_HEAD_DIM, SMEM_LIMIT
+from ._attention_common import MAX_HEAD_DIM, MAX_ROWS, SMEM_LIMIT
 from ._sdpa_ref import masked_sdpa
 from ..ops.basic import matmul_f32
 
@@ -183,10 +182,12 @@ def whole_key_core_fits(t: int, dh: int) -> bool:
 
 def attention_core_max_t(dh: int) -> int:
     """The longest T the attention core of ``mha_layer_block`` takes at head
-    dim ``dh`` (0 if it takes no T there)."""
+    dim ``dh`` (0 if it takes no T there). Rows the whole-key core cannot
+    hold go to the whole-row kernel, whose shared memory does not depend on
+    T, so only the head dim limits it (and the launchers' int row counts)."""
     if dh % 8 or dh > MAX_HEAD_DIM:
         return 0
-    return rowwise.max_keys(dh)
+    return MAX_ROWS
 
 
 def attention_core(qkv: torch.Tensor, lens: Optional[torch.Tensor], bsz: int,

@@ -278,3 +278,16 @@ def test_attention_core_takes_every_t_the_gate_admits(d, heads, t_max):
     assert pmb.attention_core_max_t(d // heads) >= t_max
     for dh in range(8, 129, 8):  # every head dim the gate admits
         assert pmb.attention_core_max_t(dh) >= 782
+
+
+def test_attention_core_max_t_depends_on_the_head_dim_alone():
+    """The whole-row kernel's shared memory no longer grows with the row, so
+    the core takes every T at a head dim it takes at all (Dh % 8 == 0, Dh <=
+    128): the limit is the launchers' int row count, the same at every Dh."""
+    from speechclip_tpu_torch.kernels._attention_common import MAX_ROWS
+
+    taken = [dh for dh in range(1, 200) if pmb.attention_core_max_t(dh)]
+    assert taken == list(range(8, 129, 8))
+    assert {pmb.attention_core_max_t(dh) for dh in taken} == {MAX_ROWS}
+    for t in (1536, 1600, 2048, 100_000):  # past the old score-row cap (1536 at Dh = 64)
+        assert t <= pmb.attention_core_max_t(64)

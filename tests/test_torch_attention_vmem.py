@@ -117,12 +117,22 @@ def test_gate_matches_jax(b, h, l, s, d, itemsize):
 
 
 def test_whole_row_kernel_holds_every_admitted_row():
-    """The kernel's shared-memory plan holds the longest row the gate admits
-    (L = S <= 934) at every admitted head dim."""
+    """The kernel's shared-memory plan depends on the head dim alone (it
+    streams K twice and keeps its scores in registers), so it holds the
+    longest row the gate admits (L = S <= 934) and any longer one, with at
+    least two blocks per SM at every admitted head dim."""
+    import inspect
+
+    from speechclip_tpu_torch.kernels._attention_common import SMEM_LIMIT
+
     assert pav.vmem_eligible(16, 12, 934, 934, 64) and not pav.vmem_eligible(16, 12, 935, 935, 64)
+    assert list(inspect.signature(pav.smem_bytes).parameters) == ["dh"]
+    assert not hasattr(pav, "max_keys")
     for dh in range(8, 129, 8):
-        assert pav.smem_bytes(934, dh) <= pav.SMEM_LIMIT
-        assert pav.max_keys(dh) >= 934
+        assert 2 * pav.smem_bytes(dh) <= 228 * 1024
+        assert pav.smem_bytes(dh) <= SMEM_LIMIT
+    assert pav.smem_bytes(64) == (64 + 4 * 64) * 72 * 2  # 45 KB: 4 blocks per SM
+    assert pav.smem_bytes(128) == (64 + 4 * 64) * 136 * 2  # 85 KB: 2 blocks per SM
 
 
 def test_cpu_wrapper_takes_plain_path_without_counting():

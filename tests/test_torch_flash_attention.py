@@ -84,8 +84,16 @@ def test_non_cpu_non_cuda_tensors_raise():
 
 
 def test_smem_plan_fits_two_blocks_per_sm():
-    for dh in list(range(8, 129, 8)) + [136, 768, 1024]:
+    for dh in list(range(8, 129, 8)) + [136, 768, 1024, 1152]:
         assert 2 * pfa.smem_bytes(dh) <= 228 * 1024
+
+
+def test_wide_scores_scratch_covers_whole_tiles():
+    """The wide kernels' f32 score scratch holds every 64 x 64 tile the
+    score pass writes and the P V pass reads: L and S rounded up to 64."""
+    assert pfa.wide_scores_shape(64, 1, 327, 327) == (64, 1, 384, 384)
+    assert pfa.wide_scores_shape(3, 2, 64, 65) == (3, 2, 64, 128)
+    assert pfa.wide_scores_shape(1, 1, 1, 1) == (1, 1, 64, 64)
 
 
 def test_head_dim_rule_takes_any_width_that_divides_by_8():

@@ -194,8 +194,8 @@ def test_smem_formulas_match_the_library(cuda):
 
     lib = _build.load()
     for dh in (8, 64, 72, 96, 128):
+        assert attention_vmem.smem_bytes(dh) == lib.scl_rowwise_smem_bytes(dh)
         for t in (1, 77, 319, 448, 512, 850, 934, 1408):
-            assert attention_vmem.smem_bytes(t, dh) == lib.scl_rowwise_smem_bytes(t, dh)
             assert mha_block.core_smem_bytes(t, dh) == lib.scl_attention_smem_bytes(t, dh)
 
 
@@ -229,6 +229,8 @@ ATTENTION_SHAPES = [  # (b, h, l, s, dh, lens, causal, packed)
     (3, 6, 140, 140, 72, "zero_row", False, False),  # a lens = 0 row; Dh % 16 != 0
     (3, 6, 140, 140, 64, "zero_row", True, False),
     (2, 2, 934, 934, 8, "random", False, False),     # the gate's longest row, Dh = 8
+    (2, 4, 2048, 2048, 64, "random", False, False),  # past the old score-row cap
+    (2, 2, 2048, 2048, 128, "zero_row", True, False),
 ]
 
 
@@ -253,6 +255,12 @@ FLASH_SHAPES = ATTENTION_SHAPES + [
     (3, 1, 333, 120, 768, "random", False, False),   # L != S at Dh = 768
     (2, 2, 150, 150, 200, "random", True, False),    # wide, not a multiple of 128, causal
     (64, 8, 10, 10, 64, None, True, True),           # the text tower over K + 2 tokens
+    (3, 6, 100, 128, 72, "zero_row", False, False),  # one block per head: L, S <= 128
+    (5, 3, 128, 40, 128, "random", True, False),
+    (4, 2, 1, 1, 64, None, True, False),
+    (2, 2, 150, 150, 1152, "random", False, False),  # wider than eight 128-wide chunks
+    (3, 1, 90, 200, 1152, "zero_row", True, False),
+    (4, 3, 200, 200, 136, "random", True, False),    # one chunk and 8 columns
 ]
 
 
@@ -266,6 +274,41 @@ def test_flash_attention_kernel_matches_plain(cuda, b, h, l, s, dh, lens, causal
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     _attn_close(got, flash_attention_plain(q, k, v, lens_t, causal))
+
+
+@pytest.mark.parametrize("b, h, l, s, dh, lens", [
+    (2, 4, 2048, 2048, 64, "random"),   # past the old score-row cap
+    (2, 2, 2048, 2048, 128, "zero_row"),
+    (16, 12, 600, 600, 64, "random"),   # the 12 s core
+    (3, 6, 140, 333, 72, "random"),     # L != S, Dh % 16 != 0
+])
+def test_rowwise_core_matches_masked_sdpa(cuda, b, h, l, s, dh, lens):
+    """The whole-row kernel with masked_sdpa's rounding points (the long-row
+    core of ``mha_layer_block``) against masked_sdpa, at rows of any length."""
+    from speechclip_tpu_torch.kernels._sdpa_ref import masked_sdpa
+    from speechclip_tpu_torch.kernels.attention_vmem import rowwise_attention
+    from speechclip_tpu_torch.kernels._attention_common import empty_heads_out
+
+    q, k, v, lens_t = _qkv(cuda, b, h, l, s, dh, seed=s + dh + 2, lens=lens)
+    out = empty_heads_out(b, h, l, dh, cuda)
+    rowwise_attention(q, k, v, lens_t, out, causal=False, vmem_rounding=False)
+    torch.cuda.synchronize()
+    _attn_close(out, masked_sdpa(q, k, v, lens_t))
+
+
+@pytest.mark.parametrize("heads", [12, 8])
+def test_mha_layer_block_past_the_old_row_cap(cuda, heads):
+    """T = 1600 is past the longest row the whole-row kernel used to hold
+    (1536 at Dh = 64, 1472 at Dh = 96); its plan no longer depends on T."""
+    from speechclip_tpu_torch.kernels.mha_block import (
+        attention_core_max_t,
+        mha_layer_block,
+        mha_layer_block_plain,
+    )
+
+    assert attention_core_max_t(768 // heads) >= 1600
+    args = _mha_args(cuda, 2, 1600, 768, heads, "post", True, seed=heads + 1)
+    _close(mha_layer_block(*args), mha_layer_block_plain(*args))
 
 
 @pytest.mark.parametrize("kernel, fault", [
