@@ -14,7 +14,10 @@ line each (a failed check exits non-zero before the last line):
    at its gate's largest T=782; ``attention_vmem`` at the 17 s shapes and a
    causal one; ``flash_attention`` at the flash-backend shape, a 17 s shape
    and the causal CLIP-text shape), with the error, the tolerance and
-   median CUDA-event times of kernel and plain;
+   median CUDA-event times of kernel and plain; and the wgmma GEMM of
+   ``mha_layer_block`` and ``ffn_block`` alone at the main path's four
+   products (QKV, out-proj, fc1, fc2 at M = 64 x 319) and one ragged shape,
+   against the f32 product plus epilogue, beside ``torch.matmul``;
 3. the main path at full SpeechCLIP-base width from the port's seeded random
    init: ``encode_speech`` on 64 utterances of 6.4 s, then ``retrieve`` top-10
    against a 5000 x 512 L2-normalized gallery; each kernel must have run 13
@@ -44,13 +47,14 @@ line each (a failed check exits non-zero before the last line):
 
 Phase 2 also gives each kernel's bound (the larger of its FLOPs over 989
 TFLOP/s and its bytes over 3.35 TB/s, counted from that row's shapes and
-key lengths) and, for the attention kernels, the time of one
-``F.scaled_dot_product_attention`` call on the same inputs (timed only;
-the port never calls it). The event times of a row include the host's
-launch path, which dominates rows under ~0.1 ms; so each attention row
-also gives the kernel's and SDPA's device time per call from one
-torch.profiler pass over 20 calls of each (the kernels each launched,
-summed; ours told apart by name), after every event timing of phase 2.
+key lengths) and, for the attention kernels and the GEMM, the time of one
+library call on the same inputs (``F.scaled_dot_product_attention``,
+``torch.matmul``; timed only, the port never calls them). The event times
+of a row include the host's launch path, which dominates rows under ~0.1
+ms; so every row also gives the kernel's (and the library call's) device
+time per call from a torch.profiler pass over 20 calls of each (the
+kernels each launched, summed; ours told apart by name, and split one by
+one for the layer rows), after every event timing of phase 2.
 
 Before each path runs, every kernel's launch count is set to 0; it is read
 right after, so the counts in the summary are that path's own.
@@ -61,11 +65,12 @@ package beside this script, it exits non-zero and prints no result.
 
     python3 chip_smoke.py --profile
 
-runs phase 1, then, in place of the checks, one torch.profiler step per
-path of 3, 5, 6 and 9 (wall and device ms, peak memory, the largest kernels),
-the HuBERT front end split into its parts (conv0, conv1..6, pos_conv), and
-an A/B of ``mha_layer_block``'s two attention cores at the main path's
-shapes; it prints no result line.
+runs phase 1, then, in place of the checks, an A/B of the wgmma GEMM (both
+tile widths) against ``torch.matmul`` at the main path's four products with
+each call's host launch path, one torch.profiler step per path of 3, 5, 6
+and 9 (wall and device ms, peak memory, the largest kernels) and the HuBERT
+front end split into its parts (conv0, conv1..6, pos_conv); it prints no
+result line.
 """
 
 from __future__ import annotations
@@ -82,8 +87,8 @@ BF16_ATOL = 0.125  # bf16 outputs of magnitude <= 8 differ by <= 4 ulp
 MIN_COSINE = 0.999
 HUBERT_SHAPE = dict(b=64, t=319, d=768, heads=12, f=3072)
 BRANCH_SHAPE = dict(b=64, t=320, d=768, heads=8, f=3072)
-# mha_layer_block past the whole-key core: 12 s of audio, and the gate's
-# largest T at base width
+# mha_layer_block on longer rows: 12 s of audio, and the gate's largest T
+# at base width
 REPAIR_SHAPES = {"12 s": dict(HUBERT_SHAPE, b=16, t=600),
                  "gate limit": dict(HUBERT_SHAPE, b=16, t=782)}
 # (b, h, l, dh, lens, causal, packed): packed = head-split views of one qkv
@@ -103,6 +108,15 @@ ATTENTION_SHAPES = {
         "cascaded 768": (64, 1, 327, 768, True, False, True),
         "text tower K+2": (64, 8, 10, 64, False, True, True),
     },
+}
+# The wgmma GEMM's rows: label -> (M, N, K, epilogue id), the four
+# products of the main path's layer at M = 64 x 319, and one ragged shape
+GEMM_SHAPES = {
+    "qkv": (64 * 319, 2304, 768, 0),
+    "out-proj": (64 * 319, 768, 768, 2),
+    "fc1": (64 * 319, 3072, 768, 1),
+    "fc2": (64 * 319, 768, 3072, 2),
+    "ragged": (383, 776, 1000, 3),
 }
 # HuBERT-base conv1..conv6 (k, stride 2) on conv0's output for 6.4 s
 CONV_KERNELS = (3, 3, 3, 3, 2, 2)
@@ -146,8 +160,10 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median per-call device time, from CUDA events around each call."""
+def cuda_time_ms(fn, reps: int = 20, warmup: int = 3, calls: int = 1) -> float:
+    """Median per-call time from CUDA events around ``calls`` back-to-back
+    calls (one: the call's host launch path included; more: hidden behind
+    the device where its work per call takes longer)."""
     import torch
 
     for _ in range(warmup):
@@ -157,50 +173,69 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     times.sort()
     return times[len(times) // 2]
 
 
-# The port's attention kernels as the profiler names them (every one takes
-# scl::AttnArgs); any other kernel in a device-time pass is the library's.
-PORT_ATTENTION_KERNELS = re.compile(
-    r"scl::AttnArgs|\b(rowwise_kernel|flash_kernel|wide_scores_kernel|wide_pv_kernel)\b")
+# The port's kernels as the profiler names them (the attention kernels all
+# take scl::AttnArgs); any other kernel in a device-time pass is the
+# library's or plain torch's.
+PORT_KERNELS = re.compile(
+    r"scl::AttnArgs|\b(rowwise_kernel|flash_kernel|wide_scores_kernel|wide_pv_kernel|"
+    r"gemm_bf16_kernel|layer_norm_kernel|conv_layer_kernel)\b")
 
 
-def device_ms(kern, library, reps: int = 20):
-    """(kernel, library) device ms per call from one torch.profiler pass over
-    ``reps`` calls of each, after one warm-up call: the self device time of
-    every kernel each launched, summed. A pass that records no device time
-    is run once more; None where none showed."""
+def _device_pass(fn, reps: int, ours_only: bool):
+    """(device ms per call, {port kernel: ms per call}) of ``reps`` calls of
+    ``fn`` under one torch.profiler pass: the self device time of every
+    kernel launched (``ours_only``: the port's kernels only)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    kern()
-    library()
-    torch.cuda.synchronize()
-    ours = other = 0.0
-    for _attempt in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                kern()
-            for _ in range(reps):
-                library()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, parts = 0.0, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1000.0 / reps
+        if PORT_KERNELS.search(e.key):
+            name = re.search(r"(\w+(?:<[^()]*?>)?)\(", e.key + "(").group(1)
+            parts[name] = parts.get(name, 0.0) + ms
+        elif ours_only:
+            continue
+        total += ms
+    return total, parts
+
+
+def device_ms(kern, library=None, reps: int = 20):
+    """(kernel, library, {port kernel: ms}) device ms per call, each from
+    its own torch.profiler pass over ``reps`` calls after one warm-up call
+    (the kernel's: the port's kernels only, also given one by one). A pass
+    that records no device time is run again, up to twice; None where none
+    showed."""
+    import torch
+
+    out = []
+    for fn, ours_only in ((kern, True), (library, False)):
+        total, parts = 0.0, {}
+        if fn is not None:
+            fn()
             torch.cuda.synchronize()
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
-                ms = e.self_device_time_total / 1000.0
-                if PORT_ATTENTION_KERNELS.search(e.key):
-                    ours += ms
-                else:
-                    other += ms
-        if ours or other:
-            break
-    return (ours / reps if ours else None), (other / reps if other else None)
+            for _attempt in range(3):
+                total, parts = _device_pass(fn, reps, ours_only)
+                if total:
+                    break
+        out.append((total or None, parts))
+    return out[0][0], out[1][0], out[0][1]
 
 
 def _ms(x) -> str:
@@ -323,13 +358,14 @@ def _check_row(name, label, got, want, ms, plain_ms, results, work=None, library
         fail(f"{name} [{label}] disagrees with its plain version")
     results.setdefault(name, {})[label] = dict(
         err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=library_ms, device_ms=None, library_device_ms=None)
+        library_ms=library_ms, device_ms=None, library_device_ms=None,
+        library_name="torch SDPA")
 
 
 def _compare(name, label, kern, plain, results, work, library=None, deferred=None):
     """One phase-2 row: the kernel's output against its plain version's on
-    the same inputs, then both timed (and the library call, if any, whose
-    row goes on ``deferred`` for its device times). These launches count for
+    the same inputs, then both timed (and the library call, if any). The
+    row goes on ``deferred`` for its device times. These launches count for
     no path."""
     import torch
 
@@ -338,21 +374,31 @@ def _compare(name, label, kern, plain, results, work, library=None, deferred=Non
     want = plain()
     _check_row(name, label, got, want, cuda_time_ms(kern), cuda_time_ms(plain), results,
                work, None if library is None else cuda_time_ms(library))
-    if library is not None:
-        deferred.append((name, label, kern, library))
+    deferred.append((name, label, kern, library))
 
 
 def _device_rows(deferred, results):
-    """Each attention row's kernel and SDPA device time per call, taken
+    """Each row's kernel (and library call's) device time per call, taken
     after every event timing of phase 2: once torch.profiler has run, the
     host's launch path stays slower in that process, which single-call
     event times would absorb."""
     for name, label, kern, library in deferred:
         row = results[name][label]
-        row["device_ms"], row["library_device_ms"] = device_ms(kern, library)
+        row["device_ms"], row["library_device_ms"], parts = device_ms(kern, library)
+        lib = row["library_name"]
+        extra = "" if library is None else (
+            f", {lib} {_ms(row['library_device_ms'])}; event times kernel {row['ms']:.4f} ms, "
+            f"{lib} {row['library_ms']:.4f} ms")
+        flops = row.get("flops")
+        if flops and row["device_ms"]:
+            extra += (f"; {flops / row['device_ms'] / 1e9:.1f} TFLOP/s on the device, "
+                      f"{100 * row['bound_ms'] / row['device_ms']:.1f} % of bound")
+            if row["library_device_ms"]:
+                extra += f" ({lib}: {flops / row['library_device_ms'] / 1e9:.1f} TFLOP/s)"
+        if name in ("mha_layer_block", "ffn_block"):
+            extra += " (" + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + ")"
         say(f"phase 2 {name} [{label}]: device time per call (torch.profiler, 20 calls "
-            f"each): kernel {_ms(row['device_ms'])}, torch SDPA {_ms(row['library_device_ms'])}; "
-            f"event times kernel {row['ms']:.4f} ms, torch SDPA {row['library_ms']:.4f} ms")
+            f"each): kernel {_ms(row['device_ms'])}{extra}")
 
 
 def _attention_inputs(b, h, l, dh, with_lens, packed, gen):
@@ -383,7 +429,10 @@ def phase_kernels():
     )
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    results = {}
+    results, deferred = {}, []
+    # the GEMM rows draw from a generator of their own, so every other row
+    # sees the inputs it saw before they were added
+    _gemm_rows(torch.Generator(device="cuda").manual_seed(14), results, deferred)
     layer_shapes = [("hubert", HUBERT_SHAPE, True), ("branch", BRANCH_SHAPE, True)]
     layer_shapes += [(label, shape, False) for label, shape in REPAIR_SHAPES.items()]
     for label, shape, with_ffn in layer_shapes:
@@ -394,14 +443,15 @@ def phase_kernels():
         ffn_args = (x, f["w1"], f["b1"], f["w2"], f["b2"], f["ln_g"], f["ln_b"], "post", 1e-5)
         row = f"{label} B={shape['b']} T={shape['t']} H={h} Dh={shape['d'] // h} post"
         mha_work, ffn_work = layer_work(shape, lens)
-        _compare("mha_layer_block", row, lambda: mha_layer_block(*mha_args),
-                 lambda: mha_layer_block_plain(*mha_args), results, mha_work)
+        _compare("mha_layer_block", row, functools.partial(mha_layer_block, *mha_args),
+                 functools.partial(mha_layer_block_plain, *mha_args), results, mha_work,
+                 deferred=deferred)
         if with_ffn:
-            _compare("ffn_block", row, lambda: ffn_block(*ffn_args),
-                     lambda: ffn_block_plain(*ffn_args), results, ffn_work)
+            _compare("ffn_block", row, functools.partial(ffn_block, *ffn_args),
+                     functools.partial(ffn_block_plain, *ffn_args), results, ffn_work,
+                     deferred=deferred)
     kernels = {"attention_vmem": (av.attention_vmem, av.attention_vmem_plain),
                "flash_attention": (fa.flash_attention, fa.flash_attention_plain)}
-    deferred = []
     for name, shapes in ATTENTION_SHAPES.items():
         kern, plain = kernels[name]
         for label, (b, h, l, dh, with_lens, causal, packed) in shapes.items():
@@ -413,9 +463,90 @@ def phase_kernels():
             _compare(name, row, functools.partial(kern, q, k, v, lens, causal),
                      functools.partial(plain, q, k, v, lens, causal), results, work,
                      library=_sdpa_call(q, k, v, lens, causal), deferred=deferred)
-    _conv_row(gen, results)
+    _conv_row(gen, results, deferred)
     _device_rows(deferred, results)
     return results
+
+
+def _gemm_operands(gen, m, n, k, epilogue):
+    """bf16 operands at unit output scale (weights ~ K^-0.5), f32 bias, and
+    the bf16 residual where the epilogue takes one."""
+    import torch
+
+    from speechclip_tpu_torch.kernels import mha_block as mb
+
+    a = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(k, n, generator=gen, device="cuda") * k**-0.5).bfloat16()
+    bias = 0.1 * torch.randn(n, generator=gen, device="cuda")
+    resid = None
+    if epilogue in (mb.EPI_BIAS_RESID_F32, mb.EPI_BIAS_RESID):
+        resid = torch.randn(m, n, generator=gen, device="cuda").bfloat16()
+    return a, w, bias, resid
+
+
+def _gemm_reference(a, w, bias, epilogue, resid):
+    """The f32 product plus the epilogue, with the kernel's rounding points."""
+    from speechclip_tpu_torch.kernels import mha_block as mb
+    from speechclip_tpu_torch.ops.basic import gelu
+
+    y = a.float() @ w.float() + bias
+    if epilogue == mb.EPI_BIAS_GELU:
+        return gelu(y.bfloat16())
+    if resid is not None:
+        y = y + resid.float()
+    return y if epilogue == mb.EPI_BIAS_RESID_F32 else y.bfloat16()
+
+
+def _gemm_agreement(got, want):
+    """(max abs error, worst excess over the tolerance, ok) of a GEMM output:
+    bf16 outputs within 2^-5 + 2^-7 |y| (one rounding flip of a GELU input
+    at |x| ~ 4), f32 outputs within 1e-3 + 1e-3 |y| (summation order)."""
+    import torch
+
+    rtol, atol = (1e-3, 1e-3) if want.dtype == torch.float32 else (2**-7, 2**-5)
+    diff = (got.float() - want.float()).abs()
+    excess = float((diff - atol - rtol * want.float().abs()).max())
+    return float(diff.max()), excess, bool(torch.isfinite(got).all()) and excess <= 0
+
+
+def _gemm_rows(gen, results, deferred):
+    """Phase-2 rows of the wgmma GEMM, one per product of the main path at
+    M = 64 x 319 rows and one ragged shape: the kernel against the f32
+    product plus epilogue (``_gemm_agreement``), its event time, TFLOP/s and
+    bound 2MNK / 989 TFLOP/s,
+    beside one ``torch.matmul`` on the same bf16 operands (timed only; the
+    port never calls it)."""
+    import torch
+
+    from speechclip_tpu_torch.kernels import mha_block as mb
+
+    for label, (m, n, k, epi) in GEMM_SHAPES.items():
+        a, w, bias, resid = _gemm_operands(gen, m, n, k, epi)
+        kern = functools.partial(mb.gemm, a, w, bias, epi, resid)
+        got = kern()
+        torch.cuda.synchronize()
+        want = _gemm_reference(a, w, bias, epi, resid)
+        err, excess, ok = _gemm_agreement(got, want)
+        ms = cuda_time_ms(kern)
+        library = functools.partial(torch.matmul, a, w)
+        lib_ms = cuda_time_ms(library)
+        flops = 2 * m * n * k
+        out_bytes = m * n * (4 if want.dtype == torch.float32 else 2)
+        nbytes = (m * k + k * n) * 2 + n * 4 + out_bytes + (0 if resid is None else m * n * 2)
+        bound_ms, bound_by = bound(flops, nbytes)
+        row = f"{label} M={m} N={n} K={k} epilogue {epi}"
+        say(f"phase 2 gemm [{row}]: max_abs_err {err:.6f} (worst excess over the "
+            f"tolerance {excess:.6f}), kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+            f"torch.matmul {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s), bound "
+            f"{bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.3f} GFLOP), "
+            f"{100 * bound_ms / ms:.1f} % of bound")
+        if not ok:
+            fail(f"gemm [{row}] disagrees with the f32 product")
+        results.setdefault("gemm", {})[row] = dict(
+            err=err, ms=ms, plain_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=lib_ms, device_ms=None, library_device_ms=None,
+            library_name="torch.matmul", flops=flops)
+        deferred.append(("gemm", row, kern, library))
 
 
 def _sdpa_call(q, k, v, lens, causal):
@@ -445,7 +576,7 @@ def _conv_inputs(gen):
     return x, ws
 
 
-def _conv_row(gen, results):
+def _conv_row(gen, results, deferred):
     """Phase-2 row of ``fused_conv_chain``: the whole chain against its
     plain version at the layer limits, and each layer alone, fed the plain
     chain's input to it, within MAX_LAYER_MISMATCH."""
@@ -474,7 +605,8 @@ def _conv_row(gen, results):
         f"(tol {cf.MAX_LAYER_MISMATCH})")
     _compare("fused_conv_chain", f"hubert conv1..6 B={b} T={t} C={c} k={CONV_KERNELS}",
              lambda: cf.fused_conv_chain(x, ws, CONV_KERNELS),
-             lambda: cf.fused_conv_chain_plain(x, ws, CONV_KERNELS), results, work)
+             lambda: cf.fused_conv_chain_plain(x, ws, CONV_KERNELS), results, work,
+             deferred=deferred)
 
 
 def _model(cfg, batch_chunk: int = 64):
@@ -874,51 +1006,64 @@ def phase_frontend_split(model, params, smi):
         say(f"front end {name} on {smi}: {ms:.4f} ms (CUDA-event median of 20); kernels: {top}")
 
 
-def phase_core_ab():
-    """``mha_layer_block``'s two attention cores at the main path's shapes:
-    the whole-key core (``csrc/attention_core.cu``) and the whole-row kernel
-    with this block's rounding points (``rowwise_kernel<false>`` of
-    ``csrc/attention_vmem.cu``, the core past the whole-key core's rows),
-    each held to masked_sdpa and timed with CUDA events."""
+def _host_us(fn, calls: int = 200) -> float:
+    """Microseconds of host time per call of ``fn`` over ``calls`` calls
+    enqueued back to back (the device, slower per call, never holds the
+    host back within the CUDA launch queue's depth)."""
     import torch
 
-    from speechclip_tpu_torch.kernels import _attention_common as ac
-    from speechclip_tpu_torch.kernels import attention_vmem as av
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def phase_gemm_ab(smi):
+    """The wgmma GEMM against ``torch.matmul`` (cuBLAS) on the same bf16
+    operands at the main path's four products, and the kernel at both tile
+    widths (BN = 256, the plan at these N, and 128), each checked first:
+    CUDA-event medians of 20 runs of 10 back-to-back calls, in turns
+    (matmul, BN = 256, BN = 128, then back), so the host's launch path is
+    hidden; run before any profiler pass of the process. Beside them, each
+    call's host launch path (the kernel's wrapper and ``torch.matmul``)."""
+    import torch
+
     from speechclip_tpu_torch.kernels import mha_block as mb
-    from speechclip_tpu_torch.kernels._sdpa_ref import masked_sdpa
 
     gen = torch.Generator(device="cuda").manual_seed(9)
-    for label, shape in (("hubert", HUBERT_SHAPE), ("branch", BRANCH_SHAPE)):
-        b, t, d, h = shape["b"], shape["t"], shape["d"], shape["heads"]
-        dh = d // h
-        if not mb.whole_key_core_fits(t, dh):
-            fail(f"core A/B: T={t}, Dh={dh} is past the whole-key core")
-        qkv = torch.randn(b * t, 3 * d, generator=gen, device="cuda").bfloat16()
-        lens = torch.randint(t // 2, t + 1, (b,), generator=gen, device="cuda").to(torch.int32)
-        heads_of = lambda z: z.view(b, t, h, dh).permute(0, 2, 1, 3)
-        q, k, v = (heads_of(z) for z in qkv.view(b, t, 3 * d).split(d, dim=-1))
-        out = torch.empty(b * t, d, dtype=torch.bfloat16, device="cuda")
-
-        def rowwise():
-            av.rowwise_attention(q, k, v, lens, heads_of(out), causal=False, vmem_rounding=False)
-            return out
-
-        want = masked_sdpa(q, k, v, lens)
-        cores = {"attention_core.cu": lambda: mb.attention_core(qkv, lens, b, t, d, h),
-                 "rowwise_kernel<false>": rowwise}
-        for name, fn in cores.items():
-            st = ac.attention_agreement(heads_of(fn()), want)
-            say(f"core A/B {label} B={b} H={h} T={t} Dh={dh} {name}: {cuda_time_ms(fn):.4f} ms, "
-                f"vs masked_sdpa worst row {st['row_ulps']:.4f}, min cosine "
-                f"{st['min_cosine']:.7f}, differing {st['mismatch']:.6f}")
-            if not ac.attention_agrees(st):
-                fail(f"core A/B: {name} disagrees with masked_sdpa")
+    for label, (m, n, k, epi) in GEMM_SHAPES.items():
+        if label == "ragged":
+            continue
+        a, w, bias, resid = _gemm_operands(gen, m, n, k, epi)
+        want = _gemm_reference(a, w, bias, epi, resid)
+        fns = {f"kernel BN={bn}": functools.partial(mb.gemm, a, w, bias, epi, resid, block_n=bn)
+               for bn in mb.GEMM_BLOCK_NS}
+        for name, fn in fns.items():
+            if not _gemm_agreement(fn(), want)[2]:
+                fail(f"GEMM A/B {label} {name} disagrees with the f32 product")
+        fns["torch.matmul"] = functools.partial(torch.matmul, a, w)
+        order = ["torch.matmul", "kernel BN=256", "kernel BN=128"]
+        times = {name: [] for name in order}
+        for name in order + order[::-1]:
+            times[name].append(cuda_time_ms(fns[name], calls=10))
+        flops = 2 * m * n * k
+        host = {name: _host_us(fns[name]) for name in order[:2]}
+        say(f"GEMM A/B {label} M={m} N={n} K={k} epilogue {epi} on {smi}: " + "; ".join(
+            f"{name} {t[0]:.4f}, {t[1]:.4f} ms ({flops / min(t) / 1e9:.1f} TFLOP/s)"
+            for name, t in times.items()) + " (CUDA-event medians of 20 runs of 10 calls, "
+            "in turns); host launch path per call (perf_counter over 200 calls): " +
+            ", ".join(f"{name} {us:.1f} us" for name, us in host.items()))
 
 
 # kernel -> (source, the TPU kernel it replaces, the phase-2 row whose
 # times and bound it reports, the path whose launches it reports)
 REPLACES = {
-    "mha_layer_block": ("speechclip_tpu_torch/csrc/attention_core.cu",
+    "mha_layer_block": ("speechclip_tpu_torch/csrc/gemm_epilogue.cu + "
+                        "speechclip_tpu_torch/csrc/attention_vmem.cu",
                         "speechclip_tpu/kernels/mha_block.py:59", "hubert", "main"),
     "ffn_block": ("speechclip_tpu_torch/csrc/gemm_epilogue.cu",
                   "speechclip_tpu/kernels/ffn_block.py:40", "hubert", "main"),
@@ -964,9 +1109,9 @@ def main(argv) -> int:
         dim=-1,
     )
     if profile_only:
+        phase_gemm_ab(smi)
         phase_profile(model, params, gallery, smi, _model(shipped_cascaded_config()))
         phase_frontend_split(model, params, smi)
-        phase_core_ab()
         return 0
     launches = {"main": phase_path(3, "main", model, params, gallery, seed=2)}
     phase_throughput(model, params, gallery, smi)

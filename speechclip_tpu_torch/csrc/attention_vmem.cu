@@ -28,7 +28,7 @@
 //     hi/lo split) and the denominator, the f32 sum of the rounded p, comes
 //     off the tensor cores as the TPU's ones-lane does (the p fragments times
 //     a ones fragment); out = acc / max(denom, 1e-30), rounded once.
-//   mha_block core (!kVmem), for rows too long for csrc/attention_core.cu:
+//   mha_block core (!kVmem), the attention core of mha_layer_block at every T:
 //     s = (q k^T) * scale in f32, masked keys finfo.min, w = bf16(exp(s - m) /
 //     max(d, 1e-30)), P V in f32, rounded (speechclip_tpu/kernels/
 //     mha_block.py _kernel, :106-119). d is summed online (per lane, then

@@ -76,12 +76,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.scl_gemm_bf16.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.scl_gemm_bf16.restype = i
+    lib.scl_gemm_bf16_tiled.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.scl_gemm_bf16_tiled.restype = i
+    lib.scl_gemm_smem_bytes.argtypes = [i, i]
+    lib.scl_gemm_smem_bytes.restype = i
     lib.scl_layer_norm.argtypes = [p, i, p, p, p, i, i, ctypes.c_float, p]
     lib.scl_layer_norm.restype = i
-    lib.scl_attention.argtypes = [p, p, p, i, i, i, i, p]
-    lib.scl_attention.restype = i
-    lib.scl_attention_smem_bytes.argtypes = [i, i]
-    lib.scl_attention_smem_bytes.restype = i
     strides = ctypes.POINTER(ctypes.c_longlong)
     lib.scl_rowwise_attention.argtypes = [
         p, p, p, p, p, i, i, i, i, i, strides, i, i, ctypes.c_float, p,
@@ -151,6 +151,16 @@ def load() -> ctypes.CDLL:
         _declare(lib)
         _LIB = lib
     return _LIB
+
+
+def stream(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, which every
+    kernel launches on (through torch's own accessor: ``torch.cuda.
+    current_stream(device).cuda_stream`` builds a Stream object first, a
+    few microseconds of each launch's host path)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(status: int, what: str) -> None:

@@ -110,7 +110,7 @@ def rowwise_attention(q, k, v, lens, out, causal: bool, vmem_rounding: bool) -> 
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if lens_dev is None else lens_dev.data_ptr(), out.data_ptr(),
             b, h, l, s, dh, strides, int(causal), int(vmem_rounding), scale,
-            torch.cuda.current_stream(q.device).cuda_stream,
+            _build.stream(q.device),
         ),
         "scl_rowwise_attention",
     )

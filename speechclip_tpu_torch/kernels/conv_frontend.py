@@ -91,7 +91,7 @@ def fused_conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
     if chain_out_len(t, kernels) < 1:
         raise ValueError(f"fused_conv_chain: T = {t} is shorter than the chain's window")
     lib = _build.load()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _build.stream(x.device)
     h = x.contiguous()
     for w, k in zip(weights, kernels):
         if w.shape[:2] != (k, h.shape[2]) or w.shape[2] % 8 or h.shape[2] % 8:

@@ -98,7 +98,7 @@ def flash_attention(q, k, v, lens: Optional[torch.Tensor] = None,
             None if lens_dev is None else lens_dev.data_ptr(), out.data_ptr(),
             b, h, l, s, dh, strides, int(causal), 1.0 / math.sqrt(dh),
             None if scores is None else scores.data_ptr(),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            _build.stream(q.device),
         ),
         "scl_flash_attention",
     )

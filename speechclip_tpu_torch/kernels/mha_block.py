@@ -12,14 +12,13 @@ per-head scaled dot product with a key-length mask, out-projection.
 On a CUDA bf16 tensor it runs as three or four launches of the hand-written
 kernels in ``csrc/``: [row LN for "pre"] -> QKV GEMM + f32 bias ->
 attention core -> out-proj GEMM with bias + residual epilogue [-> row LN for
-"post"]. The attention core is ``csrc/attention_core.cu`` where a head's
-whole K row fits beside its 64-query tile (T <= 512 at Dh = 64, <= 448 at
-Dh = 96, Dh % 16 == 0), else the whole-row kernel of
-``csrc/attention_vmem.cu`` with this block's rounding points, which streams
-K and V and takes rows of any length. On a CPU tensor it runs
-``mha_layer_block_plain``, which keeps the TPU kernel's rounding points:
-f32 accumulation, f32 bias added before rounding qkv to the activation
-dtype, f32 masked softmax, f32 residual and LayerNorm.
+"post"]. The GEMMs are ``csrc/gemm_epilogue.cu`` (wgmma fed by TMA). The
+attention core is the whole-row kernel of ``csrc/attention_vmem.cu`` with
+this block's rounding points at every T: it streams K and V, so it takes
+rows of any length. On a CPU tensor it runs ``mha_layer_block_plain``,
+which keeps the TPU kernel's rounding points: f32 accumulation, f32 bias
+added before rounding qkv to the activation dtype, f32 masked softmax, f32
+residual and LayerNorm.
 """
 
 from __future__ import annotations
@@ -30,13 +29,19 @@ import torch
 
 from . import _build
 from . import attention_vmem as rowwise
-from ._attention_common import MAX_HEAD_DIM, MAX_ROWS, SMEM_LIMIT
+from ._attention_common import MAX_HEAD_DIM, MAX_ROWS
 from ._sdpa_ref import masked_sdpa
 from ..ops.basic import matmul_f32
 
 # Epilogue ids of scl_gemm_bf16 (csrc/gemm_epilogue.cu).
 EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_RESID_F32, EPI_BIAS_RESID = 0, 1, 2, 3
 LN_MODES = ("post", "pre", "none")
+# Tile constants of csrc/gemm_epilogue.cu: rows of a tile, K per stage,
+# stages of the TMA ring, columns of one B box, padding of a residual row;
+# and TMA's limits.
+GEMM_BM, GEMM_BK, GEMM_STAGES, GEMM_CHUNK, GEMM_RESID_PAD = 128, 64, 4, 64, 8
+GEMM_BLOCK_NS = (128, 256)
+TMA_SWIZZLE_BYTES, TMA_MAX_BOX = 128, 256
 # The TPU kernel's VMEM cap (bytes). Kept as it is: the gate decides which
 # computation, with which rounding points, produces the layer's output, and
 # the port is held to the reference; retuning it for the H100 is later work
@@ -114,9 +119,33 @@ def check_cuda_operands(x: torch.Tensor, *params: Optional[torch.Tensor]):
             raise ValueError(f"operand on {p.device}, activations on {x.device}")
 
 
+def gemm_plan(n: int, epilogue: int, block_n: int = 0) -> dict:
+    """The tile plan of ``scl_gemm_bf16`` for N output columns: the tile's
+    columns (``block_n``, or by default 128 when N <= 128, else 256); the
+    ring's stages (one fewer beside a 256-wide residual tile); the shared
+    memory of one block (the ring, the tile's f32 bias, then the residual
+    tile with padded rows for the residual epilogues, which also stages
+    their output, or else a 16 x (64 + 8) bf16 staging area per consumer
+    warp; and 1 KB to align the ring to the 1024-byte swizzle atom); and
+    the TMA boxes as (inner elements, rows): A (128 x 64, K-major) and B
+    (64 x 64 per chunk of 64 columns)."""
+    bn = block_n or (128 if n <= 128 else 256)
+    if bn not in GEMM_BLOCK_NS:
+        raise ValueError(f"GEMM tile columns must be one of {GEMM_BLOCK_NS}, got {bn}")
+    resid = epilogue in (EPI_BIAS_RESID_F32, EPI_BIAS_RESID)
+    stages = GEMM_STAGES - 1 if resid and bn == 256 else GEMM_STAGES
+    epi_bytes = GEMM_BM * (bn + GEMM_RESID_PAD) * 2 if resid else 8 * 16 * 72 * 2
+    smem = stages * (GEMM_BM + bn) * GEMM_BK * 2 + bn * 4 + epi_bytes + 1024
+    return dict(block_n=bn, stages=stages, smem_bytes=smem,
+                boxes=[(GEMM_BK, GEMM_BM), (GEMM_CHUNK, GEMM_BK)],
+                b_boxes_per_stage=bn // GEMM_CHUNK)
+
+
 def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epilogue: int,
-         resid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(M, K) bf16 @ (K, N) bf16 + f32 bias, with the chosen epilogue."""
+         resid: Optional[torch.Tensor] = None, block_n: int = 0) -> torch.Tensor:
+    """(M, K) bf16 @ (K, N) bf16 + f32 bias, with the chosen epilogue, on
+    the tile plan of ``gemm_plan``; ``block_n`` overrides its tile columns
+    (for measurements)."""
     m, k = a.shape
     n = w.shape[1]
     if k % 8 or n % 8 or w.shape[0] != k or bias.shape != (n,):
@@ -133,15 +162,17 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epilogue: int,
         not t.is_contiguous() or t.data_ptr() % 16 for t in operands
     ):
         raise ValueError("GEMM operands must be bf16 activations, contiguous and 16-byte aligned")
+    if block_n and block_n not in GEMM_BLOCK_NS:
+        raise ValueError(f"GEMM tile columns must be one of {GEMM_BLOCK_NS}, got {block_n}")
     out_dtype = torch.float32 if epilogue == EPI_BIAS_RESID_F32 else torch.bfloat16
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     lib = _build.load()
+    args = (a.data_ptr(), w.data_ptr(), bias.data_ptr(), _ptr(resid), out.data_ptr(),
+            m, n, k, epilogue)
+    stream = _build.stream(a.device)
     _build.check(
-        lib.scl_gemm_bf16(
-            a.data_ptr(), w.data_ptr(), bias.data_ptr(), _ptr(resid),
-            out.data_ptr(), m, n, k, epilogue,
-            torch.cuda.current_stream(a.device).cuda_stream,
-        ),
+        lib.scl_gemm_bf16_tiled(*args, block_n, stream) if block_n
+        else lib.scl_gemm_bf16(*args, stream),
         "scl_gemm_bf16",
     )
     return out
@@ -149,42 +180,31 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epilogue: int,
 
 def layer_norm_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                     eps: float) -> torch.Tensor:
-    """Row LN of (M, D) f32 or bf16 -> bf16 (csrc/gemm_epilogue.cu)."""
+    """Row LN of (M, D) f32 or bf16 -> bf16 (csrc/gemm_epilogue.cu; 16-byte
+    loads, so D % 8 == 0 and 16-byte-aligned rows)."""
     rows, d = x.shape
     g, b = g.float().contiguous(), b.float().contiguous()
+    if d % 8 or any(t.data_ptr() % 16 for t in (x, g, b)) or not x.is_contiguous():
+        raise ValueError(f"row LayerNorm needs D % 8 == 0 and contiguous, 16-byte aligned "
+                         f"operands, got D = {d}")
     out = torch.empty((rows, d), dtype=torch.bfloat16, device=x.device)
     lib = _build.load()
     _build.check(
         lib.scl_layer_norm(
             x.data_ptr(), int(x.dtype == torch.float32), g.data_ptr(),
             b.data_ptr(), out.data_ptr(), rows, d, float(eps),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            _build.stream(x.device),
         ),
         "scl_layer_norm",
     )
     return out
 
 
-def core_smem_bytes(t: int, dh: int) -> int:
-    """Shared memory of one block of ``csrc/attention_core.cu`` (its Smem)."""
-    a128 = lambda x: (x + 127) // 128 * 128
-    ldq, sp = dh + 8, (t + 15) // 16 * 16
-    total = a128(64 * ldq * 2) + a128(sp * ldq * 2) + a128(64 * (sp + 4) * 4)
-    return total + 4 * 16 * 16 * 4
-
-
-def whole_key_core_fits(t: int, dh: int) -> bool:
-    """Whether ``csrc/attention_core.cu`` (a 64-query tile beside the whole
-    K row of its head) takes T, Dh; longer rows go to the whole-row kernel
-    of ``csrc/attention_vmem.cu``, which streams K and V in chunks."""
-    return dh % 16 == 0 and (t + 15) // 16 * 16 <= 512 and core_smem_bytes(t, dh) <= SMEM_LIMIT
-
-
 def attention_core_max_t(dh: int) -> int:
     """The longest T the attention core of ``mha_layer_block`` takes at head
-    dim ``dh`` (0 if it takes no T there). Rows the whole-key core cannot
-    hold go to the whole-row kernel, whose shared memory does not depend on
-    T, so only the head dim limits it (and the launchers' int row counts)."""
+    dim ``dh`` (0 if it takes no T there). The core is the whole-row kernel,
+    whose shared memory does not depend on T, so only the head dim limits it
+    (and the launchers' int row counts)."""
     if dh % 8 or dh > MAX_HEAD_DIM:
         return 0
     return MAX_ROWS
@@ -192,9 +212,9 @@ def attention_core_max_t(dh: int) -> int:
 
 def attention_core(qkv: torch.Tensor, lens: Optional[torch.Tensor], bsz: int,
                    t: int, d: int, heads: int) -> torch.Tensor:
-    """(B*T, 3D) bf16 qkv -> (B*T, D) bf16 head outputs: csrc/attention_core.cu
-    where the whole K row fits beside the query tile, else the whole-row
-    kernel with masked_sdpa's rounding, reading q, k, v straight out of qkv."""
+    """(B*T, 3D) bf16 qkv -> (B*T, D) bf16 head outputs: the whole-row kernel
+    of csrc/attention_vmem.cu with masked_sdpa's rounding points, reading q,
+    k, v straight out of qkv and writing the heads in place."""
     dh = d // heads
     if d % heads or d % 8 or t > attention_core_max_t(dh):
         raise ValueError(
@@ -202,22 +222,10 @@ def attention_core(qkv: torch.Tensor, lens: Optional[torch.Tensor], bsz: int,
             f"Dh <= {MAX_HEAD_DIM} and T <= {attention_core_max_t(dh)})"
         )
     out = torch.empty((bsz * t, d), dtype=torch.bfloat16, device=qkv.device)
-    if not whole_key_core_fits(t, dh):
-        heads_of = lambda z: z.view(bsz, t, heads, dh).permute(0, 2, 1, 3)
-        q, k, v = (heads_of(z) for z in qkv.view(bsz, t, 3 * d).split(d, dim=-1))
-        rowwise.rowwise_attention(q, k, v, lens, heads_of(out), causal=False,
-                                  vmem_rounding=False)
-        return out
-    if lens is not None:
-        lens = lens.to(device=qkv.device, dtype=torch.int32).contiguous()
-    lib = _build.load()
-    _build.check(
-        lib.scl_attention(
-            qkv.data_ptr(), _ptr(lens), out.data_ptr(), bsz, t, d, heads,
-            torch.cuda.current_stream(qkv.device).cuda_stream,
-        ),
-        "scl_attention",
-    )
+    heads_of = lambda z: z.view(bsz, t, heads, dh).permute(0, 2, 1, 3)
+    q, k, v = (heads_of(z) for z in qkv.view(bsz, t, 3 * d).split(d, dim=-1))
+    rowwise.rowwise_attention(q, k, v, lens, heads_of(out), causal=False,
+                              vmem_rounding=False)
     return out
 
 

@@ -160,16 +160,16 @@ def test_gemm_rejects_misaligned_operands(cuda):
 @pytest.mark.parametrize("heads, t", [(12, 600), (8, 600), (12, 782), (8, 782), (96, 600)])
 @pytest.mark.parametrize("mode", ["post", "none"])
 def test_mha_layer_block_at_repaired_lengths(cuda, heads, t, mode):
-    """T past the whole-key core (512 rows at Dh = 64, 448 at Dh = 96, and
-    Dh % 16 != 0) up to the gate's largest T = 782: the core streams K/V."""
+    """T past the rows the first whole-key core held (512 at Dh = 64, 448 at
+    Dh = 96, and Dh % 16 != 0) up to the gate's largest T = 782: the
+    whole-row core streams K/V."""
     from speechclip_tpu_torch.kernels.mha_block import (
         block_eligible,
         mha_layer_block,
         mha_layer_block_plain,
-        whole_key_core_fits,
     )
 
-    assert block_eligible(2, t, 768, heads) and not whole_key_core_fits(t, 768 // heads)
+    assert block_eligible(2, t, 768, heads)
     args = _mha_args(cuda, 2, t, 768, heads, mode, True, seed=t)
     got = mha_layer_block(*args)
     torch.cuda.synchronize()
@@ -195,8 +195,107 @@ def test_smem_formulas_match_the_library(cuda):
     lib = _build.load()
     for dh in (8, 64, 72, 96, 128):
         assert attention_vmem.smem_bytes(dh) == lib.scl_rowwise_smem_bytes(dh)
-        for t in (1, 77, 319, 448, 512, 850, 934, 1408):
-            assert mha_block.core_smem_bytes(t, dh) == lib.scl_attention_smem_bytes(t, dh)
+    for bn in mha_block.GEMM_BLOCK_NS:
+        for epilogue in range(4):
+            plan = mha_block.gemm_plan(768, epilogue, bn)
+            assert plan["smem_bytes"] == lib.scl_gemm_smem_bytes(epilogue, bn)
+
+
+def _gemm_want(a, w, bias, epilogue, resid):
+    """The f32 product plus the epilogue with the kernel's rounding points."""
+    from speechclip_tpu_torch.kernels import mha_block as mb
+    from speechclip_tpu_torch.ops.basic import gelu
+
+    y = a.float() @ w.float() + bias
+    if epilogue == mb.EPI_BIAS_GELU:
+        return gelu(y.bfloat16())
+    if epilogue in (mb.EPI_BIAS_RESID_F32, mb.EPI_BIAS_RESID):
+        y = y + resid.float()
+    return y if epilogue == mb.EPI_BIAS_RESID_F32 else y.bfloat16()
+
+
+def _gemm_case(dev, m, n, k, epilogue, seed, block_n=0):
+    """bf16 operands at unit output scale (weights ~ K^-0.5); the kernel's
+    output against ``_gemm_want``. bf16 outputs: rtol 2^-7 (one rounding
+    flip) and atol 2^-5 (a flipped bf16 GELU input of |x| ~ 4 moves the
+    output by one input ulp, 2^-5, plus the output's rounding). f32 outputs
+    differ only in summation order: 1e-3."""
+    from speechclip_tpu_torch.kernels import mha_block as mb
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn(m, k, generator=g, device=dev).bfloat16()
+    w = (torch.randn(k, n, generator=g, device=dev) * k**-0.5).bfloat16()
+    bias = 0.1 * torch.randn(n, generator=g, device=dev)
+    resid = torch.randn(m, n, generator=g, device=dev).bfloat16()
+    uses_resid = epilogue in (mb.EPI_BIAS_RESID_F32, mb.EPI_BIAS_RESID)
+    got = mb.gemm(a, w, bias, epilogue, resid if uses_resid else None, block_n=block_n)
+    torch.cuda.synchronize()
+    want = _gemm_want(a, w, bias, epilogue, resid)
+    assert got.dtype == want.dtype and got.shape == (m, n)
+    assert torch.isfinite(got).all()
+    tol = dict(rtol=1e-3, atol=1e-3) if got.dtype == torch.float32 else dict(
+        rtol=2**-7, atol=2**-5)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("epilogue", [0, 1, 2, 3])
+@pytest.mark.parametrize("m, n, k", [
+    (1, 8, 8), (1, 768, 3072), (100, 72, 40), (129, 136, 200), (255, 264, 72),
+    (300, 2304, 768), (383, 776, 1000),
+])
+@pytest.mark.parametrize("block_n", [0, 128])
+def test_gemm_every_epilogue_at_ragged_shapes(cuda, epilogue, m, n, k, block_n):
+    """M not a multiple of 128 (and M = 1), N not a multiple of the tile,
+    K not a multiple of 64: TMA zero-fills the loads, the epilogue guards
+    the stores."""
+    _gemm_case(cuda, m, n, k, epilogue, seed=m + n + k + epilogue, block_n=block_n)
+
+
+def test_gemm_gelu_over_every_bf16_input(cuda):
+    """fc1's GELU epilogue at every finite bf16 input: a one-hot row times a
+    weight row holding each value, so the GELU input is the value itself.
+    Against torch's tanh GELU in f32 rounded to bf16: the two may contract
+    the polynomial into FMAs differently, so a result may differ by one bf16
+    ulp in a few inputs, never more."""
+    from speechclip_tpu_torch.kernels import mha_block as mb
+
+    vals = torch.arange(-(2**15), 2**15, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    vals = vals[torch.isfinite(vals.float())]
+    vals = vals[: vals.numel() // 8 * 8].to(cuda)
+    n = vals.numel()
+    w = torch.zeros(8, n, dtype=torch.bfloat16, device=cuda)
+    w[0] = vals
+    a = torch.zeros(1, 8, dtype=torch.bfloat16, device=cuda)
+    a[0, 0] = 1
+    got = mb.gemm(a, w, torch.zeros(n, device=cuda), mb.EPI_BIAS_GELU)[0].float()
+    want = torch.nn.functional.gelu(vals.float(), approximate="tanh").bfloat16().float()
+    ulp = torch.finfo(torch.bfloat16).eps * want.abs().clamp(min=2**-126)
+    assert torch.isfinite(got).all()
+    assert bool(((got - want).abs() <= ulp).all())
+    assert float((got != want).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("name, n, k, epilogue", [
+    ("qkv", 2304, 768, 0), ("out-proj", 768, 768, 2), ("fc1", 3072, 768, 1),
+    ("fc2", 768, 3072, 2),
+])
+def test_gemm_main_path_products(cuda, name, n, k, epilogue):
+    """The four products of the main path at M = 64 x 319 rows."""
+    _gemm_case(cuda, 64 * 319, n, k, epilogue, seed=n + k)
+
+
+@pytest.mark.parametrize("rows, d", [(20416, 768), (5, 1024), (33, 8), (7, 1032)])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_rows_matches_plain(cuda, rows, d, x_dtype):
+    from speechclip_tpu_torch.kernels.mha_block import layer_norm_rows, ln_rows
+
+    g = torch.Generator(device=cuda).manual_seed(rows + d)
+    x = (3 * torch.randn(rows, d, generator=g, device=cuda) + 1).to(x_dtype)
+    gamma = 1 + 0.1 * torch.randn(d, generator=g, device=cuda)
+    beta = 0.1 * torch.randn(d, generator=g, device=cuda)
+    got = layer_norm_rows(x, gamma, beta, 1e-5)
+    want = ln_rows(x.float(), gamma, beta, 1e-5).bfloat16()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=2**-6)
 
 
 def _qkv(dev, b, h, l, s, dh, seed, lens="random", packed=False):

@@ -12,6 +12,9 @@ an intermediate bf16 rounding (1 ulp = 2^-8 relative), and outputs after
 LayerNorm reach |y| ~ 4, where 2 ulp = 0.0625.
 """
 
+import re
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,7 @@ import jax.numpy as jnp
 
 from speechclip_tpu.kernels.mha_block import mha_layer_block as jax_mha_layer_block
 from speechclip_tpu_torch.kernels import _build
+from speechclip_tpu_torch.kernels import mha_block as pmb
 from speechclip_tpu_torch.kernels.mha_block import (
     mha_layer_block,
     mha_layer_block_plain,
@@ -149,10 +153,77 @@ def test_build_command_targets_sm90a_and_sources_exist():
     assert all("arch=compute_90a,code=sm_90a" in cmd for cmd in compiles + [link])
     srcs = _build.sources()
     names = {p.name for p in srcs}
-    assert {"attention_core.cu", "gemm_epilogue.cu", "attention_vmem.cu",
-            "flash_attention.cu", "common.cuh"} <= names
+    assert {"gemm_epilogue.cu", "attention_vmem.cu", "flash_attention.cu",
+            "common.cuh"} <= names
+    assert "attention_core.cu" not in names  # the core is attention_vmem.cu's
     assert all(p.exists() for p in srcs)
     cu = [str(p) for p in srcs if p.suffix == ".cu"]
     assert sorted(cmd[cmd.index("-c") + 1] for cmd in compiles) == sorted(cu)
     assert all(cmd[-1] in link for cmd in compiles) and "-shared" in link
     assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")
+
+
+class _Recorder:
+    """Stands in for the loaded library: records every symbol declared."""
+
+    def __init__(self):
+        self.names = set()
+
+    def __getattr__(self, name):
+        self.names.add(name)
+        return types.SimpleNamespace()
+
+
+def test_library_declares_no_second_attention_core():
+    """``mha_layer_block``'s core is the whole-row kernel alone: neither the
+    bindings nor any source defines an ``scl_attention*`` symbol."""
+    lib = _Recorder()
+    _build._declare(lib)
+    assert {"scl_gemm_bf16", "scl_gemm_bf16_tiled", "scl_gemm_smem_bytes",
+            "scl_rowwise_attention"} <= lib.names
+    assert not [n for n in lib.names if n.startswith("scl_attention")]
+    for src in _build.sources():
+        assert 'int scl_attention' not in src.read_text(), src.name
+
+
+def _cu_constant(name):
+    text = (_build.CSRC_DIR / "gemm_epilogue.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+@pytest.mark.parametrize("n", [8, 72, 128, 136, 768, 2304, 3072])
+@pytest.mark.parametrize("epilogue", [0, 1, 2, 3])
+def test_gemm_plan_fits_shared_memory_and_tma_limits(n, epilogue):
+    """The GEMM's tile plan: its ring of at least 3 stages, the bias and
+    the residual tile fit one block's shared memory, every TMA box keeps
+    within the 128-byte swizzle's inner limit and 256 per dimension, and
+    the plan's constants are the kernel's."""
+    from speechclip_tpu_torch.kernels._attention_common import SMEM_LIMIT
+
+    assert (pmb.GEMM_BM, pmb.GEMM_BK, pmb.GEMM_STAGES, pmb.GEMM_CHUNK,
+            pmb.GEMM_RESID_PAD) == tuple(
+        _cu_constant(c) for c in ("BM", "BK", "STAGES", "CHUNK", "RESID_PAD"))
+    plan = pmb.gemm_plan(n, epilogue)
+    assert plan["block_n"] == (128 if n <= 128 else 256)
+    for bn in pmb.GEMM_BLOCK_NS:
+        p = pmb.gemm_plan(n, epilogue, bn)
+        assert p["stages"] >= 3
+        ring = p["stages"] * (pmb.GEMM_BM + bn) * pmb.GEMM_BK * 2
+        assert ring + bn * 4 + 1024 <= p["smem_bytes"] <= SMEM_LIMIT
+        if epilogue in (pmb.EPI_BIAS_RESID_F32, pmb.EPI_BIAS_RESID):
+            assert p["smem_bytes"] >= ring + pmb.GEMM_BM * bn * 2
+        for inner, rows in p["boxes"]:
+            assert inner * 2 <= pmb.TMA_SWIZZLE_BYTES and inner * 2 % 16 == 0
+            assert inner <= pmb.TMA_MAX_BOX and rows <= pmb.TMA_MAX_BOX
+        assert p["b_boxes_per_stage"] * pmb.GEMM_CHUNK == bn
+        # two consumer warpgroups of 64 rows; wgmma takes N <= 256
+        assert pmb.GEMM_BM == 2 * 64 and bn <= 256 and bn % 8 == 0
+    with pytest.raises(ValueError, match="tile columns"):
+        pmb.gemm_plan(n, epilogue, 192)
+
+
+def test_row_layer_norm_rejects_widths_it_cannot_load():
+    """The row LayerNorm kernel loads 16 bytes a lane: D % 8 != 0 raises
+    before anything is launched."""
+    with pytest.raises(ValueError, match="D % 8"):
+        pmb.layer_norm_rows(torch.zeros(4, 12), torch.ones(12), torch.zeros(12), 1e-5)
