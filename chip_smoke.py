@@ -35,7 +35,8 @@ line each (a failed check exits non-zero before the last line):
 8. the conv A/B: ``fused_conv_chain`` against the port's cuDNN conv1..6
    chain (``models/hubert.py``) on the same weights and input, CUDA-event
    medians taken in turns (times only: the two differ in GELU form and
-   rounding point);
+   rounding point); phase 2 gives the chain's layers one by one (event and
+   device time, share of each layer's bound);
 9. the cascaded branch (``shipped_cascaded_config()``: K = 8 keywords, one
    768-wide attention head, kw-BN, VQ over the 8112-row Flickr vocabulary,
    the CLIP text tower over K + 2 tokens) on 64 utterances of 6.4 s,
@@ -67,7 +68,9 @@ package beside this script, it exits non-zero and prints no result.
 
 runs phase 1, then, in place of the checks, an A/B of the wgmma GEMM (both
 tile widths) against ``torch.matmul`` at the main path's four products with
-each call's host launch path, one torch.profiler step per path of 3, 5, 6
+each call's host launch path, the conv kernel's two warpgroup tiles on each
+layer of the chain and the SM clock and power the chain holds the card at,
+one torch.profiler step per path of 3, 5, 6
 and 9 (wall and device ms, peak memory, the largest kernels) and the HuBERT
 front end split into its parts (conv0, conv1..6, pos_conv); it prints no
 result line.
@@ -463,8 +466,9 @@ def phase_kernels():
             _compare(name, row, functools.partial(kern, q, k, v, lens, causal),
                      functools.partial(plain, q, k, v, lens, causal), results, work,
                      library=_sdpa_call(q, k, v, lens, causal), deferred=deferred)
-    _conv_row(gen, results, deferred)
+    conv_layers = _conv_row(gen, results, deferred)
     _device_rows(deferred, results)
+    _conv_layer_device_rows(conv_layers, results)
     return results
 
 
@@ -576,37 +580,77 @@ def _conv_inputs(gen):
     return x, ws
 
 
-def _conv_row(gen, results, deferred):
-    """Phase-2 row of ``fused_conv_chain``: the whole chain against its
-    plain version at the layer limits, and each layer alone, fed the plain
-    chain's input to it, within MAX_LAYER_MISMATCH."""
-    import torch
+def _conv_layers(x, ws):
+    """Each layer of the chain alone, fed the plain chain's input to it:
+    (k, its input, its weight, (FLOPs, bytes)) per layer, and the plain
+    chain's output."""
+    from speechclip_tpu_torch.kernels import conv_frontend as cf
 
+    layers, h = [], x
+    for w, k in zip(ws, CONV_KERNELS):
+        b, t, c = h.shape
+        t_out = cf.layer_out_len(t, k)
+        work = (2 * b * t_out * k * c * w.shape[2],
+                (b * t * c + w.numel() + b * t_out * w.shape[2]) * 2)
+        layers.append((k, h, w, work))
+        h = cf.fused_conv_chain_plain(h, [w], (k,)).contiguous()
+    return layers, h
+
+
+def _conv_row(gen, results, deferred):
+    """Phase-2 row of ``fused_conv_chain``: each layer alone, fed the plain
+    chain's input to it, within MAX_LAYER_MISMATCH (its event time and
+    bound beside), then the whole chain against its plain version at the
+    layer limits. Returns the layers, whose device times come after every
+    event timing (``_conv_layer_device_rows``)."""
     from speechclip_tpu_torch.kernels import conv_frontend as cf
 
     x, ws = _conv_inputs(gen)
     b, t, c = x.shape
-    h, worst = x, 0.0
-    for w, k in zip(ws, CONV_KERNELS):
-        want = cf.fused_conv_chain_plain(h, [w], (k,))
+    layers, plain_out = _conv_layers(x, ws)
+    wants = [h for _, h, _, _ in layers[1:]] + [plain_out]
+    worst = 0.0
+    for i, ((k, h, w, work), want) in enumerate(zip(layers, wants), 1):
         st = cf.conv_chain_agreement(cf.fused_conv_chain(h, [w], (k,)), want)
         worst = max(worst, st["mismatch"])
         if not (st["finite"] and st["mismatch"] <= cf.MAX_LAYER_MISMATCH):
             fail(f"fused_conv_chain layer k={k} at T={h.shape[1]} disagrees with its plain "
                  f"version: {st}")
-        h = want
-    del h, want
-    flops, tt = 0, t
-    for k in CONV_KERNELS:
-        tt = cf.layer_out_len(tt, k)
-        flops += 2 * b * tt * k * c * c
-    work = (flops, b * t * c * 2 + sum(w.numel() for w in ws) * 2 + b * tt * c * 2)
+        ms = cuda_time_ms(functools.partial(cf.conv_layer, h, w, k))
+        bound_ms, _ = bound(*work)
+        t_out = cf.layer_out_len(h.shape[1], k)
+        say(f"phase 2 fused_conv_chain layer {i} (k={k}, T {h.shape[1]} -> "
+            f"{t_out}, tile {cf.CONV_TILES[cf.conv_tile(t_out, w.shape[2])]}): "
+            f"elements differing {st['mismatch']:.6f} (tol {cf.MAX_LAYER_MISMATCH}), kernel "
+            f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({work[0] / 1e9:.1f} GFLOP), "
+            f"{100 * bound_ms / ms:.1f} % of bound")
+    work = (sum(wk[0] for *_, wk in layers),
+            b * t * c * 2 + sum(w.numel() for w in ws) * 2
+            + b * cf.chain_out_len(t, CONV_KERNELS) * c * 2)
     say(f"phase 2 fused_conv_chain per layer: worst share of elements differing {worst:.6f} "
         f"(tol {cf.MAX_LAYER_MISMATCH})")
     _compare("fused_conv_chain", f"hubert conv1..6 B={b} T={t} C={c} k={CONV_KERNELS}",
              lambda: cf.fused_conv_chain(x, ws, CONV_KERNELS),
              lambda: cf.fused_conv_chain_plain(x, ws, CONV_KERNELS), results, work,
              deferred=deferred)
+    return layers
+
+
+def _conv_layer_device_rows(layers, results):
+    """Each conv layer's device time per call (torch.profiler, 20 calls) and
+    its share of the layer's bound; kept with the chain's phase-2 row."""
+    from speechclip_tpu_torch.kernels import conv_frontend as cf
+
+    row = next(r for label, r in results["fused_conv_chain"].items()
+               if label.startswith("hubert conv1..6"))
+    row["layers"] = []
+    for i, (k, h, w, work) in enumerate(layers, 1):
+        dev, _, _ = device_ms(functools.partial(cf.conv_layer, h, w, k))
+        bound_ms, _ = bound(*work)
+        row["layers"].append(dict(k=k, t_in=h.shape[1], device_ms=dev, bound_ms=bound_ms))
+        share = "not measured" if dev is None else f"{100 * bound_ms / dev:.1f} % of bound"
+        say(f"phase 2 fused_conv_chain layer {i} (k={k}, T {h.shape[1]}): device time per "
+            f"call (torch.profiler, 20 calls) {_ms(dev)}, bound {bound_ms:.4f} ms, {share}")
 
 
 def _model(cfg, batch_chunk: int = 64):
@@ -1059,6 +1103,82 @@ def phase_gemm_ab(smi):
             ", ".join(f"{name} {us:.1f} us" for name, us in host.items()))
 
 
+def phase_conv_tiles(smi):
+    """The conv kernel's two warpgroup tiles (``cf.CONV_TILES``) on each
+    layer of the chain at the conv A/B shape, fed the plain chain's input
+    to it, each checked first against the plain layer, beside two
+    yardsticks on the layer's im2col copy (``torch.matmul``, and the GEMM of
+    ``gemm_epilogue.cu`` with its GELU epilogue; timed only): CUDA-event medians of 20
+    single calls, in turns, beside the layer's bound; then the SM clock and
+    power the chain holds the card at. Run before any profiler pass of the
+    process."""
+    import torch
+
+    from speechclip_tpu_torch.kernels import conv_frontend as cf
+    from speechclip_tpu_torch.kernels import mha_block as mb
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    layers, plain_out = _conv_layers(*_conv_inputs(gen))
+    wants = [h for _, h, _, _ in layers[1:]] + [plain_out]
+    for i, ((k, h, w, work), want) in enumerate(zip(layers, wants), 1):
+        plan = cf.conv_tile(cf.layer_out_len(h.shape[1], k), w.shape[2])
+        order = [plan] + [t for t in range(len(cf.CONV_TILES)) if t != plan]
+        fns = {t: functools.partial(cf.conv_layer, h, w, k, t) for t in order}
+        for t, fn in fns.items():
+            st = cf.conv_chain_agreement(fn(), want)
+            if not (st["finite"] and st["mismatch"] <= cf.MAX_LAYER_MISMATCH):
+                fail(f"conv tile A/B layer {i} tile {cf.CONV_TILES[t]} disagrees: {st}")
+        # yardsticks on the layer's im2col copy (rows (B*T_out, k*C)): cuBLAS's
+        # bare product, and gemm_epilogue.cu's cooperative 128 x 256 GEMM with GELU
+        a = h.unfold(1, k, 2).transpose(2, 3).reshape(-1, k * h.shape[2]).contiguous()
+        w2 = w.reshape(-1, w.shape[2])
+        zero = torch.zeros(w.shape[2], device="cuda")
+        fns["torch.matmul"] = functools.partial(torch.matmul, a, w2)
+        fns["gemm_epilogue"] = functools.partial(mb.gemm, a, w2, zero, mb.EPI_BIAS_GELU)
+        order += ["torch.matmul", "gemm_epilogue"]
+        times = {t: [] for t in order}
+        for t in order + order[::-1]:
+            times[t].append(cuda_time_ms(fns[t]))
+        del a
+        bound_ms, _ = bound(*work)
+        name = lambda t: t if isinstance(t, str) else f"{cf.CONV_TILES[t][0]} x {cf.CONV_TILES[t][1]}"
+        say(f"conv tile A/B layer {i} (k={k}, T {h.shape[1]}, plan {cf.CONV_TILES[plan]}) on "
+            f"{smi}: " + "; ".join(
+                f"{name(t)} {ts[0]:.4f}, {ts[1]:.4f} ms ({100 * bound_ms / min(ts):.1f} % of bound)"
+                for t, ts in times.items())
+            + f" (bound {bound_ms:.4f} ms; CUDA-event medians of 20, in turns; torch.matmul: "
+            "the bare product of an im2col copy; gemm_epilogue: the layers' GEMM on it, tanh "
+            "GELU)")
+    x, ws = layers[0][1], [w for _, _, w, _ in layers]
+    clocks, watts = _sustained_clocks(lambda: cf.fused_conv_chain(x, ws, CONV_KERNELS))
+    clocks.sort()
+    watts.sort()
+    say(f"conv chain run back to back for 3 s on {smi}: SM clock {clocks[0]:.0f} / "
+        f"{clocks[len(clocks) // 2]:.0f} / {clocks[-1]:.0f} MHz (min / median / max), power "
+        f"{watts[len(watts) // 2]:.2f} W median, {len(clocks)} nvidia-smi samples")
+
+
+def _sustained_clocks(fn, seconds: float = 3.0):
+    """SM clock (MHz) and power draw (W) samples, every 250 ms from
+    ``nvidia-smi``, while ``fn`` runs back to back for ``seconds``."""
+    import torch
+
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+         "-lms", "250"], stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate()[0]
+    samples = [tuple(float(v) for v in line.split(",")) for line in out.splitlines() if line.strip()]
+    return [c for c, _ in samples], [w for _, w in samples]
+
+
 # kernel -> (source, the TPU kernel it replaces, the phase-2 row whose
 # times and bound it reports, the path whose launches it reports)
 REPLACES = {
@@ -1110,6 +1230,7 @@ def main(argv) -> int:
     )
     if profile_only:
         phase_gemm_ab(smi)
+        phase_conv_tiles(smi)
         phase_profile(model, params, gallery, smi, _model(shipped_cascaded_config()))
         phase_frontend_split(model, params, smi)
         return 0
@@ -1149,6 +1270,8 @@ def main(argv) -> int:
             "path": path,
             "shape": label,
         })
+        if "layers" in timed:
+            kernels[-1]["layers"] = timed["layers"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -93,8 +93,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, i, i, i, i, i, strides, i, ctypes.c_float, p, p,
     ]
     lib.scl_flash_attention.restype = i
-    lib.scl_conv_chain_layer.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.scl_conv_chain_layer.argtypes = [
+        p, p, p, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong), i, p,
+    ]
     lib.scl_conv_chain_layer.restype = i
+    lib.scl_conv_chain_plan.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+    lib.scl_conv_chain_plan.restype = i
 
 
 def build() -> Path:

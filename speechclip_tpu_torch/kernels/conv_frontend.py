@@ -8,20 +8,24 @@ the exact erf on the f32 sum, one rounding to x's dtype per layer. It is
 not HuBERT's own bf16 chain, which rounds each conv before a tanh GELU
 (``models/hubert.py``); like the JAX kernel, it lies on no model path.
 
-On a CUDA bf16 tensor it launches ``csrc/conv_chain.cu`` once per layer
-(one GEMM over a strided view of the input, no im2col); on a CPU tensor,
-or with ``plain=True``, it runs ``fused_conv_chain_plain``. Anything else
-raises.
+On a CUDA bf16 tensor it launches ``csrc/conv_chain.cu`` once per layer:
+one wgmma GEMM whose A operand is the TPU kernel's stride-2 fold of the
+input, read by TMA with no copy, as ``fold_segments`` describes it; on a CPU
+tensor, or with ``plain=True``, it runs ``fused_conv_chain_plain``.
+Anything else raises.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import ctypes
+import dataclasses
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._attention_common import SMEM_LIMIT
 
 # Agreement of the kernel with its plain version. The products are exact
 # and the sums f32 on both sides, so one layer's outputs differ only where
@@ -32,6 +36,101 @@ from . import _build
 # MAX_LAYER_MISMATCH of its elements; the whole chain, where flips
 # propagate, is held to the layer-output limits of the other kernels.
 MAX_LAYER_MISMATCH = 0.005
+
+# The kernel's plan (csrc/conv_chain.cu): a consumer warpgroup's tile
+# (rows, columns) by tile id; the K step; the staging rows of the
+# epilogue.
+CONV_TILES = ((64, 256), (128, 128))
+CONV_BK = 64
+CONV_STAGING_BYTES = 8 * 16 * 72 * 2
+# The kernel sizes the fold takes (the TPU kernel raises on others too).
+KERNEL_SIZES = (2, 3)
+
+
+@dataclasses.dataclass(frozen=True)
+class FoldSegment:
+    """One segment of a layer's K loop as the kernel reads it: x viewed as
+    (B, rows, cols) with element strides (batch_stride, row_stride, 1), one
+    TMA map; output row t reads view row t + row_offset (rows past ``rows``
+    read as zeros), against weight rows [w_row, w_row + cols)."""
+
+    rows: int
+    cols: int
+    row_stride: int
+    batch_stride: int
+    row_offset: int
+    w_row: int
+
+
+def fold_segments(t_in: int, c_in: int, k: int) -> Tuple[FoldSegment, ...]:
+    """The A operand of one layer: the TPU kernel's fold x (T, C) -> x2
+    (T/2, 2C). k = 2: x2's floor(T/2) full rows, 2C wide. k = 3 adds the
+    first C columns of x2 from row 1 on, against W[2C:]; that view has
+    ceil(T/2) rows, so an odd T's last frame x(T-1), half a row of x2, is
+    read, and no view reaches past its own batch element."""
+    if k not in KERNEL_SIZES:
+        raise ValueError(f"fused_conv_chain: the kernel takes kernel sizes {KERNEL_SIZES}, got {k}")
+    segments = [FoldSegment(t_in // 2, 2 * c_in, 2 * c_in, t_in * c_in, 0, 0)]
+    if k == 3:
+        segments.append(FoldSegment((t_in + 1) // 2, c_in, 2 * c_in, t_in * c_in, 1, 2 * c_in))
+    return tuple(segments)
+
+
+def conv_plan(tile: int) -> dict:
+    """The kernel's plan for a tile id: the warpgroup tile, the ring's
+    stages (as many as fit beside the staging area and the barriers) and
+    one block's dynamic shared memory (with 1 KB to align the ring to the
+    swizzle atom)."""
+    rows, cols = CONV_TILES[tile]
+    stage = (rows + cols) * CONV_BK * 2
+    stages = (SMEM_LIMIT - 1024 - 256 - CONV_STAGING_BYTES) // stage
+    return dict(rows=rows, cols=cols, stages=stages,
+                smem_bytes=stages * stage + CONV_STAGING_BYTES + 1024)
+
+
+def conv_tile(t_out: int, c_out: int) -> int:
+    """The tile id for a layer of t_out rows a batch element and C_out
+    columns: the one with fewer tiles (each tile is the same work, so fewer
+    tiles is less padding and fewer waves), 128 x 128 on a tie. On HuBERT's
+    chain: 128 x 128 up to layer 5, 64 x 256 for layer 6 (319 rows: 5 x 2
+    tiles a batch element against 3 x 4; the faster there in
+    ``chip_smoke.py --profile``)."""
+    counts = [-(-t_out // rows) * -(-c_out // cols) for rows, cols in CONV_TILES]
+    return 0 if counts[0] < counts[1] else 1
+
+
+def conv_layer(x: torch.Tensor, w: torch.Tensor, k: int,
+               tile: Optional[int] = None) -> torch.Tensor:
+    """One layer on the kernel: x (B, T, C_in) bf16 contiguous on the card,
+    w (k, C_in, C_out) -> (B, T_out, C_out) bf16; ``tile`` overrides the
+    tile id (for measurements). Launch counts are per chain, in
+    ``fused_conv_chain``."""
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        raise ValueError(f"fused_conv_chain: the kernel takes bf16 CUDA tensors, got "
+                         f"{x.dtype} on {x.device}")
+    b, t, c = x.shape
+    segments = fold_segments(t, c, k)
+    if w.shape[:2] != (k, c) or w.shape[2] % 8 or c % 8:
+        raise ValueError(
+            f"fused_conv_chain: weight {tuple(w.shape)} for a (k={k}, C_in={c}) "
+            "layer; channels must be multiples of 8"
+        )
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("fused_conv_chain: x must be contiguous and 16-byte aligned")
+    n = w.shape[2]
+    t_out = layer_out_len(t, k)
+    tile = conv_tile(t_out, n) if tile is None else tile
+    w2 = w.to(device=x.device, dtype=torch.bfloat16).reshape(k * c, n).contiguous()
+    out = torch.empty((b, t_out, n), dtype=torch.bfloat16, device=x.device)
+    seg = (ctypes.c_longlong * (6 * len(segments)))(
+        *[v for s in segments for v in dataclasses.astuple(s)])
+    _build.check(
+        _build.load().scl_conv_chain_layer(
+            x.data_ptr(), w2.data_ptr(), out.data_ptr(), b, t_out, k * c, n,
+            len(segments), seg, tile, _build.stream(x.device)),
+        "scl_conv_chain_layer",
+    )
+    return out
 
 
 def layer_out_len(t_in: int, k: int) -> int:
@@ -87,27 +186,14 @@ def fused_conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
         raise TypeError(f"fused_conv_chain: kernel path runs bf16, got {x.dtype}")
     if x.requires_grad:
         raise RuntimeError("fused_conv_chain: kernel path is forward-only: x requires grad")
-    b, t, c = x.shape
-    if chain_out_len(t, kernels) < 1:
-        raise ValueError(f"fused_conv_chain: T = {t} is shorter than the chain's window")
-    lib = _build.load()
-    stream = _build.stream(x.device)
+    if chain_out_len(x.shape[1], kernels) < 1:
+        raise ValueError(f"fused_conv_chain: T = {x.shape[1]} is shorter than the chain's window")
+    if any(k not in KERNEL_SIZES for k in kernels):
+        raise ValueError(
+            f"fused_conv_chain: the kernel takes kernel sizes {KERNEL_SIZES}, got {kernels}")
     h = x.contiguous()
     for w, k in zip(weights, kernels):
-        if w.shape[:2] != (k, h.shape[2]) or w.shape[2] % 8 or h.shape[2] % 8:
-            raise ValueError(
-                f"fused_conv_chain: weight {tuple(w.shape)} for a (k={k}, C_in={h.shape[2]}) "
-                "layer; channels must be multiples of 8"
-            )
-        w2 = w.to(device=x.device, dtype=torch.bfloat16).reshape(k * h.shape[2], -1).contiguous()
-        out = torch.empty((b, layer_out_len(h.shape[1], k), w.shape[2]),
-                          dtype=torch.bfloat16, device=x.device)
-        _build.check(
-            lib.scl_conv_chain_layer(h.data_ptr(), w2.data_ptr(), out.data_ptr(), b,
-                                     h.shape[1], h.shape[2], w.shape[2], k, stream),
-            "scl_conv_chain_layer",
-        )
-        h = out
+        h = conv_layer(h, w, k)
     fused_conv_chain.launches += 1
     return h
 

@@ -30,6 +30,7 @@ import torch
 
 from ..config import SpeechCLIPConfig
 from ..ops.basic import Params, l2_normalize
+from ..ops import retrieval
 from ..ops.mlp import mlp_apply, mlp_init
 from ..ops.transformer import TRANSFORMER_TYPES
 from ..ops.weighted_sum import weighted_sum_apply, weighted_sum_init
@@ -292,7 +293,7 @@ class SpeechCLIPModel:
             suppress.add(0)
         for tok in sorted(suppress):
             scores[..., tok] -= 100.0
-        top_ids = torch.topk(scores, top_k, dim=-1).indices.cpu().numpy()
+        top_ids = retrieval.top_k(scores, top_k)[1].cpu().numpy()
         weights_np = weights.cpu().numpy()
         lens = audio_len.cpu().numpy()
         cls_weights = [weights_np[i, :, :, : int(lens[i]) + self.keyword_num]

@@ -4,7 +4,9 @@ speechclip_tpu/serving.py ``EncoderService.retrieve``).
 
 Scores are full-precision f32 with TF32 off: the reference found that a
 reduced-precision score matmul flips near-tie ranks
-(docs/DESIGN_NOTES.md:239-241).
+(docs/DESIGN_NOTES.md:239-241). Equal scores rank the lower index first,
+as ``jax.lax.top_k`` does (``torch.topk`` leaves their order unspecified):
+duplicate gallery rows under distinct ids are ordinary.
 """
 
 from __future__ import annotations
@@ -32,12 +34,19 @@ def scores(feats: torch.Tensor, gallery: torch.Tensor) -> torch.Tensor:
         return feats.float() @ gallery.float().T
 
 
+def top_k(s: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest along the last dim, descending, ties lower index first:
+    ``jax.lax.top_k``'s order, from a stable descending sort."""
+    values, idx = torch.sort(s, dim=-1, descending=True, stable=True)
+    k = min(k, s.shape[-1])
+    return values[..., :k], idx[..., :k]
+
+
 def retrieve(
     feats: torch.Tensor, gallery: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k gallery rows per query -> (scores (N, k) f32, indices (N, k))."""
-    s = scores(feats, gallery)
-    return torch.topk(s, min(k, s.shape[1]), dim=1)
+    return top_k(scores(feats, gallery), k)
 
 
 def recall_at_k(
@@ -49,7 +58,7 @@ def recall_at_k(
     """recall@k x100: a query hits at k if any of its top-k candidates
     carries its gold id."""
     k_max = min(max(recall_at), scores.shape[1])
-    _, idx = torch.topk(scores, k_max, dim=1)
+    _, idx = top_k(scores, k_max)
     hit = cand_ids.to(idx.device)[idx] == query_gold_ids.to(idx.device)[:, None]
     return {
         f"recall@{k}": float(hit[:, : min(k, k_max)].any(dim=1).float().mean() * 100.0)

@@ -3,13 +3,19 @@ runs) against the JAX Pallas kernel in interpret mode, at the shapes of
 tests/test_conv_frontend.py — (3, 3, 2) at T = 1300, HuBERT's conv1..6
 (3, 3, 3, 3, 2, 2) at T = 2100, (2, 2) at T = 640, a ragged T = 413 — in
 f32, and HuBERT's chain at C = 512 in bf16 (B = 2, 16 output frames); also
-``window_for``, the CPU wrapper's routing and the agreement check.
+``window_for``, the CPU wrapper's routing and the agreement check. The
+kernel's A operand, the stride-2 fold as ``fold_segments`` describes it,
+is built into the layer's GEMM here from exactly those views (f32, odd and
+even T, two batch elements): the card's kernel reads nothing else.
 
 Tolerances: f32 — max abs diff <= 1e-4 (the same sums in another order).
 bf16 — per-row cosine >= 0.999 and max abs <= 0.0625: each layer rounds to
 bf16 on both sides, and another summation order flips some roundings,
 which the next layers carry on.
 """
+
+import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -18,6 +24,7 @@ import torch
 import jax.numpy as jnp
 
 from speechclip_tpu.kernels import conv_frontend as jcf
+from speechclip_tpu_torch.kernels import _build
 from speechclip_tpu_torch.kernels import conv_frontend as pcf
 
 torch.set_num_threads(2)
@@ -117,3 +124,117 @@ def test_agreement_check_fails_tanh_gelu():
         torch.nn.functional.gelu(sums.float(), approximate="tanh").bfloat16(), ref)
     assert sound["mismatch"] <= pcf.MAX_LAYER_MISMATCH / 5, sound
     assert tanh["mismatch"] > 2 * pcf.MAX_LAYER_MISMATCH, tanh
+
+
+def fold_gemm(x, w, k, segments):
+    """One layer built from exactly the views ``segments`` describe, as the
+    kernel's TMA maps read them: each segment's (B, rows, cols) view of x,
+    rows past the view's own read as zeros, against its weight rows; f32
+    sums, erf GELU, one rounding to x's dtype."""
+    b, t, c = x.shape
+    t_out = pcf.layer_out_len(t, k)
+    w2 = w.float().reshape(k * c, -1)
+    acc = torch.zeros(b, t_out, w2.shape[1])
+    for s in segments:
+        view = torch.as_strided(x, (b, s.rows, s.cols), (s.batch_stride, s.row_stride, 1))
+        rows = torch.zeros(b, t_out, s.cols)
+        n = max(0, min(t_out, s.rows - s.row_offset))
+        rows[:, :n] = view[:, s.row_offset:s.row_offset + n].float()
+        acc += rows @ w2[s.w_row:s.w_row + s.cols]
+    return torch.nn.functional.gelu(acc).to(x.dtype)
+
+
+def _fold_inputs(t, c, k, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((2, t, c)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((k, c, c)) * (k * c) ** -0.5).astype(np.float32))
+    return x, w
+
+
+@pytest.mark.parametrize("c", [16, 136])
+@pytest.mark.parametrize("t", [40, 41, 413])  # 20479's parity at small size, and even
+@pytest.mark.parametrize("k", [2, 3])
+def test_fold_views_build_the_plain_layer(k, t, c):
+    """The A operand the wrapper hands the kernel (``fold_segments``: the
+    segment views, their row offsets, widths and map extents), built into
+    the GEMM in f32 on two batch elements, is the plain layer; and no view
+    reaches past its own batch element."""
+    x, w = _fold_inputs(t, c, k, seed=t + c + k)
+    segments = pcf.fold_segments(t, c, k)
+    assert [s.w_row for s in segments] == [0, 2 * c][:len(segments)]
+    assert sum(s.cols for s in segments) == k * c
+    for s in segments:
+        assert (s.rows - 1) * s.row_stride + s.cols <= s.batch_stride == t * c
+        assert s.row_stride % 8 == 0 and s.batch_stride % 8 == 0  # 16-byte TMA strides
+    got = fold_gemm(x, w, k, segments)
+    want = pcf.fused_conv_chain_plain(x, [w], (k,))
+    assert got.shape == want.shape == (2, pcf.layer_out_len(t, k), c)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=0)
+
+
+def test_fold_check_catches_the_odd_t_trap():
+    """A third-tap view of floor(T/2) full rows leaves out an odd T's last
+    frame: the fold check above fails it in the last output row only."""
+    t, c = 41, 16
+    x, w = _fold_inputs(t, c, 3, seed=5)
+    first, third = pcf.fold_segments(t, c, 3)
+    short = dataclasses.replace(third, rows=t // 2)
+    want = pcf.fused_conv_chain_plain(x, [w], (3,))
+    bad = (fold_gemm(x, w, 3, (first, short)) - want).abs().amax(dim=(0, 2))
+    assert float(bad[:-1].max()) <= 1e-4 < float(bad[-1])
+
+
+def test_fold_takes_kernel_sizes_two_and_three():
+    for k in (1, 4):
+        with pytest.raises(ValueError, match="kernel sizes"):
+            pcf.fold_segments(101, 16, k)
+
+
+def _cu_constant(name):
+    text = (_build.CSRC_DIR / "conv_chain.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+@pytest.mark.parametrize("tile", [0, 1])
+def test_conv_plan_fits_shared_memory_and_tma_limits(tile):
+    """The kernel's plan: a ring of at least 3 stages beside the epilogue's
+    staging rows in one block's shared memory, TMA boxes within the
+    128-byte swizzle's inner limit and 256 rows, warpgroup tiles wgmma
+    takes; the plan's constants are the kernel's."""
+    from speechclip_tpu_torch.kernels._attention_common import SMEM_LIMIT
+
+    assert (pcf.CONV_BK, SMEM_LIMIT) == tuple(_cu_constant(n) for n in ("BK", "SMEM_LIMIT"))
+    assert pcf.CONV_STAGING_BYTES == 8 * 16 * _cu_constant("STAGE_LD") * 2
+    p = pcf.conv_plan(tile)
+    rows, cols = pcf.CONV_TILES[tile]
+    assert 3 <= p["stages"] <= 8 and p["smem_bytes"] <= SMEM_LIMIT - 1024  # 256 B of barriers
+    assert p["smem_bytes"] >= p["stages"] * (rows + cols) * pcf.CONV_BK * 2 + pcf.CONV_STAGING_BYTES
+    assert rows % 64 == 0 and rows <= 256 and cols in (128, 256) and pcf.CONV_BK * 2 == 128
+    assert rows * cols // 128 <= 128  # f32 accumulators a consumer thread holds
+
+
+def test_conv_tile_takes_the_fewer_tiles():
+    """HuBERT's chain at 6.4 s: 128 x 128 tiles up to layer 5 (a tie),
+    64 x 256 for layer 6's 319 rows; 128 x 128 wherever C_out <= 128."""
+    t, tiles = 20479, []
+    for k in HUBERT:
+        t = pcf.layer_out_len(t, k)
+        tiles.append(pcf.CONV_TILES[pcf.conv_tile(t, 512)])
+    assert tiles == [(128, 128)] * 5 + [(64, 256)]
+    assert [pcf.conv_tile(t, c) for t, c in ((319, 128), (64, 64), (65, 136), (63, 256))] == [
+        1, 1, 1, 0]
+
+
+def test_epilogue_probe_swaps_the_kernels_gelu():
+    """scripts/torch_conv_epilogue_probe.py times the chain with the body of
+    ``gelu_erf`` swapped: the body it replaces is the kernel's, and every
+    variant is a body of its own."""
+    import importlib.util
+
+    path = _build.PKG_DIR.parent / "scripts" / "torch_conv_epilogue_probe.py"
+    spec = importlib.util.spec_from_file_location("probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    assert (_build.CSRC_DIR / "conv_chain.cu").read_text().count(probe.ERFF) == 1
+    assert probe.VARIANTS["erff"] == probe.ERFF
+    assert len(set(probe.VARIANTS.values())) == len(probe.VARIANTS)

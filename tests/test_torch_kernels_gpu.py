@@ -500,6 +500,7 @@ def _conv_agrees(got, want, layer):
     (2, 413, 64, (3, 2)),
     (1, 1301, 136, (2, 3, 2)),
     (5, 20479, 512, (3,)),  # conv1 at 6.4 s
+    (64, 20479, 512, (3, 3, 3, 3, 2, 2)),  # the whole chain at 6.4 s, B = 64
 ])
 def test_conv_chain_kernel_matches_plain(cuda, b, t, c, kernels):
     from speechclip_tpu_torch.kernels.conv_frontend import (
@@ -551,3 +552,48 @@ def test_conv_chain_raises_on_what_it_does_not_take(cuda):
         fused_conv_chain(x[..., :12], [w[:, :12, :12] for w in ws], (3,))
     with pytest.raises(ValueError, match="window"):
         fused_conv_chain(x[:, :2], ws, (3,))
+    for k in (1, 4):  # the fold takes k = 2 and 3, as the TPU kernel does
+        w = torch.zeros(k, 16, 16, dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="kernel sizes"):
+            fused_conv_chain(x, [w], (k,))
+    from speechclip_tpu_torch.kernels.conv_frontend import conv_layer
+
+    with pytest.raises(ValueError, match="bf16 CUDA"):
+        conv_layer(x.cpu(), ws[0], 3)
+
+
+@pytest.mark.parametrize("tile", [0, 1])
+@pytest.mark.parametrize("b, t, c, k", [
+    (2, 41, 16, 3), (2, 40, 16, 3), (3, 413, 136, 3), (3, 413, 136, 2), (2, 1279, 512, 2),
+    (4, 20479, 512, 3), (64, 639, 512, 2), (1, 9, 8, 3), (2, 130, 64, 2),
+])
+def test_conv_layer_both_tiles_match_plain(cuda, tile, b, t, c, k):
+    """Each warpgroup tile (64 x 256, 128 x 128) at odd and even T, ragged
+    C and T_out, one N tile, one row of output, against the plain layer on
+    the same input; the launch count is the chain's, not the layer's."""
+    from speechclip_tpu_torch.kernels.conv_frontend import (
+        conv_layer,
+        fused_conv_chain,
+        fused_conv_chain_plain,
+    )
+
+    x, ws = _conv_inputs(cuda, b, t, c, (k,), seed=t + tile)
+    before = fused_conv_chain.launches
+    got = conv_layer(x, ws[0], k, tile=tile)
+    torch.cuda.synchronize()
+    assert fused_conv_chain.launches == before
+    ok, st = _conv_agrees(got, fused_conv_chain_plain(x, ws, (k,)), layer=True)
+    assert ok, st
+
+
+def test_conv_plan_matches_the_library(cuda):
+    import ctypes
+
+    from speechclip_tpu_torch.kernels import _build
+    from speechclip_tpu_torch.kernels.conv_frontend import CONV_TILES, conv_plan
+
+    lib = _build.load()
+    for tile in range(len(CONV_TILES)):
+        stages = ctypes.c_int(0)
+        smem = lib.scl_conv_chain_plan(tile, ctypes.byref(stages))
+        assert (smem, stages.value) == (conv_plan(tile)["smem_bytes"], conv_plan(tile)["stages"])
