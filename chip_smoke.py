@@ -13,7 +13,8 @@ line each (a failed check exits non-zero before the last line):
    branch layer: T=320, H=8, Dh=96; ``mha_layer_block`` also at T=600 and
    at its gate's largest T=782; ``attention_vmem`` at the 17 s shapes and a
    causal one; ``flash_attention`` at the flash-backend shape, a 17 s shape
-   and the causal CLIP-text shape), with the error, the tolerance and
+   and the causal CLIP-text shape, in bf16 and, as ``forward_text`` runs
+   it, in f32), with the error, the tolerance and
    median CUDA-event times of kernel and plain; and the wgmma GEMM of
    ``mha_layer_block`` and ``ffn_block`` alone at the main path's four
    products (QKV, out-proj, fc1, fc2 at M = 64 x 319) and one ragged shape,
@@ -44,13 +45,35 @@ line each (a failed check exits non-zero before the last line):
    "pallas" (25 ``flash_attention``: 12 HuBERT layers, the 768-wide head,
    12 causal text layers), each against the all-plain path: pre-VQ cosine
    scores, keyword ids, features of the rows whose ids all agree, top-k;
-10. encode + retrieve throughput of both cascaded paths, kernel and plain.
+10. encode + retrieve throughput of both cascaded paths, kernel and plain;
+11. the ViT-B/32 gallery: ``forward_image`` on 256 uint8 images of 256 x 256
+    (on-device resize and normalize, the tower, the projection) under "auto"
+    (no kernel) and "pallas" (12 ``flash_attention``), against the all-plain
+    path and each other; images/s;
+12. text: ``forward_text`` on 256 x 77 token ids with their EOT positions;
+    the tower runs in f32 (the token table's dtype, as in JAX): under
+    "auto" no kernel, under "pallas" 12 causal ``flash_attention`` in its
+    f32 form, held to the plain path with f32 limits; sequences/s;
+13. the validation epoch's retrieval eval at Flickr8k's test-split shape
+    (5000 utterances of up to 6.4 s, 1000 uint8 images; encode_speech and
+    forward_image in batches, ``collect_validation_outputs``,
+    ``retrieval_metrics`` at recall@1/5/10 both ways), held to a float64
+    recompute; its wall time;
+14. the ViT-L/14 image tower alone at B=64 under "auto" (24
+    ``mha_layer_block``), against the plain path; images/s;
+15. the ModifiedResNet RN50 tower at B=64 (no kernel): bf16 features
+    against f32 (TF32 off); images/s.
+
+Rates (utt/s, images/s, sequences/s) come from CUDA events around as many
+back-to-back calls as fill about 1 s.
 
 Phase 2 also gives each kernel's bound (the larger of its FLOPs over 989
 TFLOP/s and its bytes over 3.35 TB/s, counted from that row's shapes and
 key lengths) and, for the attention kernels and the GEMM, the time of one
 library call on the same inputs (``F.scaled_dot_product_attention``,
-``torch.matmul``; timed only, the port never calls them). The event times
+``torch.matmul``, and ``F.multi_head_attention_forward`` for
+``mha_layer_block``'s "none" form; timed only, the port never calls
+them). The event times
 of a row include the host's launch path, which dominates rows under ~0.1
 ms; so every row also gives the kernel's (and the library call's) device
 time per call from a torch.profiler pass over 20 calls of each (the
@@ -71,9 +94,11 @@ tile widths) against ``torch.matmul`` at the main path's four products with
 each call's host launch path, the conv kernel's two warpgroup tiles on each
 layer of the chain and the SM clock and power the chain holds the card at,
 one torch.profiler step per path of 3, 5, 6
-and 9 (wall and device ms, peak memory, the largest kernels) and the HuBERT
-front end split into its parts (conv0, conv1..6, pos_conv); it prints no
-result line.
+and 9 (wall and device ms, peak memory, the largest kernels), the HuBERT
+front end split into its parts (conv0, conv1..6, pos_conv), and the same
+for the gallery side (the ViT-B/32 gallery under both backends and its
+preprocessing alone, text, the ViT-L/14 and RN50 towers; the eval of
+phase 13 in parts); it prints no result line.
 """
 
 from __future__ import annotations
@@ -112,6 +137,16 @@ ATTENTION_SHAPES = {
         "text tower K+2": (64, 8, 10, 64, False, True, True),
     },
 }
+# The gallery's phase-2 rows: flash_attention under "pallas" on ViT-B/32's
+# and ViT-L/14's layers, and mha_layer_block on ViT-L/14's under "auto"
+GALLERY_FLASH_SHAPES = {
+    "vit-b/32": (256, 12, 50, 64, False, False, True),
+    "vit-l/14": (64, 16, 257, 64, False, False, True),
+}
+VIT_L14_SHAPE = dict(b=64, t=257, d=1024, heads=16, f=4096)
+# forward_text's causal layers under "pallas", in f32 (the tower runs in its
+# f32 token table's dtype): flash_attention's f32 form
+TEXT_F32_FLASH_SHAPE = (256, 8, 77, 64, False, True, True)
 # The wgmma GEMM's rows: label -> (M, N, K, epilogue id), the four
 # products of the main path's layer at M = 64 x 319, and one ragged shape
 GEMM_SHAPES = {
@@ -125,6 +160,9 @@ GEMM_SHAPES = {
 CONV_KERNELS = (3, 3, 3, 3, 2, 2)
 CONV_SHAPE = dict(b=64, t=20479, c=512)
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+F32_TOL = 1e-4  # f32 outputs: max abs diff, in units of max(1, max |want|)
+MIN_F32_COSINE = 0.99999
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 WAV_SAMPLES = 102400
 # path label -> (batch, samples per buffer, shortest length, backend,
@@ -150,6 +188,16 @@ CASCADED_PATHS = {
                                        flash_attention=25, fused_conv_chain=0)),
 }
 MIN_KEYWORD_AGREEMENT = 0.9  # share of the B*K keyword ids (VQ argmax)
+GALLERY_IMAGES = 256
+RATE_WINDOW_S = 1.0  # rates: CUDA events around back-to-back calls over ~1 s
+TEXT_BATCH = 256
+VIT_L14_BATCH = 64
+RN50_BATCH = 64
+# phases 14 and 15: tower -> (batch, seed)
+TOWERS = {"ViT-L/14": (VIT_L14_BATCH, 20), "RN50": (RN50_BATCH, 21)}
+# Flickr8k's test split: 1000 images with 5 captions each
+EVAL_IMAGES, EVAL_CAPTIONS, EVAL_BATCH = 1000, 5, 250
+EVAL_RECALL_AT = (1, 5, 10)
 GALLERY = 5000
 TOPK = 10
 
@@ -189,7 +237,7 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3, calls: int = 1) -> float:
 # take scl::AttnArgs); any other kernel in a device-time pass is the
 # library's or plain torch's.
 PORT_KERNELS = re.compile(
-    r"scl::AttnArgs|\b(rowwise_kernel|flash_kernel|wide_scores_kernel|wide_pv_kernel|"
+    r"scl::AttnArgs|\b(rowwise_kernel|flash_kernel|flash_f32_kernel|wide_scores_kernel|wide_pv_kernel|"
     r"gemm_bf16_kernel|layer_norm_kernel|conv_layer_kernel)\b")
 
 
@@ -252,9 +300,10 @@ def row_cosine_min(a, b) -> float:
     return float(torch.nn.functional.cosine_similarity(a, b, dim=-1).min())
 
 
-def bound(flops: float, nbytes: float):
-    """(least ms the card could take, "operations" or "bytes")."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FLOPS):
+    """(least ms the card could take, "operations" or "bytes"): bf16
+    tensor-core operations unless another peak is given."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -329,7 +378,8 @@ def _layer_inputs(shape, gen):
     return x, lens, mha, ffn
 
 
-def _check_row(name, label, got, want, ms, plain_ms, results, work=None, library_ms=None):
+def _check_row(name, label, got, want, ms, plain_ms, results, work=None, library_ms=None,
+               library_name="torch SDPA"):
     """Layer outputs (|y| ~ 4-8 after LayerNorm) are held to BF16_ATOL and
     MIN_COSINE; attention outputs, means of v far smaller than that, also
     to limits tied to their own scale (``attention_agrees``)."""
@@ -345,12 +395,14 @@ def _check_row(name, label, got, want, ms, plain_ms, results, work=None, library
         st = ac.attention_agreement(got, want)
         ok = ok and ac.attention_agrees(st)
         scaled = (
+            f", f32: max abs {st['max_abs_err']:.3e} (tol {ac.F32_MAX_ABS}), min row cosine "
+            f"{st['min_cosine']:.7f} (tol {ac.MIN_ATTN_COSINE})" if st["f32"] else
             f", worst row {st['row_ulps']:.4f} x 2^-7 max|row| (tol {ac.MAX_ROW_ULPS}), "
             f"min row cosine {st['min_cosine']:.7f} (tol {ac.MIN_ATTN_COSINE}), "
             f"elements differing {st['mismatch']:.6f} (tol {ac.MAX_MISMATCH})"
         )
     bound_ms, bound_by = bound(*work)
-    lib = "" if library_ms is None else f", torch SDPA {library_ms:.4f} ms"
+    lib = "" if library_ms is None else f", {library_name} {library_ms:.4f} ms"
     say(
         f"phase 2 {name} [{label}]: max_abs_err {err:.6f} (tol {BF16_ATOL}), "
         f"min row cosine {cos:.6f} (tol {MIN_COSINE}){scaled}, kernel {ms:.4f} ms, "
@@ -362,10 +414,11 @@ def _check_row(name, label, got, want, ms, plain_ms, results, work=None, library
     results.setdefault(name, {})[label] = dict(
         err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=library_ms, device_ms=None, library_device_ms=None,
-        library_name="torch SDPA")
+        library_name=library_name)
 
 
-def _compare(name, label, kern, plain, results, work, library=None, deferred=None):
+def _compare(name, label, kern, plain, results, work, library=None, deferred=None,
+             library_name="torch SDPA"):
     """One phase-2 row: the kernel's output against its plain version's on
     the same inputs, then both timed (and the library call, if any). The
     row goes on ``deferred`` for its device times. These launches count for
@@ -376,7 +429,7 @@ def _compare(name, label, kern, plain, results, work, library=None, deferred=Non
     torch.cuda.synchronize()
     want = plain()
     _check_row(name, label, got, want, cuda_time_ms(kern), cuda_time_ms(plain), results,
-               work, None if library is None else cuda_time_ms(library))
+               work, None if library is None else cuda_time_ms(library), library_name)
     deferred.append((name, label, kern, library))
 
 
@@ -404,10 +457,10 @@ def _device_rows(deferred, results):
             f"each): kernel {_ms(row['device_ms'])}{extra}")
 
 
-def _attention_inputs(b, h, l, dh, with_lens, packed, gen):
+def _attention_inputs(b, h, l, dh, with_lens, packed, gen, dtype=None):
     import torch
 
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
     if packed:
         qkv = torch.randn(b, l, 3, h, dh, generator=gen, device="cuda").to(bf)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
@@ -423,8 +476,6 @@ def _attention_inputs(b, h, l, dh, with_lens, packed, gen):
 def phase_kernels():
     import torch
 
-    from speechclip_tpu_torch.kernels import attention_vmem as av
-    from speechclip_tpu_torch.kernels import flash_attention as fa
     from speechclip_tpu_torch.kernels.ffn_block import ffn_block, ffn_block_plain
     from speechclip_tpu_torch.kernels.mha_block import (
         mha_layer_block,
@@ -453,23 +504,75 @@ def phase_kernels():
             _compare("ffn_block", row, functools.partial(ffn_block, *ffn_args),
                      functools.partial(ffn_block_plain, *ffn_args), results, ffn_work,
                      deferred=deferred)
-    kernels = {"attention_vmem": (av.attention_vmem, av.attention_vmem_plain),
-               "flash_attention": (fa.flash_attention, fa.flash_attention_plain)}
     for name, shapes in ATTENTION_SHAPES.items():
-        kern, plain = kernels[name]
-        for label, (b, h, l, dh, with_lens, causal, packed) in shapes.items():
-            q, k, v, lens = _attention_inputs(b, h, l, dh, with_lens, packed, gen)
-            row = (f"{label} B={b} H={h} L=S={l} Dh={dh} lens={'yes' if with_lens else 'no'} "
-                   f"causal={'yes' if causal else 'no'}")
-            work = (4 * h * dh * attention_keys(b, l, l, lens, causal),
-                    4 * b * h * l * dh * 2 + (0 if lens is None else 4 * b))
-            _compare(name, row, functools.partial(kern, q, k, v, lens, causal),
-                     functools.partial(plain, q, k, v, lens, causal), results, work,
-                     library=_sdpa_call(q, k, v, lens, causal), deferred=deferred)
+        for label, spec in shapes.items():
+            _attention_row(name, label, spec, gen, results, deferred)
     conv_layers = _conv_row(gen, results, deferred)
+    # the gallery's rows, from a generator of their own (as the GEMM rows)
+    gallery_gen = torch.Generator(device="cuda").manual_seed(16)
+    for label, spec in GALLERY_FLASH_SHAPES.items():
+        _attention_row("flash_attention", label, spec, gallery_gen, results, deferred)
+    _vit_l14_block_row(gallery_gen, results, deferred)
+    _attention_row("flash_attention", "clip text f32", TEXT_F32_FLASH_SHAPE, gallery_gen, results,
+                   deferred, torch.float32)
     _device_rows(deferred, results)
     _conv_layer_device_rows(conv_layers, results)
     return results
+
+
+def _attention_row(name, label, spec, gen, results, deferred, dtype=None):
+    """One phase-2 row of ``attention_vmem`` or ``flash_attention`` at
+    ``spec`` = (b, h, l, dh, lens, causal, packed), bf16 unless ``dtype``
+    says otherwise, beside torch SDPA. An f32 row's bound takes the f32
+    CUDA-core peak: the f32 form runs no tensor core."""
+    import torch
+
+    from speechclip_tpu_torch.kernels import attention_vmem as av
+    from speechclip_tpu_torch.kernels import flash_attention as fa
+
+    kern, plain = {"attention_vmem": (av.attention_vmem, av.attention_vmem_plain),
+                   "flash_attention": (fa.flash_attention, fa.flash_attention_plain)}[name]
+    b, h, l, dh, with_lens, causal, packed = spec
+    q, k, v, lens = _attention_inputs(b, h, l, dh, with_lens, packed, gen, dtype)
+    f32 = q.dtype == torch.float32
+    row = (f"{label} B={b} H={h} L=S={l} Dh={dh} lens={'yes' if with_lens else 'no'} "
+           f"causal={'yes' if causal else 'no'}" + (" f32" if f32 else ""))
+    work = (4 * h * dh * attention_keys(b, l, l, lens, causal),
+            4 * b * h * l * dh * q.element_size() + (0 if lens is None else 4 * b),
+            PEAK_F32_FLOPS if f32 else PEAK_FLOPS)
+    _compare(name, row, functools.partial(kern, q, k, v, lens, causal),
+             functools.partial(plain, q, k, v, lens, causal), results, work,
+             library=_sdpa_call(q, k, v, lens, causal), deferred=deferred)
+
+
+def _vit_l14_block_row(gen, results, deferred):
+    """The phase-2 row of ``mha_layer_block`` on ViT-L/14's layer under
+    "auto" (ln_mode "none", no key lengths), beside one
+    ``F.multi_head_attention_forward`` call on the same weights (the
+    function "none" computes; timed only, the port never calls it)."""
+    import torch.nn.functional as F
+
+    from speechclip_tpu_torch.kernels.mha_block import mha_layer_block, mha_layer_block_plain
+
+    shape = VIT_L14_SHAPE
+    x, _, m, _ = _layer_inputs(shape, gen)
+    b, t, d, h = shape["b"], shape["t"], shape["d"], shape["heads"]
+    args = (x, m["w_in"], m["b_in"], m["w_out"], m["b_out"], None, None, None, h, "none", 1e-5)
+    work = (2 * b * t * d * 4 * d + 4 * d * t * b * t,
+            2 * b * t * d * 2 + 4 * d * d * 2 + 4 * d * 4)
+    xt = x.transpose(0, 1)  # (T, B, D), the functional form's layout
+    w_in, w_out = m["w_in"].t().contiguous(), m["w_out"].t().contiguous()
+    b_in, b_out = m["b_in"].bfloat16(), m["b_out"].bfloat16()
+
+    def library():
+        return F.multi_head_attention_forward(
+            xt, xt, xt, d, h, w_in, b_in, None, None, False, 0.0, w_out, b_out,
+            training=False, need_weights=False)
+
+    _compare("mha_layer_block", f"vit-l/14 B={b} T={t} H={h} Dh={d // h} none",
+             functools.partial(mha_layer_block, *args),
+             functools.partial(mha_layer_block_plain, *args), results, work, library=library,
+             deferred=deferred, library_name="F.multi_head_attention_forward")
 
 
 def _gemm_operands(gen, m, n, k, epilogue):
@@ -751,27 +854,40 @@ def _top_agreement(top, plain_top):
     return top1, overlap
 
 
-def _utt_per_s(model, params, gallery, wav, wav_len, plain, state=None, key="parallel_audio_feat"):
-    """Encode + retrieve rate: median of 3 host-clock steps, each ending in
-    a synchronize, after one warm-up."""
+RATE_NOTE = f"CUDA events around back-to-back calls over ~{RATE_WINDOW_S:g} s, after a warm-up"
+
+
+def _rate(step, n: int) -> float:
+    """``n`` items per second of ``step``: CUDA events around as many
+    back-to-back calls as fill RATE_WINDOW_S (sized by one timed call, after
+    one warm-up call); any host wait inside a call stays in the window."""
     import torch
 
+    step()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    step()
+    end.record()
+    end.synchronize()
+    calls = max(2, round(RATE_WINDOW_S * 1e3 / start.elapsed_time(end)))
+    start.record()
+    for _ in range(calls):
+        step()
+    end.record()
+    end.synchronize()
+    return n * calls / (start.elapsed_time(end) / 1e3)
+
+
+def _utt_per_s(model, params, gallery, wav, wav_len, plain, state=None, key="parallel_audio_feat"):
+    """Encode + retrieve rate (``_rate``)."""
     from speechclip_tpu_torch import retrieve
 
     def step():
         feats = model.encode_speech(params, state or {}, wav, wav_len, plain=plain)
         return retrieve(feats[key], gallery, TOPK)[1]
 
-    step()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    times.sort()
-    return wav.shape[0] / times[1]
+    return _rate(step, wav.shape[0])
 
 
 def phase_throughput(model, params, gallery, smi):
@@ -794,8 +910,7 @@ def phase_throughput(model, params, gallery, smi):
         fail("no throughput batch fits")
     say(
         f"phase 4 encode+retrieve throughput at B={batch} on {smi}: kernel path "
-        f"{out['kernel']:.2f} utt/s, plain path {out['plain']:.2f} utt/s "
-        f"(median of 3, host clock, after one warm-up)"
+        f"{out['kernel']:.2f} utt/s, plain path {out['plain']:.2f} utt/s ({RATE_NOTE})"
     )
     return batch, out
 
@@ -814,7 +929,7 @@ def phase_path_throughput(label, model, params, gallery, smi):
     say(
         f"phase 7 {label} path encode+retrieve throughput at B={b} x {samples} samples "
         f"(backend {backend}) on {smi}: kernel path {rates['kernel']:.2f} utt/s, plain "
-        f"path {rates['plain']:.2f} utt/s (median of 3, host clock, after one warm-up)"
+        f"path {rates['plain']:.2f} utt/s ({RATE_NOTE})"
     )
     return rates
 
@@ -952,20 +1067,42 @@ def phase_cascaded_throughput(model, params, state, gallery, smi):
     for label in CASCADED_PATHS:
         say(f"phase 10 {label} encode+retrieve throughput at B={batch} on {smi}: kernel path "
             f"{rates[label, 'kernel']:.2f} utt/s, plain path {rates[label, 'plain']:.2f} utt/s "
-            f"(median of 3, host clock, after one warm-up)")
+            f"({RATE_NOTE})")
     return rates
 
 
-def phase_profile(model, params, gallery, smi, cascaded):
-    """Where the time goes: per path, the wall time of one encode + retrieve
-    step (median of 3, host clock), then one step under torch.profiler: the
-    device time of its kernels, the largest of them, and the step's peak
-    memory. The main and cascaded paths run at the throughput batch of
-    phases 4 and 10. ``cascaded``: (model, params, state) of the cascaded
-    branch."""
+def _profile_step(label, step, n: int, smi):
+    """The wall time of ``step`` (``_rate``), then
+    one ``step`` under torch.profiler: the device time of its kernels, the
+    largest of them, and its peak memory."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    wall_ms = 1000.0 * n / _rate(step, n)
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dev = sorted(
+        ((e.key, e.self_device_time_total / 1000.0, e.count)
+         for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+        key=lambda r: -r[1],
+    )
+    total = sum(ms for _, ms, _ in dev)
+    top = "; ".join(f"{name[:70]} {ms:.3f} ms x{k} ({100 * ms / total:.1f} %)"
+                    for name, ms, k in dev[:12])
+    say(f"profile {label} on {smi}: wall {wall_ms:.3f} ms, device {total:.3f} ms, "
+        f"peak {peak:.2f} GiB; top: {top}")
+
+
+def phase_profile(model, params, gallery, smi, cascaded):
+    """Where the time goes: one encode + retrieve step per path
+    (``_profile_step``). The main and cascaded paths run at the throughput
+    batch of phases 4 and 10. ``cascaded``: (model, params, state) of the
+    cascaded branch."""
+    import torch
 
     from speechclip_tpu_torch import retrieve
     from speechclip_tpu_torch.ops.attention import attention_backend
@@ -978,25 +1115,57 @@ def phase_profile(model, params, gallery, smi, cascaded):
         b = 256 if label == "main" else b
         gen = torch.Generator(device="cuda").manual_seed(8)
         wav, wav_len = _wavs(b, samples, shortest, gen)
+
+        def step(model=model, params=params, state=state, key=key):
+            feats = model.encode_speech(params, state, wav, wav_len)[key]
+            return retrieve(feats, gallery, TOPK)
+
         with attention_backend(backend):
-            wall_ms = 1000.0 * b / _utt_per_s(model, params, gallery, wav, wav_len, False,
-                                              state, key)
-            torch.cuda.reset_peak_memory_stats()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                feats = model.encode_speech(params, state, wav, wav_len)[key]
-                retrieve(feats, gallery, TOPK)
-                torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        dev = sorted(
-            ((e.key, e.self_device_time_total / 1000.0, e.count)
-             for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-            key=lambda r: -r[1],
-        )
-        total = sum(ms for _, ms, _ in dev)
-        top = "; ".join(f"{name[:70]} {ms:.3f} ms x{n} ({100 * ms / total:.1f} %)"
-                        for name, ms, n in dev[:12])
-        say(f"profile {label} B={b} x {samples} samples (backend {backend}) on {smi}: "
-            f"wall {wall_ms:.3f} ms, device {total:.3f} ms, peak {peak:.2f} GiB; top: {top}")
+            _profile_step(f"{label} B={b} x {samples} samples (backend {backend})", step, b, smi)
+
+
+def phase_profile_gallery(model, params, smi):
+    """Where the gallery side's time goes (``_profile_step``): the ViT-B/32
+    gallery at phase 11's batch under both backends and its preprocessing
+    alone; text at phase 12's batch under both backends (the f32 tower);
+    the ViT-L/14 and RN50 towers of phases 14 and 15; then the retrieval
+    eval of phase 13 in parts (host clock, each part synchronized)."""
+    import torch
+
+    from speechclip_tpu_torch.data.image import device_clip_preprocess
+    from speechclip_tpu_torch.ops.attention import attention_backend
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    images = _uint8_images(GALLERY_IMAGES, 256, gen)
+    _profile_step(f"preprocess B={GALLERY_IMAGES} 256 -> 224",
+                  functools.partial(device_clip_preprocess, images), GALLERY_IMAGES, smi)
+    ids, eot = _token_ids(TEXT_BATCH, model.clip_cfg, gen)
+    for backend in ("auto", "pallas"):
+        with attention_backend(backend):
+            _profile_step(f"gallery ViT-B/32 B={GALLERY_IMAGES} (backend {backend})",
+                          functools.partial(model.forward_image, params, images),
+                          GALLERY_IMAGES, smi)
+            _profile_step(f"text f32 B={TEXT_BATCH} (backend {backend})",
+                          functools.partial(model.forward_text, params, ids, eot), TEXT_BATCH, smi)
+    for name, (batch, seed) in TOWERS.items():
+        _, run = _tower(name, batch, seed, (torch.bfloat16,))
+        _profile_step(f"{name} tower B={batch} bf16 (backend auto)",
+                      functools.partial(run, torch.bfloat16), batch, smi)
+        del run
+    parts = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    _eval_run(model, params)[0](timed)
+    say(f"profile eval (phase 13's shapes) on {smi}: " + ", ".join(
+        f"{name} {1000 * t:.1f} ms" for name, t in parts.items())
+        + f" (host clock, each part synchronized; total {1000 * sum(parts.values()):.1f} ms)")
 
 
 def phase_frontend_split(model, params, smi):
@@ -1179,6 +1348,331 @@ def _sustained_clocks(fn, seconds: float = 3.0):
     return [c for c, _ in samples], [w for _, w in samples]
 
 
+def _run_counted(fn):
+    """``fn()`` with every launch count set to 0 just before it and read
+    just after (synchronized): (its result, the counts)."""
+    import torch
+
+    counters = _counters()
+    _reset(counters)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: f.launches for name, f in counters.items()}
+
+
+def _expect_launches(label, launches, **nonzero):
+    expect = dict.fromkeys(_counters(), 0)
+    expect.update(nonzero)
+    if launches != expect:
+        fail(f"{label}: kernel launches {launches}, expected {expect}")
+
+
+def _uint8_images(n: int, side: int, gen):
+    import torch
+
+    return torch.randint(0, 256, (n, side, side, 3), generator=gen, device="cuda",
+                         dtype=torch.uint8)
+
+
+def phase_gallery(model, params, smi):
+    """ViT-B/32 gallery features: GALLERY_IMAGES uint8 images of 256 x 256
+    (``load_image_raw``'s decode size) through ``forward_image`` (on-device
+    resize + normalize, the tower, L2 norm) under "auto" (no kernel: 50 rows
+    are under every gate) and "pallas" (12 ``flash_attention``), each with
+    the counts at 0; "pallas" against the all-plain path, "auto" against
+    "pallas"; images/s of each."""
+    import torch
+
+    from speechclip_tpu_torch.ops.attention import attention_backend
+    from speechclip_tpu_torch.ops.basic import l2_normalize
+
+    images = _uint8_images(GALLERY_IMAGES, 256, torch.Generator(device="cuda").manual_seed(17))
+    n_layers = model.vision_cfg.layers
+    feats, launches, rates = {}, {}, {}
+    for label, backend, plain in (("auto", "auto", False), ("pallas", "pallas", False),
+                                  ("plain", "pallas", True)):
+        step = functools.partial(model.forward_image, params, images, plain=plain)
+        with attention_backend(backend):
+            out, launches[label] = _run_counted(step)
+            rates[label] = _rate(step, GALLERY_IMAGES)
+        feats[label] = l2_normalize(out.float())
+    cos_plain = row_cosine_min(feats["pallas"], feats["plain"])
+    cos_auto = row_cosine_min(feats["auto"], feats["pallas"])
+    say(f"phase 11 gallery ViT-B/32: forward_image on {GALLERY_IMAGES} uint8 images 256 x 256 x 3 "
+        f"-> {tuple(feats['auto'].shape)}; launches 'auto' {launches['auto']}, 'pallas' "
+        f"{launches['pallas']} (expect 0 and {n_layers} flash_attention); min row cosine "
+        f"'pallas' vs plain {cos_plain:.6f}, 'auto' vs 'pallas' {cos_auto:.6f} (tol "
+        f"{MIN_COSINE}); on {smi}: 'auto' {rates['auto']:.2f}, 'pallas' "
+        f"{rates['pallas']:.2f}, plain {rates['plain']:.2f} images/s ({RATE_NOTE})")
+    if tuple(feats["auto"].shape) != (GALLERY_IMAGES, model.config.clip_embed_dim):
+        fail(f"gallery: feature shape {tuple(feats['auto'].shape)}")
+    if not all(bool(torch.isfinite(f).all()) for f in feats.values()):
+        fail("gallery: non-finite features")
+    _expect_launches("gallery auto", launches["auto"])
+    _expect_launches("gallery pallas", launches["pallas"], flash_attention=n_layers)
+    if cos_plain < MIN_COSINE or cos_auto < MIN_COSINE:
+        fail("gallery: the kernel path disagrees with the plain path")
+
+
+def _token_ids(b: int, cfg, gen):
+    """(B, context) CLIP token ids (SOT, random words, EOT at a random
+    position, zeros after) and the EOT positions."""
+    import torch
+
+    n = cfg.context_length
+    eot = torch.randint(4, n, (b,), generator=gen, device="cuda")
+    ids = torch.randint(1, cfg.vocab_size - 2, (b, n), generator=gen, device="cuda")
+    ids = ids.masked_fill(torch.arange(n, device="cuda")[None, :] > eot[:, None], 0)
+    ids[:, 0] = cfg.vocab_size - 2
+    return ids.scatter(1, eot[:, None], cfg.vocab_size - 1), eot
+
+
+def phase_text(model, params, smi):
+    """Text retrieval: ``forward_text`` on TEXT_BATCH x 77 token ids, EOT
+    positions given. As in the JAX model, the tower runs in its token
+    table's dtype, f32 (``cast_params`` keeps the text tower f32): under
+    "auto" the stock path (77 causal rows are under every gate), under
+    "pallas" 12 causal ``flash_attention`` in its f32 form, held to the
+    all-plain path and to "auto" with f32 limits."""
+    import torch
+
+    from speechclip_tpu_torch.ops.attention import attention_backend
+
+    cfg = model.clip_cfg
+    ids, eot = _token_ids(TEXT_BATCH, cfg, torch.Generator(device="cuda").manual_seed(18))
+    feats, launches, rates = {}, {}, {}
+    for label, backend, plain in (("auto", "auto", False), ("pallas", "pallas", False),
+                                  ("plain", "pallas", True)):
+        step = functools.partial(model.forward_text, params, ids, eot, plain=plain)
+        with attention_backend(backend):
+            feats[label], launches[label] = _run_counted(step)
+            rates[label] = _rate(step, TEXT_BATCH)
+    scale = max(1.0, float(feats["plain"].abs().max()))
+    err_plain = float((feats["pallas"] - feats["plain"]).abs().max()) / scale
+    err_auto = float((feats["auto"] - feats["pallas"]).abs().max()) / scale
+    cos_plain = row_cosine_min(feats["pallas"], feats["plain"])
+    cos_auto = row_cosine_min(feats["auto"], feats["pallas"])
+    say(f"phase 12 text: forward_text on {TEXT_BATCH} x {cfg.context_length} token ids "
+        f"-> {tuple(feats['auto'].shape)} {feats['auto'].dtype}; launches 'auto' "
+        f"{launches['auto']}, 'pallas' {launches['pallas']} (expect 0 and {cfg.layers} "
+        f"flash_attention, f32); 'pallas' vs plain: max abs {err_plain:.3e} x max(1, max|feat|) "
+        f"(tol {F32_TOL}), min row cosine {cos_plain:.7f} (tol {MIN_F32_COSINE}); 'auto' vs "
+        f"'pallas': {err_auto:.3e}, {cos_auto:.7f}; on {smi}: 'auto' {rates['auto']:.2f}, "
+        f"'pallas' {rates['pallas']:.2f}, plain {rates['plain']:.2f} sequences/s ({RATE_NOTE})")
+    if any(f.dtype != torch.float32 or tuple(f.shape) != (TEXT_BATCH, cfg.output_dim)
+           or not bool(torch.isfinite(f).all()) for f in feats.values()):
+        fail("text: features are not finite f32 of the expected shape")
+    _expect_launches("text auto", launches["auto"])
+    _expect_launches("text pallas", launches["pallas"], flash_attention=cfg.layers)
+    if max(err_plain, err_auto) > F32_TOL or min(cos_plain, cos_auto) < MIN_F32_COSINE:
+        fail("text: the kernel path disagrees with the plain path")
+
+
+def _recall_hits(order, q_ids, c_ids, k: int):
+    """Per query, whether one of its first k candidates carries its id."""
+    return (c_ids[order[:, :k]] == q_ids[:, None]).any(axis=1)
+
+
+def _check_eval_direction(label, scores_dev, q_ids, c_ids, recall, s64):
+    """One direction of the eval against a float64 recompute: the port's
+    recall dict equals its per-query hits (the same scores and stable
+    top-k as ``retrieval_metrics``); those equal the float64 ranking's, but
+    for queries whose scores at places k and k + 1 are within 1e-6.
+    Returns {k: near-tie queries}."""
+    import numpy as np
+
+    from speechclip_tpu_torch.ops import retrieval
+
+    k_max = max(EVAL_RECALL_AT)
+    port_order = retrieval.top_k(scores_dev, k_max)[1].cpu().numpy()
+    order64 = np.argsort(-s64, axis=1, kind="stable")[:, :k_max + 1]
+    vals64 = np.take_along_axis(s64, order64, axis=1)
+    near = {}
+    for k in EVAL_RECALL_AT:
+        port_hits = _recall_hits(port_order, q_ids, c_ids, k)
+        hits64 = _recall_hits(order64, q_ids, c_ids, k)
+        tie = (np.abs(vals64[:, k - 1] - vals64[:, k]) <= 1e-6 if k < s64.shape[1]
+               else np.zeros(len(q_ids), bool))
+        near[k] = int(tie.sum())
+        got = recall[f"recall@{k}"]
+        if abs(got - 100.0 * port_hits.mean()) > 1e-3:
+            fail(f"eval {label} recall@{k} {got} is not its own hits' {100 * port_hits.mean()}")
+        wrong = int((port_hits != hits64)[~tie].sum())
+        if wrong:
+            fail(f"eval {label} recall@{k}: {wrong} queries differ from the float64 ranking")
+        if not tie.any() and abs(got - 100.0 * hits64.mean()) > 1e-3:
+            fail(f"eval {label} recall@{k} {got} != float64 {100 * hits64.mean()}")
+    return near
+
+
+def _eval_run(model, params):
+    """Phase 13's eval as one function over its own seeded data: (run, n).
+    ``run(part)`` drives it and returns (collected, recalls); each of its
+    parts (encode_speech, forward_image, collect, retrieval_metrics) runs as
+    ``part(name, fn)``, which may time it."""
+    import torch
+
+    from speechclip_tpu_torch.ops.basic import l2_normalize
+    from speechclip_tpu_torch.training.evaluation import (
+        collect_validation_outputs,
+        retrieval_metrics,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    n = EVAL_IMAGES * EVAL_CAPTIONS
+    images = _uint8_images(EVAL_IMAGES, 256, gen)
+    wav, wav_len = _wavs(n, WAV_SAMPLES, WAV_SAMPLES // 2, gen)
+    ids = torch.randperm(n, generator=gen, device="cuda") // EVAL_CAPTIONS
+
+    def run(part=lambda name, fn: fn()):
+        outputs = []
+        for i in range(0, n, EVAL_BATCH):
+            sl = slice(i, i + EVAL_BATCH)
+            audio = part("encode_speech", lambda: model.encode_speech(
+                params, {}, wav[sl], wav_len[sl])["parallel_audio_feat"])
+            image = part("forward_image", lambda: l2_normalize(
+                model.forward_image(params, images[ids[sl]]).float()))
+            outputs.append({"id": ids[sl], "audio_feat": audio, "image_feat": image})
+        collected = part("collect", lambda: collect_validation_outputs(outputs))
+        return collected, part("retrieval_metrics",
+                               lambda: retrieval_metrics(collected, EVAL_RECALL_AT))
+
+    return run, n
+
+
+def phase_eval(model, params, smi):
+    """The validation epoch's retrieval eval at Flickr8k's test-split shape:
+    EVAL_IMAGES uint8 images (256 x 256) with EVAL_CAPTIONS utterances each
+    (up to 6.4 s, random lengths), in shuffled order; ``encode_speech`` and
+    ``forward_image`` (each utterance's image, as a validation batch carries
+    it) in batches of EVAL_BATCH under "auto", ``collect_validation_outputs``,
+    then ``retrieval_metrics`` (first image per id, f32 scores with TF32 off,
+    recall@1/5/10 both ways), held to a float64 recompute."""
+    import numpy as np
+    import torch
+
+    from speechclip_tpu_torch.ops import retrieval
+
+    run, n = _eval_run(model, params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (collected, recalls), launches = _run_counted(run)
+    wall = time.perf_counter() - t0
+    batches = -(-n // EVAL_BATCH)
+    layers = model.audio_cfg.encoder_layers + model.config.parallel_branch.n_layers
+    _expect_launches("eval", launches, mha_layer_block=layers * batches,
+                     ffn_block=layers * batches)
+    # the float64 recompute from the same collected features
+    all_ids = collected["id"]
+    _, first = np.unique(all_ids, return_index=True)
+    first = np.sort(first)
+    img_ids, img64 = all_ids[first], collected["image_feat"][first].astype(np.float64)
+    s64 = collected["audio_feat"].astype(np.float64) @ img64.T
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    scores = retrieval.scores(dev(collected["audio_feat"]), dev(collected["image_feat"][first]))
+    near_ab = _check_eval_direction("audio -> image", scores, all_ids, img_ids, recalls[0], s64)
+    near_ba = _check_eval_direction("image -> audio", scores.T, img_ids, all_ids, recalls[1],
+                                    s64.T)
+    for k in EVAL_RECALL_AT:
+        key = f"recall@{k}"
+        if abs(recalls[2][key] - (recalls[0][key] + recalls[1][key]) / 2) > 1e-6:
+            fail(f"eval mean {key} is not the mean of the two directions")
+    say(f"phase 13 retrieval eval (Flickr8k test-split shape): {n} utterances of up to "
+        f"{WAV_SAMPLES} samples, {len(first)} images 256 x 256 x 3, batches of {EVAL_BATCH}, "
+        f"backend auto; launches {launches} (expect {layers * batches} mha_layer_block and "
+        f"ffn_block); audio -> image {recalls[0]}, image -> audio {recalls[1]}, mean "
+        f"{recalls[2]}; equal to the float64 recompute, near-tie queries left out (k: count) "
+        f"audio -> image {near_ab}, image -> audio {near_ba}; wall {wall:.3f} s on {smi} "
+        f"(encode, images, collect, metrics; host clock)")
+
+
+def _tower(name, batch, seed, dtypes):
+    """A named CLIP image tower alone, seeded random init cast to each of
+    ``dtypes``, on ``batch`` uint8 images of 256 x 256: (its config,
+    run(dtype, plain=False)), ``run`` taking the images through
+    ``device_clip_preprocess`` and ``clip.encode_image`` in ``dtype``."""
+    import torch
+
+    from speechclip_tpu_torch.config import NAMED_CLIP_CONFIGS
+    from speechclip_tpu_torch.data.image import device_clip_preprocess
+    from speechclip_tpu_torch.models import clip
+    from speechclip_tpu_torch.models.speechclip import cast_params
+
+    vcfg = NAMED_CLIP_CONFIGS[name].vision
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    init = {"visual": clip.vision_init(gen, vcfg)}
+    raw = _uint8_images(batch, 256, gen)
+    params = {dt: cast_params(init, dt) for dt in dtypes}
+    del init
+
+    def run(dtype, plain=False):
+        images = device_clip_preprocess(raw, vcfg.image_size).to(dtype)
+        return clip.encode_image(params[dtype], vcfg, images, plain)
+
+    return vcfg, run
+
+
+def phase_vit_l14(smi):
+    """The ViT-L/14 image tower alone (the large configs'), seeded random
+    init, VIT_L14_BATCH uint8 images through ``device_clip_preprocess`` and
+    ``clip.encode_image`` in bf16 under "auto": 24 ``mha_layer_block``
+    ("none", 257 rows, no lengths) and nothing else; held to the all-plain
+    path."""
+    import torch
+
+    from speechclip_tpu_torch.ops.attention import attention_backend
+
+    vcfg, run = _tower("ViT-L/14", *TOWERS["ViT-L/14"], (torch.bfloat16,))
+    tower = functools.partial(run, torch.bfloat16)
+    with attention_backend("auto"):
+        out, launches = _run_counted(tower)
+        want = tower(True)
+        rates = {"kernel": _rate(tower, VIT_L14_BATCH),
+                 "plain": _rate(functools.partial(tower, True), VIT_L14_BATCH)}
+    cos = row_cosine_min(out, want)
+    say(f"phase 14 ViT-L/14 tower: {VIT_L14_BATCH} uint8 images 256 x 256 x 3 -> "
+        f"{tuple(out.shape)}, backend auto, launches {launches} (expect {vcfg.layers} "
+        f"mha_layer_block), min row cosine vs plain {cos:.6f} (tol {MIN_COSINE}); on {smi}: "
+        f"kernel path {rates['kernel']:.2f}, plain path {rates['plain']:.2f} images/s "
+        f"({RATE_NOTE})")
+    if tuple(out.shape) != (VIT_L14_BATCH, vcfg.output_dim) or not bool(torch.isfinite(out).all()):
+        fail(f"ViT-L/14: features {tuple(out.shape)}")
+    _expect_launches("ViT-L/14", launches, mha_layer_block=vcfg.layers)
+    if cos < MIN_COSINE:
+        fail("ViT-L/14: the kernel path disagrees with the plain path")
+
+
+def phase_resnet(smi):
+    """The ModifiedResNet RN50 tower (no kernel), seeded random init, on
+    RN50_BATCH uint8 images of 256 x 256 (preprocessed to 224): bf16
+    features against f32 features (TF32 off) on the card; images/s of
+    both."""
+    import torch
+
+    vcfg, run = _tower("RN50", *TOWERS["RN50"], (torch.bfloat16, torch.float32))
+    bf16 = functools.partial(run, torch.bfloat16)
+    f32 = functools.partial(run, torch.float32)
+    out, launches = _run_counted(bf16)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = f32()
+        rate32 = _rate(f32, RN50_BATCH)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    rate16 = _rate(bf16, RN50_BATCH)
+    cos = row_cosine_min(out, want)
+    say(f"phase 15 ModifiedResNet RN50: {RN50_BATCH} uint8 images 256 x 256 x 3 -> "
+        f"{vcfg.image_size} -> {tuple(out.shape)}, launches {launches} (expect none), bf16 vs "
+        f"f32 (TF32 off) min row cosine {cos:.6f} (tol {MIN_COSINE}); on {smi}: bf16 "
+        f"{rate16:.2f}, f32 {rate32:.2f} images/s, preprocessing included ({RATE_NOTE})")
+    if tuple(out.shape) != (RN50_BATCH, vcfg.output_dim) or not bool(torch.isfinite(out).all()):
+        fail(f"RN50: features {tuple(out.shape)}")
+    _expect_launches("RN50", launches)
+    if cos < MIN_COSINE:
+        fail("RN50: bf16 features disagree with f32")
+
+
 # kernel -> (source, the TPU kernel it replaces, the phase-2 row whose
 # times and bound it reports, the path whose launches it reports)
 REPLACES = {
@@ -1233,6 +1727,7 @@ def main(argv) -> int:
         phase_conv_tiles(smi)
         phase_profile(model, params, gallery, smi, _model(shipped_cascaded_config()))
         phase_frontend_split(model, params, smi)
+        phase_profile_gallery(model, params, smi)
         return 0
     launches = {"main": phase_path(3, "main", model, params, gallery, seed=2)}
     phase_throughput(model, params, gallery, smi)
@@ -1249,6 +1744,17 @@ def main(argv) -> int:
     for i, label in enumerate(CASCADED_PATHS):
         launches[label] = phase_cascaded(label, model, params, state, gallery, seed=12 + i)
     phase_cascaded_throughput(model, params, state, gallery, smi)
+    del model, params, state
+    torch.cuda.empty_cache()
+
+    model, params, _ = _model(base_config())
+    phase_gallery(model, params, smi)
+    phase_text(model, params, smi)
+    phase_eval(model, params, smi)
+    del model, params
+    torch.cuda.empty_cache()
+    phase_vit_l14(smi)
+    phase_resnet(smi)
 
     kernels = []
     for name, (source, replaces, row, path) in REPLACES.items():

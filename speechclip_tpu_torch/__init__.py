@@ -5,7 +5,11 @@ it (``ops/basic.py`` <-> ``ops/basic.py`` ...). It runs SpeechCLIP-base
 inference: waveform -> HuBERT-base -> weighted sum -> the parallel branch
 and/or the cascaded branch (keywords -> kw-BN -> VQ over the CLIP subword
 vocabulary -> the CLIP text tower) -> L2-normalized features -> top-k
-against an image-embedding gallery, at any utterance length. The encoder
+against an image-embedding gallery, at any utterance length; and the
+gallery side: uint8 images -> on-device resize and normalize -> the CLIP
+image tower (ViT or ModifiedResNet) -> the image projection, the CLIP text
+tower over token ids, and the validation epoch's two-way retrieval eval
+(``training/evaluation.py``). The encoder
 layers take the JAX package's length-dependent routes (``ops/attention.py``,
 ``kernels/fused_layer.py``) through hand-written Hopper kernels (``csrc/``:
 the two fused half-layers, whole-row attention, streaming flash attention

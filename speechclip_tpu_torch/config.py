@@ -14,6 +14,12 @@ kw-BN -> VQ over the CLIP subword vocabulary -> the CLIP text tower):
 ``configs/base/spchclp_c.yaml`` (the reduced Flickr vocabulary, 8112 rows);
 ``tiny_flagship_config()`` is ``flagship_tiny_config()`` with both branches
 live.
+
+The CLIP towers (the named presets of speechclip_tpu/models/clip.py): the
+image tower is a ViT (``CLIPVisionConfig``: ViT-B/32, the base configs';
+ViT-B/16; ViT-L/14, the large configs') or a ModifiedResNet
+(``CLIPResNetVisionConfig``: RN50 ... RN50x64), each with its text tower
+(``NAMED_CLIP_CONFIGS``).
 """
 
 from __future__ import annotations
@@ -78,6 +84,75 @@ class CLIPTextConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig:
+    """The CLIP vision transformer (ViT-B/32's by default)."""
+
+    image_size: int = 224
+    patch_size: int = 32
+    width: int = 768
+    layers: int = 12
+    heads: int = 12
+    output_dim: int = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPResNetVisionConfig:
+    """CLIP's ModifiedResNet image tower (RN50's by default): a 3-conv stem
+    and 2x2 average pool, four stages of bottlenecks whose stride-2 step is
+    a 2x2 average pool, and an AttentionPool2d over the final grid."""
+
+    image_size: int = 224
+    width: int = 64  # stem width; stage channels are width * (1, 2, 4, 8) * 4
+    layers: Tuple[int, int, int, int] = (3, 4, 6, 3)
+    heads: int = 32  # attnpool heads
+    output_dim: int = 1024
+
+    @property
+    def embed_dim(self) -> int:
+        """The attnpool's input channels (stage 4's output)."""
+        return self.width * 32
+
+    @property
+    def feature_grid(self) -> int:
+        """The grid's side after the 32x downsample."""
+        return self.image_size // 32
+
+
+VisionConfig = Union[CLIPVisionConfig, CLIPResNetVisionConfig]
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    """One named CLIP model: its image tower and its text tower."""
+
+    vision: VisionConfig = CLIPVisionConfig()
+    text: CLIPTextConfig = CLIPTextConfig()
+
+
+def _rn(image_size, width, layers, heads, output_dim, text_width, text_heads) -> CLIPConfig:
+    return CLIPConfig(
+        vision=CLIPResNetVisionConfig(image_size=image_size, width=width, layers=layers,
+                                      heads=heads, output_dim=output_dim),
+        text=CLIPTextConfig(width=text_width, heads=text_heads, output_dim=output_dim),
+    )
+
+
+NAMED_CLIP_CONFIGS = {
+    "RN50": _rn(224, 64, (3, 4, 6, 3), 32, 1024, 512, 8),
+    "RN101": _rn(224, 64, (3, 4, 23, 3), 32, 512, 512, 8),
+    "RN50x4": _rn(288, 80, (4, 6, 10, 6), 40, 640, 640, 10),
+    "RN50x16": _rn(384, 96, (6, 8, 18, 8), 48, 768, 768, 12),
+    "RN50x64": _rn(448, 128, (3, 15, 36, 10), 64, 1024, 1024, 16),
+    "ViT-B/32": CLIPConfig(),
+    "ViT-B/16": CLIPConfig(vision=CLIPVisionConfig(patch_size=16)),
+    "ViT-L/14": CLIPConfig(
+        vision=CLIPVisionConfig(patch_size=14, width=1024, layers=24, heads=16, output_dim=768),
+        text=CLIPTextConfig(width=768, heads=12, output_dim=768),
+    ),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class SpeechCLIPConfig:
     audio: HubertConfig = HUBERT_BASE
     audio_encoder_type: str = "FairseqHubert"
@@ -94,6 +169,9 @@ class SpeechCLIPConfig:
     # model_settings.cascaded_branch_projection.dimensions, when set
     cascaded_branch_projection: Optional[Tuple[int, ...]] = None
     clip_text: CLIPTextConfig = CLIPTextConfig()
+    clip_vision: VisionConfig = CLIPVisionConfig()
+    # model_settings.image_encoder_projection.dimensions, when set
+    image_encoder_projection: Optional[Tuple[int, ...]] = None
     # clip.reduce_subword_embbedding: a (V_red, 2) table of original ids and
     # counts; the text tower's token table is cut to those rows
     reduce_subword_embedding: Optional[str] = None
@@ -134,6 +212,8 @@ def tiny_flagship_config() -> SpeechCLIPConfig:
         parallel_branch=BranchConfig(d_model=32, nhead=4, dim_feedforward=64),
         cascaded_branch=CascadedBranchConfig(d_model=32, dim_feedforward=64, keyword_number=4),
         clip_text=CLIPTextConfig(vocab_size=64, width=32, layers=2, heads=4, output_dim=16),
+        clip_vision=CLIPVisionConfig(image_size=32, patch_size=8, width=32, layers=2, heads=4,
+                                     output_dim=16),
         clip_embed_dim=16,
     )
 

@@ -4,12 +4,13 @@ The input is the JAX params pytree with every leaf already a numpy array
 (``jax.tree.map(np.asarray, params)``), so this module never sees jax. Both
 packages keep linear weights as (in, out) for ``y = x @ w + b``, so those
 copy straight across. Convolution kernels change layout: JAX's WIO
-``(k, in / groups, out)`` becomes torch's ``(out, in / groups, k)``.
-Subtrees the port does not run (the CLIP image tower, the loss
-temperature) are dropped; the CLIP text tower (``clip.text``) is carried
-with the cascaded branch, which runs it. The state tree (the cascaded
-branch's kw-BN running statistics) comes across with
-``speechclip_state_from_jax``.
+``(k, in / groups, out)`` becomes torch's ``(out, in / groups, k)``, and
+HWIO ``(kh, kw, in, out)`` (the CLIP image towers' convs) becomes OIHW
+``(out, in, kh, kw)``. The CLIP towers (``clip``: ``visual``, ``text``,
+``logit_scale``) and the image projection (``img_enc_proj``) come across
+whatever the branches; the loss temperature (``criterion``) is dropped. The
+state tree (the cascaded branch's kw-BN running statistics) comes across
+with ``speechclip_state_from_jax``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 PORT_KEYS = ("audio_encoder", "weighted_sum", "parallel_branch", "p_branch_proj",
-             "cascaded_branch", "c_branch_proj")
+             "cascaded_branch", "c_branch_proj", "img_enc_proj", "clip")
 
 
 def _tensors(tree: Any) -> Any:
@@ -37,12 +38,23 @@ def _wio_to_oik(w: torch.Tensor) -> torch.Tensor:
     return w.permute(2, 1, 0).contiguous()
 
 
+def _hwio_to_oihw(tree: Any) -> Any:
+    """Every 4-D ``w`` under ``tree`` (the image towers' conv kernels)."""
+    if isinstance(tree, dict):
+        return {k: (v.permute(3, 2, 0, 1).contiguous()
+                    if k == "w" and isinstance(v, torch.Tensor) and v.dim() == 4
+                    else _hwio_to_oihw(v)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_hwio_to_oihw(v) for v in tree]
+    return tree
+
+
 def speechclip_params_from_jax(tree: dict) -> dict:
     """JAX ``SpeechCLIPModel.init`` params (numpy leaves) -> the port's f32
     params dict on the CPU (cast with ``models.speechclip.cast_params``)."""
     params = {k: _tensors(tree[k]) for k in PORT_KEYS if tree.get(k) is not None}
-    if "cascaded_branch" in params:
-        params["clip"] = {"text": _tensors(tree["clip"]["text"])}
+    if "clip" in params:
+        params["clip"]["visual"] = _hwio_to_oihw(params["clip"]["visual"])
     ae = params.get("audio_encoder")
     if ae is not None:
         for layer in ae["feature_extractor"]:

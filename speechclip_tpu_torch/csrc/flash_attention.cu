@@ -1,5 +1,6 @@
 // Streaming attention with an online softmax over head-split (B, H, rows, Dh)
-// bf16 tensors, sm_90a: the kernel of the "pallas" attention backend.
+// bf16 tensors, sm_90a: the kernel of the "pallas" attention backend; and its
+// f32 form (flash_f32_kernel, at the end) for f32 operands.
 //
 // Replaces: speechclip_tpu/kernels/flash_attention.py (_flash_kernel,
 // :38-114). The TPU kernel streams 128-key blocks through VMEM for each
@@ -306,7 +307,208 @@ int launch(const scl::AttnArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The f32 form: f32 q/k/v in, f32 out, f32 arithmetic throughout (CUDA-core
+// FMAs, no tensor cores, so nothing is rounded to bf16 or TF32): the TPU
+// kernel on f32 operands, as the CLIP text tower runs it (the tower runs in
+// the f32 token table's dtype). A block owns one (batch, head) and W warps
+// of R query rows each; it stages the scaled Q rows, then one 32-key block
+// of K and of V at a time, in shared memory. Scores: lane j takes key j of
+// the block and sums its whole dot product with each of the warp's R rows
+// (float4 reads of its K row, the Q rows broadcast; K rows padded to Dh + 4
+// floats, so the 8 lanes of a float4 phase fall in distinct banks). Then,
+// per row, the TPU's online softmax over the block: m_new = max(m, max_j
+// s_j), p_j = exp(s_j - m_new) (keys past S: 0), l = alpha l + sum_j p_j,
+// acc = alpha acc + sum_j p_j v_j, with lane i holding output columns i,
+// i + 32, ... and p_j broadcast by a shuffle; out = acc / max(l, 1e-30). A
+// warp visits keys up to its rows' last valid one (len, and when causal its
+// last row); a batch with len = 0 visits all S keys and comes out as the
+// mean of v, as the plain version does. What bounds it: Dh + 4 R Dh / 4
+// shared-memory reads and 2 R Dh FMAs per lane per key block, and the K/V
+// staging (each (batch, head)'s K and V are read by ceil(L / (W R))
+// blocks).
+constexpr int F32_KEYS = 32;  // keys per softmax block, one per lane
+
+struct AttnArgsF32 {
+  const float* q;
+  const float* k;
+  const float* v;
+  const int* lens;
+  float* out;
+  int L, S, dh, causal;
+  float scale;
+  long long qs[3], ks[3], vs[3], os[3];
+};
+
+// Shared memory of a block of `rows` query rows at head dim dh (floats: K
+// rows padded to dh + 4, V rows, Q rows).
+__host__ __device__ inline int f32_smem_bytes(int dh, int rows) {
+  return (F32_KEYS * (dh + 4) + F32_KEYS * dh + rows * dh) * 4;
+}
+
+// rows [r0, r0 + n) of a (rows, dh) f32 operand (row stride `ld`) into a
+// shared tile of row stride `lds`, times `scale`; rows past n_rows are 0.
+__device__ __forceinline__ void load_rows_f32(float* dst, int lds, const float* src,
+                                              long long ld, int r0, int n, int n_rows, int dh,
+                                              float scale) {
+  const int c4 = dh / 4;
+  for (int i = threadIdx.x; i < n * c4; i += blockDim.x) {
+    const int r = i / c4, c = (i % c4) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < n_rows) {
+      x = __ldg(reinterpret_cast<const float4*>(src + (r0 + r) * ld + c));
+      x.x *= scale, x.y *= scale, x.z *= scale, x.w *= scale;
+    }
+    *reinterpret_cast<float4*>(dst + r * lds + c) = x;
+  }
+}
+
+template <int NA, int R>  // NA: output columns per lane (Dh <= 32 NA); R: rows per warp
+__global__ void __launch_bounds__(256) flash_f32_kernel(AttnArgsF32 a) {
+  extern __shared__ __align__(16) float fsm[];
+  const int dh = a.dh, ldk = dh + 4;
+  const int rows = (blockDim.x / 32) * R;
+  float* Ks = fsm;
+  float* Vs = Ks + F32_KEYS * ldk;
+  float* Qs = Vs + F32_KEYS * dh;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * rows, h = blockIdx.y, b = blockIdx.z;
+  const int S = a.S, L = a.L;
+  const int len = a.lens ? min(a.lens[b], S) : S;
+  const float* kb = a.k + b * a.ks[0] + h * a.ks[1];
+  const float* vb = a.v + b * a.vs[0] + h * a.vs[1];
+  load_rows_f32(Qs, dh, a.q + b * a.qs[0] + h * a.qs[1], a.qs[2], q0, rows, L, dh, a.scale);
+
+  const int row0 = q0 + warp * R;  // the warp's first row
+  // keys the block visits, and those this warp needs
+  int keys = S, warp_keys = S;
+  if (len > 0) {
+    keys = a.causal ? min(len, min(q0 + rows, L)) : len;
+    warp_keys = a.causal ? min(len, row0 + R) : len;
+  }
+  float acc[R][NA], m[R], l[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = scl::kNegInf, l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[r][i] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < keys; k0 += F32_KEYS) {
+    __syncthreads();  // the previous block's K and V are consumed (and Q is staged)
+    load_rows_f32(Ks, ldk, kb, a.ks[2], k0, F32_KEYS, S, dh, 1.f);
+    load_rows_f32(Vs, dh, vb, a.vs[2], k0, F32_KEYS, S, dh, 1.f);
+    __syncthreads();
+    if (row0 >= L || k0 >= warp_keys) continue;
+    float s[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r] = 0.f;
+    const float* kr = Ks + lane * ldk;
+    const float* qr = Qs + warp * R * dh;
+    for (int d = 0; d < dh; d += 4) {
+      const float4 kv = *reinterpret_cast<const float4*>(kr + d);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 qv = *reinterpret_cast<const float4*>(qr + r * dh + d);
+        s[r] = fmaf(qv.x, kv.x, s[r]);
+        s[r] = fmaf(qv.y, kv.y, s[r]);
+        s[r] = fmaf(qv.z, kv.z, s[r]);
+        s[r] = fmaf(qv.w, kv.w, s[r]);
+      }
+    }
+    const int key = k0 + lane;
+    float p[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float x = s[r];
+      if (key >= S) {
+        x = __int_as_float(0xff800000);  // -inf: p = 0
+      } else if (key >= len || (a.causal && key > row0 + r)) {
+        x = scl::kNegInf;
+      }
+      const float m_new = fmaxf(m[r], scl::warp_max(x));
+      const float alpha = expf(m[r] - m_new);
+      p[r] = expf(x - m_new);
+      l[r] = l[r] * alpha + scl::warp_sum(p[r]);
+      m[r] = m_new;
+#pragma unroll
+      for (int i = 0; i < NA; ++i) acc[r][i] *= alpha;
+    }
+    const int n = min(F32_KEYS, S - k0);
+    for (int j = 0; j < n; ++j) {
+      float vv[NA];
+#pragma unroll
+      for (int i = 0; i < NA; ++i) {
+        const int d = lane + 32 * i;
+        vv[i] = d < dh ? Vs[j * dh + d] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float pj = __shfl_sync(0xffffffffu, p[r], j);
+#pragma unroll
+        for (int i = 0; i < NA; ++i) acc[r][i] = fmaf(pj, vv[i], acc[r][i]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r;
+    if (row >= L) break;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    float* orow = a.out + b * a.os[0] + h * a.os[1] + row * a.os[2];
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int d = lane + 32 * i;
+      if (d < dh) orow[d] = acc[r][i] * inv;
+    }
+  }
+}
+
+// NA columns per lane; R rows per warp and W warps per block chosen so the
+// block's shared memory fits at the widest Dh of the bucket (768: 8 rows).
+template <int NA>
+int launch_f32(const AttnArgsF32& a, int B, int H, cudaStream_t stream) {
+  constexpr int R = NA <= 8 ? 4 : 2, W = NA <= 16 ? 8 : 4;
+  const int rows = W * R, smem = f32_smem_bytes(a.dh, rows);
+  cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel<NA, R>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_f32_kernel<NA, R><<<dim3((a.L - 1) / rows + 1, H, B), W * 32, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The f32 form (see flash_f32_kernel): any Dh % 8 == 0 up to 768.
+extern "C" int scl_flash_attention_f32(const void* q, const void* k, const void* v,
+                                       const void* lens, void* out, int B, int H, int L,
+                                       int S, int dh, const long long* strides, int causal,
+                                       float scale, void* stream) {
+  if (dh % 8 != 0 || dh > 768 || L < 1 || S < 1 || H > 65535 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  AttnArgsF32 a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.lens = static_cast<const int*>(lens);
+  a.out = static_cast<float*>(out);
+  a.L = L, a.S = S, a.dh = dh, a.causal = causal, a.scale = scale;
+  for (int i = 0; i < 3; ++i) {
+    a.qs[i] = strides[i];
+    a.ks[i] = strides[3 + i];
+    a.vs[i] = strides[6 + i];
+    a.os[i] = strides[9 + i];
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int na = (dh + 31) / 32;
+  if (na <= 1) return launch_f32<1>(a, B, H, st);
+  if (na <= 2) return launch_f32<2>(a, B, H, st);
+  if (na <= 4) return launch_f32<4>(a, B, H, st);
+  if (na <= 8) return launch_f32<8>(a, B, H, st);
+  if (na <= 16) return launch_f32<16>(a, B, H, st);
+  return launch_f32<24>(a, B, H, st);
+}
 
 // `scores`: for dh > 128, an f32 scratch of B * H * ceil64(L) * ceil64(S)
 // elements (the wrapper allocates it); unused otherwise.

@@ -32,13 +32,17 @@ ROW_ULP = 2.0 ** -7
 MAX_ROW_ULPS = 2.0  # max |got - want| in a row, in units of ROW_ULP * max|want| there
 MIN_ATTN_COSINE = 0.99999  # per row
 MAX_MISMATCH = 0.05  # share of elements whose bf16 values differ
+# An f32 output (flash_attention's f32 form) differs from its plain version
+# by the summation order alone, ~1e-6 at |out| ~ 3; a key masked wrongly
+# moves a row by ~|v| / len, 1e-2 or more.
+F32_MAX_ABS = 1e-4
 
 
 def attention_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
     """How far ``got`` is from ``want`` (same shape, rows along the last
     dim): max abs error, the worst row's error in units of ROW_ULP times
-    that row's largest |want|, the smallest row cosine, and the share of
-    elements that differ."""
+    that row's largest |want|, the smallest row cosine, the share of
+    elements that differ, and whether the output is f32."""
     g = got.float().reshape(-1, got.shape[-1])
     w = want.float().reshape(-1, want.shape[-1])
     diff = (g - w).abs()
@@ -53,11 +57,16 @@ def attention_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
         min_cosine=float(cos.min()),
         mismatch=float((diff > 0).float().mean()),
         finite=bool(torch.isfinite(g).all()),
+        f32=got.dtype == torch.float32,
     )
 
 
 def attention_agrees(stats: dict) -> bool:
-    """Whether ``attention_agreement``'s numbers are within the limits."""
+    """Whether ``attention_agreement``'s numbers are within the limits (an
+    f32 output: F32_MAX_ABS and the cosine; every f32 bit may differ)."""
+    if stats.get("f32"):
+        return (stats["finite"] and stats["max_abs_err"] <= F32_MAX_ABS
+                and stats["min_cosine"] >= MIN_ATTN_COSINE)
     return (stats["finite"] and stats["row_ulps"] <= MAX_ROW_ULPS
             and stats["min_cosine"] >= MIN_ATTN_COSINE
             and stats["mismatch"] <= MAX_MISMATCH)
@@ -83,14 +92,17 @@ def check_head_dim(dh: int, what: str, max_head_dim: Optional[int] = MAX_HEAD_DI
         raise ValueError(f"{what}: head dim {dh} must be a multiple of 8{limit}")
 
 
-def check_attention_operands(q, k, v, lens, what: str, max_head_dim: Optional[int] = MAX_HEAD_DIM):
-    """What the attention kernels accept (head dims a multiple of 8, up to
-    ``max_head_dim`` when one is given); anything else raises."""
+def check_attention_operands(q, k, v, lens, what: str, max_head_dim: Optional[int] = MAX_HEAD_DIM,
+                             dtypes=(torch.bfloat16,)):
+    """What the attention kernels accept (q, k, v of one dtype among
+    ``dtypes``, head dims a multiple of 8, up to ``max_head_dim`` when one
+    is given); anything else raises."""
+    names = " or ".join({torch.bfloat16: "bf16", torch.float32: "f32"}[d] for d in dtypes)
     for t in (q, k, v):
         if t.device.type != "cuda":
             raise ValueError(f"{what}: kernel path needs CUDA tensors, got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what}: kernel path runs bf16, got {t.dtype}")
+        if t.dtype not in dtypes or t.dtype != q.dtype:
+            raise TypeError(f"{what}: kernel path runs {names} (q, k, v alike), got {t.dtype}")
         if t.requires_grad:
             raise RuntimeError(
                 f"{what}: kernel path is forward-only: an input requires grad"
@@ -128,7 +140,8 @@ def launch_args(q, k, v, lens, out):
     )
 
 
-def empty_heads_out(b: int, h: int, l: int, dh: int, device) -> torch.Tensor:
+def empty_heads_out(b: int, h: int, l: int, dh: int, device,
+                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """A (B, H, L, Dh) output laid out as (B, L, H, Dh), so merging the heads
     afterwards is a free view."""
-    return torch.empty((b, l, h, dh), dtype=torch.bfloat16, device=device).permute(0, 2, 1, 3)
+    return torch.empty((b, l, h, dh), dtype=dtype, device=device).permute(0, 2, 1, 3)

@@ -93,6 +93,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, i, i, i, i, i, strides, i, ctypes.c_float, p, p,
     ]
     lib.scl_flash_attention.restype = i
+    lib.scl_flash_attention_f32.argtypes = [
+        p, p, p, p, p, i, i, i, i, i, strides, i, ctypes.c_float, p,
+    ]
+    lib.scl_flash_attention_f32.restype = i
     lib.scl_conv_chain_layer.argtypes = [
         p, p, p, i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong), i, p,
     ]

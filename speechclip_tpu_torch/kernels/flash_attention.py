@@ -12,16 +12,22 @@ A row with no valid key (``lens = 0``) is the mean of v over its S keys
 here, as in ``masked_sdpa``; the TPU kernel divides that sum by S rounded up
 to its 128-key block instead, the only place its padding shows.
 
-On a CUDA bf16 tensor it launches ``csrc/flash_attention.cu``; on a CPU
-tensor, or with ``plain=True``, it runs ``flash_attention_plain``. Like the
-TPU kernel it has no head-dim limit: Dh % 8 == 0 is all it asks. Heads up
+On CUDA bf16 or f32 tensors it launches ``csrc/flash_attention.cu``; on a
+CPU tensor, or with ``plain=True``, it runs ``flash_attention_plain``. In
+bf16, like the TPU kernel, it has no head-dim limit: Dh % 8 == 0 is all it
+asks. Heads up
 to 128 wide run ``flash_kernel<Dh>`` (a block of 4 warps per 64-row query
 tile; rows up to 128 take one block per (batch, head), a warp per 16-row
 slab); wider ones (the cascaded branch's single 768-wide head) run two
 kernels: ``wide_scores_kernel`` computes the scaled, masked f32 scores once
 per (query tile, key block) into a scratch buffer this wrapper allocates,
 and ``wide_pv_kernel`` runs the online softmax and P V for one 128-wide
-chunk of output columns per block.
+chunk of output columns per block. f32 operands (the CLIP text tower,
+which runs in its f32 token table's dtype) take ``flash_f32_kernel``: f32
+loads and CUDA-core f32 arithmetic throughout, the TPU kernel's own f32
+form; a block stages its Q rows and 32-key blocks of K and V in shared
+memory, a lane scores one key against its warp's rows, Dh up to
+F32_MAX_HEAD_DIM (the cascaded branch's 768-wide head).
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from ._attention_common import check_attention_operands, empty_heads_out, key_ma
 # the score pass and the output-column chunk of the P V pass.
 FLASH_BQ, FLASH_BK, SCORE_CHUNK, WIDE_CHUNK = 64, 64, 64, 128
 SHORT_ROWS = 128  # rows up to this run one block per (batch, head)
+F32_MAX_HEAD_DIM = 768  # the f32 form: its K, V and Q tiles fit shared memory up to here
 
 
 def flash_attention_plain(q, k, v, lens: Optional[torch.Tensor], causal: bool = False):
@@ -83,25 +90,27 @@ def flash_attention(q, k, v, lens: Optional[torch.Tensor] = None,
     ``plain``: the plain version. CUDA tensor: the kernel, or an exception."""
     if plain or q.device.type == "cpu":
         return flash_attention_plain(q, k, v, lens, causal)
-    check_attention_operands(q, k, v, lens, "flash_attention", max_head_dim=None)
+    f32 = q.dtype == torch.float32
+    check_attention_operands(q, k, v, lens, "flash_attention",
+                             max_head_dim=F32_MAX_HEAD_DIM if f32 else None,
+                             dtypes=(torch.bfloat16, torch.float32))
     b, h, l, dh = q.shape
     s = k.shape[2]
-    out = empty_heads_out(b, h, l, dh, q.device)
+    out = empty_heads_out(b, h, l, dh, q.device, q.dtype)
     scores = None
-    if dh > WIDE_CHUNK:
+    if dh > WIDE_CHUNK and not f32:
         scores = torch.empty(wide_scores_shape(b, h, l, s), dtype=torch.float32, device=q.device)
     q, k, v, lens_dev, strides = launch_args(q, k, v, lens, out)
     lib = _build.load()
-    _build.check(
-        lib.scl_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if lens_dev is None else lens_dev.data_ptr(), out.data_ptr(),
-            b, h, l, s, dh, strides, int(causal), 1.0 / math.sqrt(dh),
-            None if scores is None else scores.data_ptr(),
-            _build.stream(q.device),
-        ),
-        "scl_flash_attention",
-    )
+            b, h, l, s, dh, strides, int(causal), 1.0 / math.sqrt(dh))
+    if f32:
+        status = lib.scl_flash_attention_f32(*args, _build.stream(q.device))
+    else:
+        status = lib.scl_flash_attention(
+            *args, None if scores is None else scores.data_ptr(), _build.stream(q.device))
+    _build.check(status, "scl_flash_attention_f32" if f32 else "scl_flash_attention")
     flash_attention.launches += 1
     return out
 

@@ -1,11 +1,14 @@
-"""The CLIP text tower, eval mode (port of the text side of
-speechclip_tpu/models/clip.py): pre-norm residual blocks with QuickGELU
-and causal multi-head attention, ``encode_text`` over token ids,
-``encode_keywords`` (the cascaded branch's way into the tower), and the
-reduced subword vocabulary. The image towers wait for the gallery slice.
+"""The CLIP towers, eval mode (port of speechclip_tpu/models/clip.py):
+pre-norm residual blocks with QuickGELU; the text tower (causal attention,
+``encode_text`` over token ids, ``encode_keywords``, the cascaded branch's
+way into it, and the reduced subword vocabulary); the image towers
+(``encode_image``: the vision transformer, or CLIP's ModifiedResNet for the
+RN names); and ``get_scores``.
 
-Parameters: the JAX package's ``params["clip"]`` tree with the ``text``
-subtree only, linear weights (in, out).
+Parameters: the JAX package's ``params["clip"]`` tree (``visual``,
+``text``, ``logit_scale``), linear weights (in, out) and conv kernels in
+torch's OIHW layout (JAX's HWIO turned by ``convert.from_jax``). Images
+are NHWC, as in the JAX package; the convs run on an NCHW view.
 """
 
 from __future__ import annotations
@@ -15,10 +18,19 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..config import CLIPTextConfig
+from ..config import CLIPResNetVisionConfig, CLIPTextConfig, VisionConfig
 from ..ops.attention import multi_head_attention
-from ..ops.basic import Params, layer_norm, layer_norm_init, linear, normal, quick_gelu
+from ..ops.basic import (
+    Params,
+    layer_norm,
+    layer_norm_init,
+    linear,
+    matmul_f32,
+    normal,
+    quick_gelu,
+)
 
 
 def _block_init(generator: torch.Generator, width: int, ffn: int) -> Params:
@@ -49,6 +61,63 @@ def text_init(generator: torch.Generator, cfg: CLIPTextConfig) -> Params:
     }
 
 
+def vision_init(generator: torch.Generator, cfg: VisionConfig) -> Params:
+    """Random image-tower params with the JAX package's distributions."""
+    if isinstance(cfg, CLIPResNetVisionConfig):
+        return _resnet_init(generator, cfg)
+    w, grid = cfg.width, cfg.image_size // cfg.patch_size
+    return {
+        "conv1": {"w": normal((w, 3, cfg.patch_size, cfg.patch_size), w**-0.5, generator)},
+        "class_embedding": normal((w,), w**-0.5, generator),
+        "positional_embedding": normal((grid * grid + 1, w), w**-0.5, generator),
+        "ln_pre": layer_norm_init(w, generator.device),
+        "blocks": [_block_init(generator, w, w * 4) for _ in range(cfg.layers)],
+        "ln_post": layer_norm_init(w, generator.device),
+        "proj": normal((w, cfg.output_dim), w**-0.5, generator),
+    }
+
+
+def _resnet_init(generator: torch.Generator, v: CLIPResNetVisionConfig) -> Params:
+    dev = generator.device
+
+    def conv(k, cin, cout):
+        return {"w": normal((cout, cin, k, k), (k * k * cin) ** -0.5, generator)}
+
+    def bn(dim):
+        return {"scale": torch.ones(dim, device=dev), "bias": torch.zeros(dim, device=dev),
+                "mean": torch.zeros(dim, device=dev), "var": torch.ones(dim, device=dev)}
+
+    def lin(i, o):
+        return {"w": normal((i, o), i**-0.5, generator), "b": torch.zeros(o, device=dev)}
+
+    w2 = v.width // 2
+    visual: Params = {"stem": {
+        "conv1": conv(3, 3, w2), "bn1": bn(w2),
+        "conv2": conv(3, w2, w2), "bn2": bn(w2),
+        "conv3": conv(3, w2, v.width), "bn3": bn(v.width),
+    }}
+    inplanes = v.width
+    for stage in range(4):
+        planes = v.width * 2**stage
+        blocks = []
+        for block in range(v.layers[stage]):
+            p = {"conv1": conv(1, inplanes, planes), "bn1": bn(planes),
+                 "conv2": conv(3, planes, planes), "bn2": bn(planes),
+                 "conv3": conv(1, planes, planes * 4), "bn3": bn(planes * 4)}
+            if block == 0:  # the first block of a stage re-projects the identity
+                p["downsample"] = {"conv": conv(1, inplanes, planes * 4), "bn": bn(planes * 4)}
+            blocks.append(p)
+            inplanes = planes * 4
+        visual[f"layer{stage + 1}"] = blocks
+    ed = v.embed_dim
+    visual["attnpool"] = {
+        "positional_embedding": normal((v.feature_grid**2 + 1, ed), ed**-0.5, generator),
+        "q_proj": lin(ed, ed), "k_proj": lin(ed, ed), "v_proj": lin(ed, ed),
+        "c_proj": lin(ed, v.output_dim),
+    }
+    return visual
+
+
 def _resblock(params: Params, x: torch.Tensor, heads: int, causal: bool,
               plain: bool = False) -> torch.Tensor:
     """x + MHA(LN(x)), then + MLP(LN(x)) with QuickGELU."""
@@ -58,6 +127,98 @@ def _resblock(params: Params, x: torch.Tensor, heads: int, causal: bool,
     x = x + h
     y = layer_norm(params["ln_2"], x)
     return x + linear(params["mlp"]["c_proj"], quick_gelu(linear(params["mlp"]["c_fc"], y)))
+
+
+def _conv2d(w: torch.Tensor, x: torch.Tensor, stride: int = 1, padding: int = 0):
+    """Bias-free conv on NCHW with JAX's ``preferred_element_type=f32``: the
+    sums in f32, the output rounded to ``x.dtype``. cuDNN's bf16 conv
+    accumulates in f32; PyTorch's CPU bf16 conv does not, so on the CPU the
+    operands are upcast first (as ``hubert._conv1d``)."""
+    w = w.to(x.dtype)
+    if x.device.type == "cpu" and x.dtype != torch.float32:
+        return F.conv2d(x.float(), w.float(), stride=stride, padding=padding).to(x.dtype)
+    return F.conv2d(x, w, stride=stride, padding=padding)
+
+
+def _batch_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """BatchNorm2d with running statistics over NCHW channels, folded in f32
+    to a scale and a bias, cast to ``x.dtype``, then one multiply-add."""
+    scale = p["scale"].float() * torch.rsqrt(p["var"].float() + eps)
+    bias = p["bias"].float() - p["mean"].float() * scale
+    return x * scale.to(x.dtype)[:, None, None] + bias.to(x.dtype)[:, None, None]
+
+
+def _avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
+    """AvgPool2d(k) (no padding, floor mode), summed in f32."""
+    if k == 1:
+        return x
+    return F.avg_pool2d(x.float(), k).to(x.dtype)
+
+
+def _bottleneck(p: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
+    """CLIP's anti-aliased Bottleneck: 1x1 -> 3x3 -> [avgpool(stride)] ->
+    1x1 (x4); the identity through avgpool + 1x1 where re-projected."""
+    out = torch.relu(_batch_norm(p["bn1"], _conv2d(p["conv1"]["w"], x)))
+    out = torch.relu(_batch_norm(p["bn2"], _conv2d(p["conv2"]["w"], out, padding=1)))
+    out = _batch_norm(p["bn3"], _conv2d(p["conv3"]["w"], _avg_pool(out, stride)))
+    identity = x
+    if "downsample" in p:
+        ds = p["downsample"]
+        identity = _batch_norm(ds["bn"], _conv2d(ds["conv"]["w"], _avg_pool(x, stride)))
+    return torch.relu(out + identity)
+
+
+def _attention_pool(p: Params, v: CLIPResNetVisionConfig, x: torch.Tensor) -> torch.Tensor:
+    """AttentionPool2d: the spatial mean as the one query, a learned
+    positional embedding, one round of multi-head attention (f32 logits and
+    softmax, weights rounded to the activation dtype), then ``c_proj``."""
+    b, c = x.shape[:2]
+    x = x.flatten(2).transpose(1, 2)  # (B, H*W, C), JAX's row order
+    x = torch.cat([x.float().mean(dim=1, keepdim=True).to(x.dtype), x], dim=1)
+    x = x + p["positional_embedding"].to(x.dtype)
+    hd = c // v.heads
+    split = lambda z: z.reshape(b, -1, v.heads, hd).transpose(1, 2)
+    q = split(linear(p["q_proj"], x[:, :1]))
+    k, val = split(linear(p["k_proj"], x)), split(linear(p["v_proj"], x))
+    scale = torch.full((), hd**-0.5, dtype=x.dtype, device=x.device)
+    weights = torch.softmax(matmul_f32(q * scale, k.transpose(-1, -2)), dim=-1).to(x.dtype)
+    pooled = matmul_f32(weights, val).to(x.dtype).transpose(1, 2).reshape(b, 1, c)
+    return linear(p["c_proj"], pooled)[:, 0]
+
+
+def _encode_image_resnet(params: Params, v: CLIPResNetVisionConfig,
+                         x: torch.Tensor) -> torch.Tensor:
+    p = params["visual"]
+    stem = p["stem"]
+    x = torch.relu(_batch_norm(stem["bn1"], _conv2d(stem["conv1"]["w"], x, 2, 1)))
+    x = torch.relu(_batch_norm(stem["bn2"], _conv2d(stem["conv2"]["w"], x, 1, 1)))
+    x = torch.relu(_batch_norm(stem["bn3"], _conv2d(stem["conv3"]["w"], x, 1, 1)))
+    x = _avg_pool(x, 2)
+    for stage in range(4):
+        for block, bp in enumerate(p[f"layer{stage + 1}"]):
+            x = _bottleneck(bp, x, stride=2 if stage > 0 and block == 0 else 1)
+    return _attention_pool(p["attnpool"], v, x)
+
+
+def encode_image(params: Params, cfg: VisionConfig, images: torch.Tensor,
+                 plain: bool = False) -> torch.Tensor:
+    """(B, H, W, 3) normalized NHWC images -> (B, output_dim) in their
+    dtype: the vision transformer (patch conv, class and positional
+    embeddings, ``ln_pre``, non-causal resblocks, ``ln_post`` on the class
+    row, ``proj``), or the ModifiedResNet for the RN towers (no kernel)."""
+    x = images.permute(0, 3, 1, 2)
+    if isinstance(cfg, CLIPResNetVisionConfig):
+        return _encode_image_resnet(params, cfg, x)
+    v = params["visual"]
+    x = _conv2d(v["conv1"]["w"], x, stride=cfg.patch_size).flatten(2).transpose(1, 2)
+    b, _, w = x.shape
+    cls = v["class_embedding"].to(x.dtype).expand(b, 1, w)
+    x = torch.cat([cls, x], dim=1) + v["positional_embedding"].to(x.dtype)
+    x = layer_norm(v["ln_pre"], x)
+    for block in v["blocks"]:
+        x = _resblock(block, x, cfg.heads, False, plain)
+    x = layer_norm(v["ln_post"], x[:, 0])
+    return x @ v["proj"].to(x.dtype)
 
 
 def _text_transformer(params: Params, cfg: CLIPTextConfig, x: torch.Tensor,
@@ -102,6 +263,21 @@ def encode_keywords(params: Params, cfg: CLIPTextConfig, keywords: torch.Tensor,
     x = layer_norm(params["text"]["ln_final"], x)
     pooled = x[:, k + 1]
     return pooled @ params["text"]["text_projection"].to(pooled.dtype)
+
+
+def get_scores(params: Params, vision_cfg: VisionConfig, text_cfg: CLIPTextConfig,
+               images: torch.Tensor, text: torch.Tensor,
+               eot_positions: Optional[torch.Tensor] = None,
+               plain: bool = False):
+    """-> (logits per image, logits per text): cosine scores scaled by
+    ``exp(logit_scale)``, in f32 (the f32 scale promotes the features, as in
+    the JAX package)."""
+    img = encode_image(params, vision_cfg, images, plain)
+    txt = encode_text(params, text_cfg, text, eot_positions, plain)
+    img = img / torch.linalg.vector_norm(img, dim=-1, keepdim=True)
+    txt = txt / torch.linalg.vector_norm(txt, dim=-1, keepdim=True)
+    logits_per_image = (params["logit_scale"].float().exp() * img.float()) @ txt.float().T
+    return logits_per_image, logits_per_image.T
 
 
 @dataclasses.dataclass

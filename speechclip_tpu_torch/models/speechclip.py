@@ -1,20 +1,26 @@
-"""The SpeechCLIP speech side, eval mode (port of
+"""The SpeechCLIP model, eval mode (port of
 speechclip_tpu/models/speechclip.py: ``init``, ``forward_audio``,
 ``encode_speech``, ``extract_hidden_states``, ``get_attention_weights``
-and ``get_attention_map``), with the parallel branch, the cascaded branch
-or both.
+and ``get_attention_map`` on the speech side, with the parallel branch,
+the cascaded branch or both; ``encode_image_tower``,
+``project_image_feat``, ``forward_image`` and ``forward_text`` on the
+gallery side). A gallery feature is ``l2_normalize(forward_image(...)
+.float())``, as the JAX model's ``forward`` makes it.
 
 Parameters are a plain nested dict with the JAX package's keys
 (``audio_encoder``, ``weighted_sum``, ``parallel_branch``,
-``p_branch_proj``, ``cascaded_branch``, ``c_branch_proj``, and
-``clip.text`` for the cascaded branch's CLIP text tower); the state dict
-holds the kw-BN running statistics (``cascaded_branch.bn``).
+``p_branch_proj``, ``cascaded_branch``, ``c_branch_proj``,
+``img_enc_proj``, and ``clip`` with the image tower ``visual``, the text
+tower ``text`` and ``logit_scale``); the state dict holds the kw-BN
+running statistics (``cascaded_branch.bn``).
 ``cast_params`` moves either to a device once: matrices (and conv kernels,
 the cls rows) to the compute dtype, vectors (biases, LayerNorm scale and
 bias, weighted-sum logits, kw-BN) kept in f32, as the TPU kernels read
-them. The CLIP token table stays f32 too: the JAX model keeps its params
-f32, and the VQ scores keywords against that table in f32, where a
-near-tie argmax can flip on a bf16-rounded table.
+them. The CLIP text tower stays f32 whole: the JAX model keeps its params
+f32 and runs ``forward_text`` in the f32 token table's dtype; the VQ scores
+keywords against that table in f32, where a near-tie argmax can flip on a
+bf16-rounded table; and the cascaded branch's bf16 pass through the tower
+casts each weight where it is used (``linear``), as JAX does.
 
 The model and ``cast_params`` run on the card unless the caller asks for
 the CPU (``device="cpu"``); without a card they raise.
@@ -22,13 +28,15 @@ the CPU (``device="cpu"``); without a card they raise.
 
 from __future__ import annotations
 
+import math
 import os
 from pathlib import Path
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from ..config import SpeechCLIPConfig
+from ..data.image import device_clip_preprocess
 from ..ops.basic import Params, l2_normalize
 from ..ops import retrieval
 from ..ops.mlp import mlp_apply, mlp_init
@@ -56,23 +64,23 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-F32_KEYS = ("token_embedding",)  # matrices cast_params keeps in f32
+F32_SUBTREES = ("text",)  # subtrees (the CLIP text tower) cast_params keeps in f32
 
 
 def cast_params(params, dtype: torch.dtype, device="cuda"):
-    """Tensors of rank >= 2 -> ``dtype`` (those under F32_KEYS -> f32);
-    rank <= 1 -> f32; all on ``device`` (the card unless asked otherwise).
-    Lists, dicts and None are kept as they are."""
+    """Tensors of rank >= 2 -> ``dtype`` (those under a key in F32_SUBTREES
+    -> f32); rank <= 1 -> f32; all on ``device`` (the card unless asked
+    otherwise). Lists, dicts and None are kept as they are."""
     dev = resolve_device(device)
 
-    def cast(t, key=None):
+    def cast(t, keep32=False):
         if t is None:
             return None
         if isinstance(t, dict):
-            return {k: cast(v, k) for k, v in t.items()}
+            return {k: cast(v, keep32 or k in F32_SUBTREES) for k, v in t.items()}
         if isinstance(t, (list, tuple)):
-            return type(t)(cast(v) for v in t)
-        keep = t.dim() < 2 or key in F32_KEYS
+            return type(t)(cast(v, keep32) for v in t)
+        keep = keep32 or t.dim() < 2
         return t.to(device=dev, dtype=torch.float32 if keep else dtype)
 
     return cast(params)
@@ -111,6 +119,7 @@ class SpeechCLIPModel:
         self.config = config
         self.audio_cfg = config.audio
         self.clip_cfg = config.clip_text
+        self.vision_cfg = config.clip_vision
         self.compute_dtype = compute_dtype(config.precision)
         self.hidden_norm_type = (
             (config.normalize_type or "s3prl") if config.normalize_hiddenstates else None
@@ -132,7 +141,11 @@ class SpeechCLIPModel:
     def init(self, seed: int = 0) -> Tuple[Params, Params]:
         """Random f32 (params, state) on the model's device from a generator
         seeded with ``seed`` (cast them with ``cast_params`` before
-        running)."""
+        running). The CLIP towers are built whatever the branches, as in the
+        JAX model; those the speech side does not read (the image tower, the
+        text tower without the cascaded branch) and the image projection
+        draw after every speech-side draw, so a seed's speech-side params do
+        not depend on them."""
         cfg = self.config
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params: Params = {"audio_encoder": hubert.hubert_init(gen, self.audio_cfg)}
@@ -158,6 +171,15 @@ class SpeechCLIPModel:
             params["p_branch_proj"] = mlp_init(gen, cfg.parallel_branch_projection)
         if cfg.cascaded_branch_projection is not None:
             params["c_branch_proj"] = mlp_init(gen, cfg.cascaded_branch_projection)
+        if "clip" not in params:
+            params["clip"] = {"text": clip_mod.text_init(gen, self.clip_cfg)}
+            if self.reduced_vocab is not None:
+                params["clip"] = clip_mod.reduce_token_embedding(params["clip"], self.reduced_vocab)
+        params["clip"]["visual"] = clip_mod.vision_init(gen, self.vision_cfg)
+        params["clip"]["logit_scale"] = torch.tensor(
+            math.log(1 / 0.07), dtype=torch.float32, device=self.device)
+        if cfg.image_encoder_projection is not None:
+            params["img_enc_proj"] = mlp_init(gen, cfg.image_encoder_projection)
         return params, state
 
     def forward_audio(
@@ -235,6 +257,41 @@ class SpeechCLIPModel:
                 feat = mlp_apply(params["p_branch_proj"], feat)
             out["parallel_audio_feat"] = l2_normalize(feat.float())
         return out
+
+    def encode_image_tower(self, params: Params, images: torch.Tensor,
+                           plain: bool = False) -> torch.Tensor:
+        """The CLIP image tower alone, on the model's device: (B, H, W, 3)
+        uint8 images take ``device_clip_preprocess`` first; then the compute
+        dtype and ``clip.encode_image`` -> (B, output_dim)."""
+        images = images.to(self.device)
+        if images.dtype == torch.uint8:
+            images = device_clip_preprocess(images, self.vision_cfg.image_size)
+        images = images.to(self.compute_dtype)
+        return clip_mod.encode_image(params["clip"], self.vision_cfg, images, plain)
+
+    def project_image_feat(self, params: Params, feat: torch.Tensor) -> torch.Tensor:
+        """The image projection MLP (``img_enc_proj``) where configured."""
+        if "img_enc_proj" in params:
+            feat = mlp_apply(params["img_enc_proj"], feat)
+        return feat
+
+    def forward_image(self, params: Params, images: torch.Tensor,
+                      plain: bool = False) -> torch.Tensor:
+        """Image tower, then the projection: (B, E) in the compute dtype."""
+        return self.project_image_feat(params, self.encode_image_tower(params, images, plain))
+
+    def forward_text(self, params: Params, text: torch.Tensor,
+                     eot_positions: Optional[torch.Tensor] = None,
+                     plain: bool = False) -> torch.Tensor:
+        """(B, 77) token ids -> (B, output_dim) through the CLIP text tower,
+        pooled at ``eot_positions`` (else ``text.argmax(-1)``). The tower runs
+        in the token table's dtype, as in the JAX model: f32 whatever the
+        precision, since ``cast_params`` keeps the text tower f32; under
+        "pallas" its causal layers take ``flash_attention``'s f32 form."""
+        if eot_positions is not None:
+            eot_positions = eot_positions.to(self.device)
+        return clip_mod.encode_text(params["clip"], self.clip_cfg, text.to(self.device),
+                                    eot_positions, plain)
 
     def extract_hidden_states(self, params: Params, wav: torch.Tensor,
                               wav_len: torch.Tensor, plain: bool = False):

@@ -1,6 +1,6 @@
-"""Speech -> image retrieval over an embedding gallery (port of
-speechclip_tpu/ops/retrieval.py and the scoring of
-speechclip_tpu/serving.py ``EncoderService.retrieve``).
+"""Speech -> image retrieval over an embedding gallery, and recall@k in
+both directions (port of speechclip_tpu/ops/retrieval.py and the scoring
+of speechclip_tpu/serving.py ``EncoderService.retrieve``).
 
 Scores are full-precision f32 with TF32 off: the reference found that a
 reduced-precision score matmul flips near-tie ranks
@@ -64,3 +64,22 @@ def recall_at_k(
         f"recall@{k}": float(hit[:, : min(k, k_max)].any(dim=1).float().mean() * 100.0)
         for k in recall_at
     }
+
+
+def mutual_retrieval(
+    score_per_a: torch.Tensor,  # (N_A, N_B)
+    score_per_b: torch.Tensor,  # (N_B, N_A)
+    ab_answers: torch.Tensor,  # (N_A,) gold pair id per A row
+    ba_answers: torch.Tensor,  # (N_B,) gold pair id per B row
+    recall_at: Sequence[int],
+) -> Tuple[Dict[str, float], Dict[str, float], Dict[str, float]]:
+    """recall@k A -> B, B -> A and their mean (x100)."""
+    if tuple(score_per_a.shape) != (len(ab_answers), len(ba_answers)) or tuple(
+            score_per_b.shape) != (len(ba_answers), len(ab_answers)):
+        raise ValueError(
+            f"scores {tuple(score_per_a.shape)} / {tuple(score_per_b.shape)} do not match "
+            f"{len(ab_answers)} A rows and {len(ba_answers)} B rows")
+    recall_ab = recall_at_k(score_per_a, ab_answers, ba_answers, recall_at)
+    recall_ba = recall_at_k(score_per_b, ba_answers, ab_answers, recall_at)
+    recall_mean = {k: (recall_ab[k] + recall_ba[k]) / 2.0 for k in recall_ab}
+    return recall_ab, recall_ba, recall_mean

@@ -110,3 +110,23 @@ def test_agreement_numbers():
     assert stats["finite"] and attention_agrees(dict(stats, mismatch=0.0))
     got[1, 0] = float("nan")
     assert not attention_agrees(attention_agreement(got, want))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_outputs_agree_under_another_summation_order(causal):
+    """flash_attention's f32 form is held to F32_MAX_ABS and the cosine: a
+    float64 re-summation of the plain version passes, every bit may differ."""
+    q, k, v, lens = (t.float() if t.is_floating_point() else t for t in _inputs(seed=2))
+    want = flash_attention_plain(q, k, v, lens, causal)
+    stats = attention_agreement(_f64_plain("flash_attention", q, k, v, lens, causal), want)
+    assert stats["f32"] and attention_agrees(stats), stats
+
+
+@pytest.mark.parametrize("fault", ["lens_off_by_one", "bf16_p"])
+def test_f32_planted_faults_fail_the_check(fault):
+    """In f32 a mask one key too long fails, and so does p rounded to bf16
+    for P V (what the bf16 kernel's tensor cores would do to f32 inputs)."""
+    q, k, v, lens = (t.float() if t.is_floating_point() else t for t in _inputs(seed=3))
+    stats = attention_agreement(faulty_plain("flash_attention", fault, q, k, v, lens),
+                                flash_attention_plain(q, k, v, lens))
+    assert stats["f32"] and not attention_agrees(stats), stats

@@ -16,6 +16,7 @@ from speechclip_tpu.config import (
     flagship_tiny_config,
     load_config,
 )
+from speechclip_tpu.models import clip as jax_clip
 from speechclip_tpu.models import hubert as jax_hubert
 from speechclip_tpu.models.speechclip import SpeechCLIPModel as JaxModel
 from speechclip_tpu_torch import config as port_config
@@ -72,9 +73,16 @@ def cascaded_config_from_jax(cb) -> port_config.CascadedBranchConfig:
     )
 
 
+def vision_config_from_jax(vision):
+    """The port's image-tower config for a JAX ``CLIPConfig.vision``."""
+    cls = (port_config.CLIPResNetVisionConfig if isinstance(vision, jax_clip.CLIPResNetVisionConfig)
+           else port_config.CLIPVisionConfig)
+    return cls(**dataclasses.asdict(vision))
+
+
 def port_config_from_jax(cfg) -> port_config.SpeechCLIPConfig:
     """The port's config for a JAX ConfigNode: both branches' settings, the
-    CLIP text tower and the reduced vocabulary."""
+    CLIP towers, the image projection and the reduced vocabulary."""
     jm = JaxModel(cfg)
     ae, ms = cfg.audio_encoder, cfg.model_settings
     ta = ms.parallel_branch.transformer_args
@@ -107,6 +115,8 @@ def port_config_from_jax(cfg) -> port_config.SpeechCLIPConfig:
         cascaded_branch=cascaded_config_from_jax(ms.cascaded_branch),
         cascaded_branch_projection=_dims(ms.get("cascaded_branch_projection")),
         clip_text=port_config.CLIPTextConfig(**text),
+        clip_vision=vision_config_from_jax(jm.clip_cfg.vision),
+        image_encoder_projection=_dims(ms.get("image_encoder_projection")),
         reduce_subword_embedding=cfg.clip.get("reduce_subword_embbedding"),
         clip_embed_dim=jm.clip_cfg.embed_dim,
         precision=cfg.trainer.precision,
@@ -149,6 +159,18 @@ def test_presets_match_jax_field_by_field(jax_preset, port_preset):
     assert set(got) == set(want)
     for key in want:
         assert got[key] == want[key], key
+
+
+@pytest.mark.parametrize("name", sorted(jax_clip.NAMED_CONFIGS))
+def test_named_clip_towers_match_jax_field_by_field(name):
+    want, got = jax_clip.NAMED_CONFIGS[name], port_config.NAMED_CLIP_CONFIGS[name]
+    assert type(got.vision).__name__ == type(want.vision).__name__
+    assert dataclasses.asdict(got.vision) == dataclasses.asdict(want.vision)
+    assert dataclasses.asdict(got.text) == dataclasses.asdict(want.text)
+    if name.startswith("RN"):
+        assert (got.vision.embed_dim, got.vision.feature_grid) == (
+            want.vision.embed_dim, want.vision.feature_grid)
+    assert set(port_config.NAMED_CLIP_CONFIGS) == set(jax_clip.NAMED_CONFIGS)
 
 
 def test_shipped_cascaded_vocabulary_is_the_flickr_table():
@@ -216,7 +238,9 @@ def test_conv_weights_change_layout_linear_weights_do_not(tiny_models):
     np.testing.assert_array_equal(
         np.asarray(jl0["self_attn"]["in_proj"]["w"]), pl0["self_attn"]["in_proj"]["w"].numpy()
     )
-    assert "clip" not in pparams and "criterion" not in pparams  # parallel only: no text tower
+    # the CLIP towers come across whatever the branches; the loss temperature does not
+    assert set(pparams["clip"]) == {"visual", "text", "logit_scale"}
+    assert "criterion" not in pparams
 
 
 def test_cast_params_keeps_vectors_f32(tiny_models):
@@ -254,4 +278,4 @@ def test_cascaded_init_shapes_match_jax_init(preset):
     shapes = lambda t: jax.tree.map(lambda a: tuple(a.shape), t)
     assert shapes(own) == shapes(carried)
     assert shapes(state) == shapes(carried_state)
-    assert "visual" not in own["clip"]
+    assert set(own["clip"]) == {"visual", "text", "logit_scale"}

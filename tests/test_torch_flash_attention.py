@@ -3,7 +3,8 @@ interpret mode on the CPU (``_flash_forward``), over the grid of
 tests/test_torch_attention_vmem.py (H/Dh = 12/64, 8/96, 4/128; L = S in
 {128, 160}; one cross shape; key lengths, none, causal with key lengths; f32
 and bf16), plus rows that are not a multiple of the TPU's 128-row block,
-the CLIP text tower's causal L = 77 and K + 2 = 10, and the cascaded
+the CLIP text tower's causal L = 77 and K + 2 = 10, ViT-B/32's 50 rows
+without key lengths, and the cascaded
 branch's single 768-wide head with key lengths (the TPU kernel pads no
 head dim away: Dh = 768 is six of its 128-lane blocks).
 
@@ -45,6 +46,7 @@ def test_plain_matches_jax_kernel(heads, dh, mask, length, dtype):
     ((2, 8, 77, 77, 64), "causal"),  # the CLIP text tower
     ((2, 8, 77, 77, 64), "none"),
     ((2, 8, 10, 10, 64), "causal"),  # the text tower over K + 2 tokens
+    ((2, 12, 50, 50, 64), "none"),  # the ViT-B/32 image tower under "pallas"
     ((2, 1, 75, 75, 768), "lens"),  # the cascaded branch's one head
     ((2, 1, 40, 40, 200), "lens"),  # a wide head that is not a multiple of 128
 ])

@@ -19,7 +19,9 @@ failing on a one-key mask error, on other rounding points and on a
 dropped 128-wide head-dim chunk. The conv chain (``fused_conv_chain``) is
 held, layer by layer on the same input, to at most 0.5 % of elements
 differing (``MAX_LAYER_MISMATCH``), and as a whole chain to the layer
-limits; a tanh GELU planted in its plain version fails the first.
+limits; a tanh GELU planted in its plain version fails the first. The
+image preprocessing on the card is held to its CPU result (max abs 1e-4,
+normalized units).
 """
 
 import pytest
@@ -298,11 +300,12 @@ def test_layer_norm_rows_matches_plain(cuda, rows, d, x_dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=2**-6)
 
 
-def _qkv(dev, b, h, l, s, dh, seed, lens="random", packed=False):
-    """bf16 (B, H, rows, Dh) q, k, v (head-split views of one packed buffer
-    when ``packed``, as the dispatcher passes them) and int32 lens."""
+def _qkv(dev, b, h, l, s, dh, seed, lens="random", packed=False, dtype=torch.bfloat16):
+    """bf16 (or ``dtype``) (B, H, rows, Dh) q, k, v (head-split views of one
+    packed buffer when ``packed``, as the dispatcher passes them) and int32
+    lens."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    bf = torch.bfloat16
+    bf = dtype
     if packed:
         assert l == s
         qkv = torch.randn(b, l, 3, h, dh, generator=g, device=dev).to(bf)
@@ -360,6 +363,8 @@ FLASH_SHAPES = ATTENTION_SHAPES + [
     (2, 2, 150, 150, 1152, "random", False, False),  # wider than eight 128-wide chunks
     (3, 1, 90, 200, 1152, "zero_row", True, False),
     (4, 3, 200, 200, 136, "random", True, False),    # one chunk and 8 columns
+    (256, 12, 50, 50, 64, None, False, True),        # ViT-B/32 under "pallas"
+    (64, 16, 257, 257, 64, None, False, True),       # ViT-L/14 under "pallas"
 ]
 
 
@@ -373,6 +378,57 @@ def test_flash_attention_kernel_matches_plain(cuda, b, h, l, s, dh, lens, causal
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     _attn_close(got, flash_attention_plain(q, k, v, lens_t, causal))
+
+
+FLASH_F32_SHAPES = [  # (b, h, l, s, dh, lens, causal, packed)
+    (256, 8, 77, 77, 64, None, True, True),          # forward_text under "pallas"
+    (3, 6, 140, 140, 72, "zero_row", False, False),  # a lens = 0 row; Dh % 32 != 0
+    (3, 6, 140, 140, 64, "zero_row", True, False),
+    (4, 8, 200, 333, 96, "random", False, False),    # L != S
+    (4, 8, 333, 200, 64, "random", True, False),
+    (2, 2, 150, 150, 200, "random", True, False),    # wide, Dh % 32 != 0
+    (4, 1, 200, 200, 768, "zero_row", False, True),  # the cascaded branch's one head
+    (2, 1, 90, 90, 520, "random", True, False),      # past 512: 8 rows a block
+    (64, 1, 327, 327, 768, "random", False, True),   # the cascaded head, its shape
+    (4, 2, 1, 1, 8, None, True, False),
+]
+
+
+@pytest.mark.parametrize("b, h, l, s, dh, lens, causal, packed", FLASH_F32_SHAPES)
+def test_flash_attention_f32_kernel_matches_plain(cuda, b, h, l, s, dh, lens, causal, packed):
+    """The f32 form (f32 in and out, f32 arithmetic throughout) against the
+    plain version on the same f32 inputs: ``attention_agrees``' f32 limits."""
+    from speechclip_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    q, k, v, lens_t = _qkv(cuda, b, h, l, s, dh, seed=l + dh + 3, lens=lens, packed=packed,
+                           dtype=torch.float32)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, lens_t, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == torch.float32
+    _attn_close(got, flash_attention_plain(q, k, v, lens_t, causal))
+
+
+def test_flash_f32_check_fails_a_planted_fault(cuda):
+    """At the text shape the f32 form passes; against a plain version whose
+    causal mask lets each row see one key too many it fails."""
+    from speechclip_tpu_torch.kernels._attention_common import (
+        attention_agreement,
+        attention_agrees,
+    )
+    from speechclip_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    q, k, v, _ = _qkv(cuda, 64, 8, 77, 77, 64, seed=77, lens=None, packed=True,
+                      dtype=torch.float32)
+    got = flash_attention(q, k, v, None, True)
+    assert attention_agrees(attention_agreement(got, flash_attention_plain(q, k, v, None, True)))
+    # row r sees keys 0..r+1
+    scores = (q.float() @ k.float().transpose(-1, -2)) / 8.0
+    ok = torch.ones(77, 77, dtype=torch.bool, device=cuda).tril(1)
+    faulty = torch.softmax(scores.masked_fill(~ok, float("-inf")), dim=-1) @ v.float()
+    stats = attention_agreement(got, faulty)
+    assert not attention_agrees(stats), stats
 
 
 @pytest.mark.parametrize("b, h, l, s, dh, lens", [
@@ -410,6 +466,49 @@ def test_mha_layer_block_past_the_old_row_cap(cuda, heads):
     _close(mha_layer_block(*args), mha_layer_block_plain(*args))
 
 
+@pytest.mark.parametrize("b", [64, 3])
+def test_mha_layer_block_at_vit_l14_rows(cuda, b):
+    """ViT-L/14 under "auto": 257 rows (one past a power of two: a ragged
+    last tile for the GEMMs and the whole-row core), 1024 wide, 16 heads,
+    "none", no key lengths."""
+    from speechclip_tpu_torch.kernels.mha_block import (
+        block_eligible,
+        mha_layer_block,
+        mha_layer_block_plain,
+    )
+
+    assert block_eligible(b, 257, 1024, 16)
+    args = _mha_args(cuda, b, 257, 1024, 16, "none", False, seed=257 + b)
+    before = mha_layer_block.launches
+    got = mha_layer_block(*args)
+    torch.cuda.synchronize()
+    assert mha_layer_block.launches == before + 1
+    _close(got, mha_layer_block_plain(*args))
+
+
+@pytest.mark.parametrize("hw", [(256, 256), (200, 300), (180, 180)])
+def test_device_clip_preprocess_on_the_card(cuda, hw):
+    """The resize and normalize run on the card, with no copy to the host,
+    and agree with the CPU result."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from speechclip_tpu_torch.data.image import device_clip_preprocess
+
+    g = torch.Generator().manual_seed(hw[0])
+    images = torch.randint(0, 256, (4, *hw, 3), generator=g, dtype=torch.uint8)
+    on_card = images.to(cuda)
+    device_clip_preprocess(on_card)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = device_clip_preprocess(on_card)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert not [n for n in names if "DtoH" in n], names
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    want = device_clip_preprocess(images)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
 @pytest.mark.parametrize("kernel, fault", [
     ("attention_vmem", "lens_off_by_one"),
     ("attention_vmem", "mha_rounding"),
@@ -441,7 +540,8 @@ def test_attention_check_fails_planted_faults(cuda, kernel, fault):
 def test_attention_kernels_raise_on_what_they_do_not_take(cuda):
     """``attention_vmem`` stops at Dh = 128 (the cascaded branch's 768-wide
     head raises there); ``flash_attention`` takes it and raises only on Dh
-    % 8 != 0."""
+    % 8 != 0 (and, in f32, past 768). ``attention_vmem`` runs bf16 only;
+    ``flash_attention`` bf16 or f32, never mixed."""
     from speechclip_tpu_torch.kernels.attention_vmem import attention_vmem
     from speechclip_tpu_torch.kernels.flash_attention import flash_attention
 
@@ -451,9 +551,14 @@ def test_attention_kernels_raise_on_what_they_do_not_take(cuda):
     assert flash_attention(q, k, v, lens).shape == q.shape
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q[..., :100], k[..., :100], v[..., :100], lens)
-    for kernel in (attention_vmem, flash_attention):
-        with pytest.raises(TypeError, match="bf16"):
-            kernel(q[..., :64].float(), k[..., :64].float(), v[..., :64].float(), lens)
+    with pytest.raises(TypeError, match="bf16"):
+        attention_vmem(q[..., :64].float(), k[..., :64].float(), v[..., :64].float(), lens)
+    for bad in ((q.half(), k.half(), v.half()), (q.float(), k, v)):
+        with pytest.raises(TypeError, match="bf16 or f32"):
+            flash_attention(*bad, lens)
+    wide = torch.zeros(1, 1, 16, 776, device=cuda)
+    with pytest.raises(ValueError, match="up to 768"):
+        flash_attention(wide, wide, wide)
 
 
 def test_flash_check_fails_a_dropped_head_dim_chunk(cuda):

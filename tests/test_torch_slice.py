@@ -134,10 +134,11 @@ def test_recall_at_k_matches_jax():
 
 
 def test_port_imports_no_jax_yaml_or_reference_package():
-    """The port runs without jax, yaml or speechclip_tpu (the card's machine
-    has no PyYAML): both branches, the conv chain, the shipped cascaded
-    config's vocabulary table. A subprocess: this test process has imported
-    jax."""
+    """The port runs without jax, yaml, speechclip_tpu or PIL (the card's
+    machine has no PyYAML and no PIL): both branches, the conv chain, the
+    shipped cascaded config's vocabulary table, the gallery side
+    (``forward_image`` on uint8 images) and the eval module. A subprocess:
+    this test process has imported jax."""
     code = textwrap.dedent(
         """
         import sys
@@ -149,6 +150,8 @@ def test_port_imports_no_jax_yaml_or_reference_package():
         from speechclip_tpu_torch.kernels import conv_frontend, flash_attention  # noqa: F401
         from speechclip_tpu_torch.models import branches, clip  # noqa: F401
         from speechclip_tpu_torch.ops import kw_bn, vq  # noqa: F401
+        from speechclip_tpu_torch.data import image  # noqa: F401
+        from speechclip_tpu_torch.training import evaluation
 
         torch.set_num_threads(1)
         model = port.SpeechCLIPModel(port.tiny_flagship_config(), device="cpu")
@@ -165,8 +168,15 @@ def test_port_imports_no_jax_yaml_or_reference_package():
         x = torch.randn(1, 40, 8)
         conv_frontend.fused_conv_chain(x, [torch.randn(3, 8, 8)], (3,))
         port.SpeechCLIPModel(port.shipped_cascaded_config(), device="cpu")
+        images = torch.randint(0, 256, (2, 40, 36, 3), dtype=torch.uint8)
+        img = model.forward_image(params, images)
+        assert img.shape == (2, 16) and bool(torch.isfinite(img).all())
+        collected = evaluation.collect_validation_outputs([{
+            "id": torch.tensor([0, 1]), "audio_feat": out["parallel_audio_feat"],
+            "image_feat": torch.nn.functional.normalize(img.float(), dim=-1)}])
+        evaluation.retrieval_metrics(collected, (1,), device="cpu")
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "yaml", "speechclip_tpu"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "yaml", "speechclip_tpu", "PIL"))
         assert not bad, bad
         print("OK")
         """
