@@ -62,10 +62,45 @@ line each (a failed check exits non-zero before the last line):
 14. the ViT-L/14 image tower alone at B=64 under "auto" (24
     ``mha_layer_block``), against the plain path; images/s;
 15. the ModifiedResNet RN50 tower at B=64 (no kernel): bf16 features
-    against f32 (TF32 off); images/s.
+    against f32 (TF32 off); images/s;
+16. training (``flagship_config()``: both branches over the frozen HuBERT
+    and CLIP towers; bench.py's train batch of 256 utterances of 6.4 s,
+    224 x 224 images, ids ``arange(B) % (B // 5)``) at dropout 0: one
+    train-mode forward and backward on the kernel path and on the all-plain
+    path from the same params, held to each other (losses 1e-2 relative;
+    then, against the plain path with the kernel path's keyword ids
+    imposed on its VQ, whose argmax flips under rounding alone: features
+    per-row cosine 0.999, each live trainable leaf's gradient cosine 0.99,
+    ``grad_norm`` 2 %, the kw-BN running statistics 1e-3; the cascaded
+    branch's keywords before VQ, on the kernel path's HuBERT output: mean
+    row cosine 0.999 against the plain branch, the worst row against the
+    f32 branch within 1e-3 of the plain bf16 branch's); then one step through
+    ``make_train_step`` on each, with every count at 0 before it: under
+    "auto" 13 ``mha_layer_block`` + 13 ``ffn_block`` (12 frozen HuBERT
+    layers under no_grad, the parallel branch's layer with a gradient) and
+    one backward recompute of each; under "pallas" at B = 64, 38
+    ``flash_attention`` (HuBERT 12, the image tower 12, the cascaded head,
+    the text tower's 12 and the parallel branch, the last 14 with a
+    gradient and a recompute each);
+17. the timed train step at the flagship's dropout 0.1 (12 + 12 launches a
+    step: dropout keeps the branch layer off the kernels): ms per step (the
+    median and range of 10 back-to-back steps by CUDA events, after 2
+    warm-up steps) on the kernel path, with the image-feature cache
+    (``image_feat_frozen``, the frozen tower's output computed once) and on
+    the plain path, each from its own train state; peak memory; every
+    step's loss finite.
 
 Rates (utt/s, images/s, sequences/s) come from CUDA events around as many
 back-to-back calls as fill about 1 s.
+
+Phase 2 also holds each kernel's backward (the four with a JAX
+``custom_vjp``: ``mha_layer_block`` and ``ffn_block`` at the HuBERT layer,
+``attention_vmem`` at a 17 s shape, ``flash_attention`` at the cascaded
+head and at the text tower's causal K + 2 rows in bf16 and f32): the
+gradients through the kernel's autograd.Function must equal the plain
+version's own autograd gradients bit for bit (the backward is the plain
+recompute), and the backward is timed (CUDA events, then torch.profiler)
+beside one SDPA forward + backward on the same inputs.
 
 Phase 2 also gives each kernel's bound (the larger of its FLOPs over 989
 TFLOP/s and its bytes over 3.35 TB/s, counted from that row's shapes and
@@ -83,7 +118,8 @@ one for the layer rows), after every event timing of phase 2.
 Before each path runs, every kernel's launch count is set to 0; it is read
 right after, so the counts in the summary are that path's own.
 
-The last lines are a JSON summary of the kernels and, last,
+The last lines are a JSON summary of the kernels (with their backward
+rows and recompute counts) and of the timed train step and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 
@@ -98,15 +134,19 @@ and 9 (wall and device ms, peak memory, the largest kernels), the HuBERT
 front end split into its parts (conv0, conv1..6, pos_conv), and the same
 for the gallery side (the ViT-B/32 gallery under both backends and its
 preprocessing alone, text, the ViT-L/14 and RN50 towers; the eval of
-phase 13 in parts); it prints no result line.
+phase 13 in parts), and the train step of phase 17 (profiled, with the
+image-feature cache, and split into the frozen HuBERT forward, the frozen
+image tower and the rest); it prints no result line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -200,6 +240,35 @@ EVAL_IMAGES, EVAL_CAPTIONS, EVAL_BATCH = 1000, 5, 250
 EVAL_RECALL_AT = (1, 5, 10)
 GALLERY = 5000
 TOPK = 10
+# Phase 2's backward rows: each kernel with a gradient (the JAX custom_vjp's
+# counterpart) at one shape of the train path, label -> spec; the attention
+# specs as ATTENTION_SHAPES', with a dtype
+BACKWARD_LAYER_SHAPE = HUBERT_SHAPE
+BACKWARD_ATTENTION_SHAPES = {
+    "attention_vmem": {"hubert 17s": ((16, 12, 849, 64, True, False, True), "bfloat16")},
+    "flash_attention": {
+        "cascaded 768": ((64, 1, 327, 768, True, False, True), "bfloat16"),
+        "text tower K+2": ((64, 8, 10, 64, False, True, True), "bfloat16"),
+        "text tower K+2 f32": ((64, 8, 10, 64, False, True, True), "float32"),
+    },
+}
+# The training phase (flagship_config(): both branches, frozen towers):
+# bench.py's train batch (6.4 s, lengths U[3.2 s, 6.4 s], 224 x 224 f32
+# images, ids arange(B) % (B // 5))
+TRAIN_BATCH = 256
+TRAIN_PALLAS_BATCH = 64
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_MIN_GRAD_COSINE = 0.99
+TRAIN_GRAD_NORM_RTOL = 0.02
+TRAIN_BN_RTOL = 1e-3  # of the statistic's largest magnitude
+# phase 16: the kernel branch's worst keyword row before VQ, against the
+# f32 branch, may fall this far (in cosine) below the plain bf16 branch's
+TRAIN_PRE_VQ_SLACK = 1e-3
+TRAIN_TIMED_STEPS = 10  # phase 17: steps timed a path, after
+TRAIN_WARMUP_STEPS = 2  # warm-up steps
+# leaves whose gradient norm is under this share of the largest leaf's carry
+# rounding alone (the biases kw-BN cancels): not held to a cosine
+TRAIN_LIVE_GRAD = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -515,9 +584,101 @@ def phase_kernels():
     _vit_l14_block_row(gallery_gen, results, deferred)
     _attention_row("flash_attention", "clip text f32", TEXT_F32_FLASH_SHAPE, gallery_gen, results,
                    deferred, torch.float32)
+    # the backward rows, from a generator of their own (as the gallery's)
+    backward = _backward_rows(torch.Generator(device="cuda").manual_seed(18), results)
     _device_rows(deferred, results)
     _conv_layer_device_rows(conv_layers, results)
+    _backward_device_rows(backward, results)
     return results
+
+
+def _backward_row(name, label, kern, plain, args, diff, g, results, backward, library=None):
+    """One phase-2 backward row: the gradients through the kernel's
+    autograd.Function (kernel forward, recompute backward) against the plain
+    version's own autograd gradients for the same upstream gradient ``g``:
+    bitwise equal, since the backward IS the plain recompute. Then the
+    backward's time (CUDA events) beside ``library`` (one SDPA forward +
+    backward on the same inputs, where there is one)."""
+    import torch
+
+    leaves = [args[i] for i in diff]
+    out = kern(*args)
+    fn_name = type(out.grad_fn).__name__
+    got = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    want = torch.autograd.grad(plain(*args), leaves, g)
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    bwd = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+    ms = cuda_time_ms(bwd)
+    lib_ms = None if library is None else cuda_time_ms(library)
+    lib = "" if lib_ms is None else f", torch SDPA forward + backward {lib_ms:.4f} ms"
+    say(f"phase 2 {name} backward [{label}]: through {fn_name}, gradients of "
+        f"{len(leaves)} inputs bitwise equal to the plain version's autograd: {equal}, "
+        f"finite {finite}; backward (the plain recompute) {ms:.4f} ms{lib}")
+    if not (equal and finite and fn_name.endswith("FnBackward")):
+        fail(f"{name} [{label}]: the backward is not the plain recompute's gradient")
+    results.setdefault("backward", {}).setdefault(name, {})[label] = dict(
+        ms=ms, library_ms=lib_ms, device_ms=None, library_device_ms=None)
+    backward.append((name, label, bwd, library))
+
+
+def _backward_rows(gen, results):
+    """Phase 2's backward rows (BACKWARD_LAYER_SHAPE, BACKWARD_ATTENTION_SHAPES)."""
+    import torch
+    import torch.nn.functional as F
+
+    from speechclip_tpu_torch.kernels import attention_vmem as av
+    from speechclip_tpu_torch.kernels import ffn_block as fb
+    from speechclip_tpu_torch.kernels import flash_attention as fa
+    from speechclip_tpu_torch.kernels import mha_block as mb
+    from speechclip_tpu_torch.kernels._attention_common import key_mask
+
+    backward = []
+    shape = BACKWARD_LAYER_SHAPE
+    x, lens, m, f = _layer_inputs(shape, gen)
+    row = (f"hubert B={shape['b']} T={shape['t']} H={shape['heads']} "
+           f"Dh={shape['d'] // shape['heads']} post")
+    g = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+    req = lambda t: t.detach().clone().requires_grad_(True)
+    mha_args = [req(x)] + [req(m[k]) for k in ("w_in", "b_in", "w_out", "b_out", "ln_g", "ln_b")]
+    _backward_row("mha_layer_block", row, mb.mha_layer_block, mb.mha_layer_block_plain,
+                  mha_args + [lens, shape["heads"], "post", 1e-5], range(7), g, results, backward)
+    ffn_args = [req(x)] + [req(f[k]) for k in ("w1", "b1", "w2", "b2", "ln_g", "ln_b")]
+    _backward_row("ffn_block", row, fb.ffn_block, fb.ffn_block_plain,
+                  ffn_args + ["post", 1e-5], range(7), g, results, backward)
+    kernels = {"attention_vmem": (av.attention_vmem, av.attention_vmem_plain),
+               "flash_attention": (fa.flash_attention, fa.flash_attention_plain)}
+    for name, shapes in BACKWARD_ATTENTION_SHAPES.items():
+        kern, plain = kernels[name]
+        for label, (spec, dtype) in shapes.items():
+            b, h, l, dh, with_lens, causal, packed = spec
+            q, k, v, lens = _attention_inputs(b, h, l, dh, with_lens, packed, gen,
+                                              getattr(torch, dtype))
+            q, k, v = (req(t) for t in (q, k, v))
+            g = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+            mask = None if lens is None else key_mask(lens, causal, l, l, q.device)
+            sdpa = (lambda q=q, k=k, v=v, g=g, mask=mask, causal=causal: torch.autograd.grad(
+                F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                               is_causal=causal and mask is None), (q, k, v), g))
+            row = (f"{label} B={b} H={h} L=S={l} Dh={dh} lens={'yes' if with_lens else 'no'} "
+                   f"causal={'yes' if causal else 'no'} {dtype}")
+            _backward_row(name, row, kern, plain, [q, k, v, lens, causal], range(3), g,
+                          results, backward, sdpa)
+    return backward
+
+
+def _backward_device_rows(backward, results):
+    """Each backward row's device time per call (torch.profiler, 20 calls,
+    every kernel counted: the recompute is plain torch), and SDPA's."""
+    for name, label, bwd, library in backward:
+        row = results["backward"][name][label]
+        for key, fn in (("device_ms", bwd), ("library_device_ms", library)):
+            if fn is not None:
+                fn()
+                row[key] = _device_pass(fn, 20, ours_only=False)[0] or None
+        lib = "" if library is None else f", torch SDPA forward + backward {_ms(row['library_device_ms'])}"
+        say(f"phase 2 {name} backward [{label}]: device time per call (torch.profiler, 20 "
+            f"calls): the plain recompute {_ms(row['device_ms'])}{lib}")
 
 
 def _attention_row(name, label, spec, gen, results, deferred, dtype=None):
@@ -794,6 +955,12 @@ def _counters():
 def _reset(counters):
     for f in counters.values():
         f.launches = 0
+        if hasattr(f, "recomputes"):
+            f.recomputes = 0
+
+
+def _recomputes(counters):
+    return {name: f.recomputes for name, f in counters.items() if hasattr(f, "recomputes")}
 
 
 def phase_path(phase, label, model, params, gallery, seed):
@@ -1122,6 +1289,43 @@ def phase_profile(model, params, gallery, smi, cascaded):
 
         with attention_backend(backend):
             _profile_step(f"{label} B={b} x {samples} samples (backend {backend})", step, b, smi)
+
+
+def phase_profile_train(smi):
+    """Where the train step's time goes (phase 17's step: dropout 0.1, B =
+    TRAIN_BATCH, "auto"): one profiled step, the image-feature cache's step,
+    and the step split by CUDA events into the frozen HuBERT forward, the
+    frozen image tower and the rest (the branches' forward and backward,
+    the loss, clip and Adam)."""
+    import torch
+
+    model = _train_model(dropout=0.1)
+    batch = _train_batch(TRAIN_BATCH, torch.Generator(device="cuda").manual_seed(19))
+    state, _, step = _train_state(model)
+    holder = [state]
+
+    def train(b):
+        def one():
+            holder[0], _ = step(holder[0], b)
+        return one
+
+    _profile_step(f"train step B={TRAIN_BATCH} (dropout 0.1, backend auto)", train(batch),
+                  1, smi)
+    cached = {k: v for k, v in batch.items() if k != "image"}
+    cached["image_feat_frozen"] = model.encode_image_tower(holder[0].params, batch["image"]).float()
+    _profile_step(f"train step B={TRAIN_BATCH} with the image-feature cache", train(cached), 1,
+                  smi)
+    parts = {
+        "step": train(batch),
+        "frozen HuBERT forward": lambda: model.forward_audio(holder[0].params, batch["wav"],
+                                                             batch["wav_len"]),
+        "frozen image tower": lambda: model.encode_image_tower(holder[0].params, batch["image"]),
+    }
+    ms = {name: 1e3 / _rate(fn, 1) for name, fn in parts.items()}
+    rest = ms["step"] - ms["frozen HuBERT forward"] - ms["frozen image tower"]
+    say(f"profile train step split on {smi} ({RATE_NOTE}): " + ", ".join(
+        f"{name} {v:.3f} ms" for name, v in ms.items())
+        + f", the rest (branches forward + backward, loss, clip, Adam) {rest:.3f} ms")
 
 
 def phase_profile_gallery(model, params, smi):
@@ -1673,6 +1877,313 @@ def phase_resnet(smi):
         fail("RN50: bf16 features disagree with f32")
 
 
+def _train_model(batch_chunk: int = 64, dropout: float = 0.0):
+    """The flagship (both branches, frozen HuBERT and CLIP towers) on the
+    card with both branch transformers' dropout at ``dropout``."""
+    from speechclip_tpu_torch import SpeechCLIPModel, flagship_config
+
+    cfg = flagship_config()
+    cfg = dataclasses.replace(
+        cfg, audio=dataclasses.replace(cfg.audio, conv_batch_chunk=batch_chunk),
+        parallel_branch=dataclasses.replace(cfg.parallel_branch, dropout=dropout),
+        cascaded_branch=dataclasses.replace(cfg.cascaded_branch, dropout=dropout))
+    return SpeechCLIPModel(cfg)
+
+
+def _train_batch(b: int, gen):
+    """bench.py's train batch: 6.4 s buffers with lengths U[3.2 s, 6.4 s],
+    224 x 224 f32 images, ids arange(B) % (B // 5)."""
+    import torch
+
+    wav, wav_len = _wavs(b, WAV_SAMPLES, WAV_SAMPLES // 2, gen)
+    image = torch.randn(b, 224, 224, 3, generator=gen, device="cuda")
+    return {"wav": wav, "wav_len": wav_len, "image": image,
+            "id": torch.arange(b, device="cuda") % (b // 5)}
+
+
+def _train_state(model, plain=False):
+    """A train state from the model's seeded init (the same params every
+    call), its optimizer and scheduler, and the train step."""
+    from speechclip_tpu_torch.training.optim import build_optimizer
+    from speechclip_tpu_torch.training.train_step import create_train_state, make_train_step
+
+    state = create_train_state(model, seed=0)
+    optimizer, scheduler = build_optimizer(model.config, state.params,
+                                           model.trainable_mask(state.params))
+    step = make_train_step(model, optimizer, scheduler, model.config.accumulate_grad_batches,
+                           plain=plain)
+    return state, optimizer, step
+
+
+def _train_grads(model, state, optimizer, batch, plain):
+    """One train-mode forward and backward at ``state`` without an update:
+    (losses, L2-normalized features, keyword ids, gradients of the trainable
+    leaves, the new kw-BN state)."""
+    import torch
+
+    leaves = optimizer.param_groups[0]["params"]
+    feats, _, others, new_state = model.forward(
+        state.params, state.model_state, batch, generator=state.generator, train=True,
+        num_updates=torch.tensor(0, device="cuda"), plain=plain)
+    losses = model.compute_loss(state.params, feats)
+    grads = torch.autograd.grad(losses["loss"], leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    ids = others["vq_results"]["targets"][..., 0]
+    return ({k: float(v.detach()) for k, v in losses.items()},
+            {k: v.detach() for k, v in feats.items() if k.endswith("_feat")}, ids, grads,
+            new_state["cascaded_branch"]["bn"])
+
+
+def _train_pre_vq(model, state, batch):
+    """The cascaded branch's train-mode keywords before VQ, (B * K,
+    text_dim), at ``state`` with no gradient and one generator seed (the
+    same dropout draws, if any): on the kernel path's HuBERT output, the
+    branch on the kernel path (``kernel``), on the plain path (``plain
+    branch``) and on the plain path in f32 (``f32 branch``: the trainable
+    leaves are f32 master weights, so it rounds only in f32); and the all-plain
+    path (``plain``). At random init the train-mode kw-BN divides by batch
+    statistics far smaller than the keywords' common part, so rounding
+    shows magnified here."""
+    import torch
+
+    from speechclip_tpu_torch.models import branches
+
+    out = {}
+    with torch.no_grad():
+        for hubert_plain, runs in ((False, {"kernel": (False, False), "plain branch": (True, False),
+                                            "f32 branch": (True, True)}),
+                                   (True, {"plain": (True, False)})):
+            feat, lens = model.forward_audio(state.params, batch["wav"], batch["wav_len"],
+                                             plain=hubert_plain)
+            for name, (plain, f32) in runs.items():
+                keywords, _ = branches._pre_vq_keywords(
+                    state.params["cascaded_branch"], state.model_state["cascaded_branch"],
+                    model.config.cascaded_branch, feat.float() if f32 else feat, lens, plain,
+                    True, torch.Generator(device="cuda").manual_seed(0))
+                out[name] = keywords.flatten(0, 1)
+    return out
+
+
+def _check_train_agreement(label, got, natural, imposed, pre_vq):
+    """The kernel path's train-mode forward and backward against the
+    all-plain path's (items 1 and 4 of the training phase): the losses
+    against the plain path's own (``natural``); the features, the
+    gradients, ``grad_norm`` and the kw-BN statistics against the plain
+    path run with the kernel path's keyword ids imposed on its VQ
+    (``imposed``); the continuous keywords before VQ (``pre_vq``), on one
+    HuBERT output, against the plain branch (mean row cosine) and against
+    the f32 branch, as close as the plain bf16 branch is to it (min row
+    cosine, within TRAIN_PRE_VQ_SLACK). The VQ's argmax over
+    49408 subwords is the step's one discontinuity: at random init in train
+    mode the frozen forward's bf16 rounding alone flips a quarter of the ids
+    (``scripts/torch_train_probe.py``), and a flipped id changes a row's
+    text-tower input outright; the natural id agreement and the pre-VQ
+    keywords' cosine against the all-plain path are printed, not held."""
+    import torch
+
+    from speechclip_tpu_torch.training.optim import global_norm
+
+    losses, feats, ids, grads, bn = got
+    p_losses, _, p_ids, _, _ = natural
+    i_losses, p_feats, _, p_grads, p_bn = imposed
+    loss_err = max(abs(losses[k] - p_losses[k]) / abs(p_losses[k]) for k in losses)
+    cos_feat = {k: row_cosine_min(feats[k], p_feats[k]) for k in feats}
+    norms = torch.stack([g.float().norm() for g in p_grads])
+    live = norms > TRAIN_LIVE_GRAD * norms.max()
+    cos = [float(torch.nn.functional.cosine_similarity(a.float().flatten(), b.float().flatten(),
+                                                       dim=0))
+           for a, b, keep in zip(grads, p_grads, live) if keep]
+    norm, p_norm = float(global_norm(grads)), float(global_norm(p_grads))
+    bn_err = max(float((bn[k] - p_bn[k]).abs().max() / p_bn[k].abs().max()) for k in bn)
+    kw_cos = torch.nn.functional.cosine_similarity(
+        pre_vq["kernel"].float(), pre_vq["plain branch"].float(), dim=-1)
+    kw_mean = float(kw_cos.mean())
+    kw_exact = {name: row_cosine_min(pre_vq[name], pre_vq["f32 branch"])
+                for name in ("kernel", "plain branch")}
+    kw_natural = row_cosine_min(pre_vq["kernel"], pre_vq["plain"])
+    say(f"  {label} vs the plain path: losses {losses} vs {p_losses} (worst relative "
+        f"{loss_err:.2e}, tol {TRAIN_LOSS_RTOL}); keyword ids agree "
+        f"{float((ids == p_ids).float().mean()):.4f} (not held: the argmax flips under "
+        f"rounding alone); the keywords before VQ, on the kernel path's HuBERT output: mean "
+        f"row cosine {kw_mean:.6f} against the plain branch (tol {MIN_COSINE}; the worst row "
+        f"{float(kw_cos.min()):.6f}, not held), min row cosine against the f32 branch {kw_exact['kernel']:.6f}, the plain bf16 branch's "
+        f"{kw_exact['plain branch']:.6f} (tol: within {TRAIN_PRE_VQ_SLACK} of it); against the "
+        f"all-plain path min row cosine {kw_natural:.6f} (not held: HuBERT's rounding, "
+        f"magnified by the batch-statistic kw-BN). Against the plain path with these ids "
+        f"imposed (losses {i_losses}): "
+        f"features min row cosine {cos_feat} (tol {MIN_COSINE}); gradients of {len(grads)} "
+        f"trainable leaves: min cosine {min(cos):.6f} over the {len(cos)} whose norm passes "
+        f"{TRAIN_LIVE_GRAD} of the largest (tol {TRAIN_MIN_GRAD_COSINE}); grad_norm {norm:.6f} "
+        f"vs {p_norm:.6f} (tol {TRAIN_GRAD_NORM_RTOL} relative); kw-BN running stats worst "
+        f"{bn_err:.2e} of their largest (tol {TRAIN_BN_RTOL})")
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    if not (finite and loss_err <= TRAIN_LOSS_RTOL and min(cos_feat.values()) >= MIN_COSINE
+            and kw_mean >= MIN_COSINE
+            and kw_exact["kernel"] >= kw_exact["plain branch"] - TRAIN_PRE_VQ_SLACK
+            and min(cos) >= TRAIN_MIN_GRAD_COSINE
+            and abs(norm - p_norm) <= TRAIN_GRAD_NORM_RTOL * p_norm and bn_err <= TRAIN_BN_RTOL):
+        fail(f"training {label}: the kernel path disagrees with the plain path")
+
+
+@contextlib.contextmanager
+def imposed_keyword_ids(ids):
+    """The cascaded branch's VQ with the hard one-hot of ``ids`` (B, K) in
+    place of its own argmax, the straight-through gradient (the tempered
+    softmax's) kept: ``subword_prob - subword_prob.detach()`` is zero with
+    that gradient. The argmax is the step's one discontinuity: held to
+    another path's choice, the rest of the step is continuous."""
+    import torch
+
+    from speechclip_tpu_torch.models import branches
+
+    inner = branches.vq_apply
+
+    def imposed(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        prob = out["subword_prob"]
+        hard = torch.nn.functional.one_hot(ids, prob.shape[-1]).to(prob.dtype)
+        return dict(out, subword_prob=hard + (prob - prob.detach()), targets=ids[..., None])
+
+    branches.vq_apply = imposed
+    try:
+        yield
+    finally:
+        branches.vq_apply = inner
+
+
+def _counted_step(step, state, batch):
+    """One train step with every launch and recompute count set to 0 just
+    before it and read just after: (state, metrics, launches, recomputes)."""
+    import torch
+
+    counters = _counters()
+    _reset(counters)
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    return (state, metrics, {name: f.launches for name, f in counters.items()},
+            _recomputes(counters))
+
+
+def _expect_recomputes(label, recomputes, **nonzero):
+    expect = {name: nonzero.get(name, 0) for name in recomputes}
+    if recomputes != expect:
+        fail(f"{label}: backward recomputes {recomputes}, expected {expect}")
+
+
+def phase_train_agreement(label, backend, batch_size, seed, expect, expect_recomputes):
+    """Training items 1 and 4: at dropout 0 one train-mode forward and
+    backward on the kernel path and on the all-plain path from the same
+    params and state (and the plain path again with the kernel path's
+    keyword ids imposed; the keywords before VQ on both branch paths),
+    held to each other (``_check_train_agreement``);
+    then one step through ``make_train_step`` on each, the kernel path's
+    counted."""
+    import torch
+
+    from speechclip_tpu_torch.ops.attention import attention_backend
+
+    model = _train_model()
+    batch = _train_batch(batch_size, torch.Generator(device="cuda").manual_seed(seed))
+    with attention_backend(backend):
+        state, optimizer, step = _train_state(model)
+        got = _train_grads(model, state, optimizer, batch, plain=False)
+        p_state, p_optimizer, p_step = _train_state(model, plain=True)
+        natural = _train_grads(model, p_state, p_optimizer, batch, plain=True)
+        with imposed_keyword_ids(got[2]):
+            imposed = _train_grads(model, p_state, p_optimizer, batch, plain=True)
+        pre_vq = _train_pre_vq(model, state, batch)
+        say(f"phase 16 training {label} (backend {backend}, dropout 0): flagship_config(), "
+            f"B={batch_size} x {WAV_SAMPLES} samples, 224 x 224 images")
+        _check_train_agreement(label, got, natural, imposed, pre_vq)
+        del got, natural, imposed, pre_vq
+        state, metrics, launches, recomputes = _counted_step(step, state, batch)
+        p_state, p_metrics, p_launches, _ = _counted_step(p_step, p_state, batch)
+    loss, p_loss = float(metrics["train_loss"]), float(p_metrics["train_loss"])
+    say(f"  {label} step through make_train_step: train_loss {loss:.6f}, plain {p_loss:.6f}; "
+        f"launches {launches} (expect {expect}), backward recomputes {recomputes} (expect "
+        f"{expect_recomputes}), plain path launches {p_launches}")
+    _expect_launches(f"training {label}", launches, **expect)
+    _expect_recomputes(f"training {label}", recomputes, **expect_recomputes)
+    _expect_launches(f"training {label} plain", p_launches)
+    if not abs(loss - p_loss) <= TRAIN_LOSS_RTOL * abs(p_loss):
+        fail(f"training {label}: train_loss {loss} vs plain {p_loss}")
+    return launches, recomputes
+
+
+def _step_ms(step, steps: int = TRAIN_TIMED_STEPS, warmup: int = TRAIN_WARMUP_STEPS):
+    """ms of each of ``steps`` back-to-back calls of ``step`` after
+    ``warmup`` calls: CUDA events recorded between the calls and read after
+    the last, so no host wait comes between them."""
+    import torch
+
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    events[0].record()
+    for event in events[1:]:
+        step()
+        event.record()
+    events[-1].synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def phase_train_timed(smi):
+    """Training items 2 and 3: the flagship's dropout 0.1 under "auto", B =
+    TRAIN_BATCH: ms per step (``_step_ms``: the median and range of
+    TRAIN_TIMED_STEPS steps after TRAIN_WARMUP_STEPS) on the kernel path,
+    with the image-feature cache (the frozen tower's output computed once),
+    and on the plain path from its own train state; the kernel path's peak
+    memory; every step's loss finite."""
+    import torch
+
+    model = _train_model(dropout=0.1)
+    batch = _train_batch(TRAIN_BATCH, torch.Generator(device="cuda").manual_seed(19))
+    state, _, step = _train_state(model)
+    _, _, launches, recomputes = _counted_step(step, state, batch)
+    _expect_launches("training timed", launches, mha_layer_block=12, ffn_block=12)
+    _expect_recomputes("training timed", recomputes)
+    cached = {k: v for k, v in batch.items() if k != "image"}
+    cached["image_feat_frozen"] = model.encode_image_tower(state.params, batch["image"]).float()
+    del state, step
+    losses = {}
+
+    def timed(name, plain, b):
+        state, _, step = _train_state(model, plain=plain)
+        holder, losses[name] = [state], []
+
+        def one():
+            holder[0], metrics = step(holder[0], b)
+            losses[name].append(metrics["train_loss"])
+
+        return _step_ms(one)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = {"kernel path": timed("kernel path", False, batch)}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    times["image cache"] = timed("image cache", False, cached)
+    times["plain path"] = timed("plain path", True, batch)
+    ms = {name: statistics.median(t) for name, t in times.items()}
+    spread = {name: [min(t), max(t)] for name, t in times.items()}
+    finite = all(bool(torch.isfinite(torch.stack(v)).all()) for v in losses.values())
+    say(f"phase 17 training timed (backend auto, dropout 0.1): flagship_config() train step at "
+        f"B={TRAIN_BATCH} x {WAV_SAMPLES} samples, 224 x 224 images, on {smi}, ms per step "
+        f"(median [min, max] of {TRAIN_TIMED_STEPS} back-to-back steps by CUDA events, after "
+        f"{TRAIN_WARMUP_STEPS} warm-up steps, each path from its own train state): "
+        + ", ".join(f"{name} {ms[name]:.3f} [{spread[name][0]:.3f}, {spread[name][1]:.3f}]"
+                    for name in times)
+        + f"; every step {[round(v, 3) for t in times.values() for v in t]}; peak {peak:.3f} "
+        f"GiB (kernel path); launches a step {launches}, recomputes {recomputes}; the loss of "
+        f"each step {({k: [round(float(x), 4) for x in v] for k, v in losses.items()})}, all "
+        f"finite {finite}")
+    if not finite:
+        fail("training timed: a non-finite loss")
+    return dict(ms=ms["kernel path"], cache_ms=ms["image cache"], plain_ms=ms["plain path"],
+                ms_range=spread["kernel path"], cache_ms_range=spread["image cache"],
+                plain_ms_range=spread["plain path"], peak_gib=peak)
+
+
 # kernel -> (source, the TPU kernel it replaces, the phase-2 row whose
 # times and bound it reports, the path whose launches it reports)
 REPLACES = {
@@ -1711,7 +2222,7 @@ def main(argv) -> int:
         print(f"speechclip_tpu_torch not importable beside this script: {e}", file=sys.stderr)
         return 2
 
-    from speechclip_tpu_torch import base_config, shipped_cascaded_config
+    from speechclip_tpu_torch import base_config, flagship_config, shipped_cascaded_config
 
     smi = phase_card_and_build()
     kern = None if profile_only else phase_kernels()
@@ -1728,6 +2239,9 @@ def main(argv) -> int:
         phase_profile(model, params, gallery, smi, _model(shipped_cascaded_config()))
         phase_frontend_split(model, params, smi)
         phase_profile_gallery(model, params, smi)
+        del model, params
+        torch.cuda.empty_cache()
+        phase_profile_train(smi)
         return 0
     launches = {"main": phase_path(3, "main", model, params, gallery, seed=2)}
     phase_throughput(model, params, gallery, smi)
@@ -1755,6 +2269,25 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     phase_vit_l14(smi)
     phase_resnet(smi)
+    torch.cuda.empty_cache()
+    recomputes = {}
+    launches["train auto"], recomputes["train auto"] = phase_train_agreement(
+        "auto", "auto", TRAIN_BATCH, 22, dict(mha_layer_block=13, ffn_block=13),
+        dict(mha_layer_block=1, ffn_block=1))
+    torch.cuda.empty_cache()
+    flagship = flagship_config()
+    text_layers = flagship.clip_text.layers
+    flash = dict(hubert=flagship.audio.encoder_layers, image_tower=flagship.clip_vision.layers,
+                 cascaded_head=1, text_tower=text_layers,
+                 parallel_branch=flagship.parallel_branch.n_layers)
+    say(f"phase 16 training pallas: flash_attention launches expected {flash} = "
+        f"{sum(flash.values())}, backward recomputes cascaded head 1 + text tower "
+        f"{text_layers} + parallel branch 1")
+    launches["train pallas"], recomputes["train pallas"] = phase_train_agreement(
+        "pallas", "pallas", TRAIN_PALLAS_BATCH, 23, dict(flash_attention=sum(flash.values())),
+        dict(flash_attention=2 + text_layers))
+    torch.cuda.empty_cache()
+    train = phase_train_timed(smi)
 
     kernels = []
     for name, (source, replaces, row, path) in REPLACES.items():
@@ -1778,7 +2311,10 @@ def main(argv) -> int:
         })
         if "layers" in timed:
             kernels[-1]["layers"] = timed["layers"]
-    print(json.dumps({"kernels": kernels}))
+        if name in kern["backward"]:
+            kernels[-1]["backward"] = kern["backward"][name]
+            kernels[-1]["recomputes"] = {path: r[name] for path, r in recomputes.items()}
+    print(json.dumps({"kernels": kernels, "train": train}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -9,7 +9,11 @@ against an image-embedding gallery, at any utterance length; and the
 gallery side: uint8 images -> on-device resize and normalize -> the CLIP
 image tower (ViT or ModifiedResNet) -> the image projection, the CLIP text
 tower over token ids, and the validation epoch's two-way retrieval eval
-(``training/evaluation.py``). The encoder
+(``training/evaluation.py``); and the training step of the flagship
+(``training/train_step.py``: both branches over the frozen HuBERT and CLIP
+towers, the contrastive loss, clip, Adam and the LR schedule), whose
+kernels take their gradients from a recompute through their plain versions,
+as the JAX package's ``custom_vjp``s do. The encoder
 layers take the JAX package's length-dependent routes (``ops/attention.py``,
 ``kernels/fused_layer.py``) through hand-written Hopper kernels (``csrc/``:
 the two fused half-layers, whole-row attention, streaming flash attention
@@ -24,6 +28,7 @@ from .config import (
     SpeechCLIPConfig,
     base_cascaded_config,
     base_config,
+    flagship_config,
     shipped_cascaded_config,
     tiny_config,
     tiny_flagship_config,
@@ -36,6 +41,7 @@ __all__ = [
     "SpeechCLIPModel",
     "base_cascaded_config",
     "base_config",
+    "flagship_config",
     "recall_at_k",
     "retrieve",
     "shipped_cascaded_config",

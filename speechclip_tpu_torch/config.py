@@ -32,8 +32,9 @@ from .models.hubert import HUBERT_BASE, HubertConfig
 
 @dataclasses.dataclass(frozen=True)
 class BranchConfig:
-    """``model_settings.parallel_branch`` (a TransformerEncoder), eval mode:
-    no dropout rate."""
+    """``model_settings.parallel_branch`` (a TransformerEncoder); ``dropout``
+    is its ``transformer_args.dropout`` (attention weights, the attention
+    output, the FFN's middle and output, in train mode)."""
 
     n_layers: int = 1
     d_model: int = 768
@@ -43,14 +44,17 @@ class BranchConfig:
     layer_norm_eps: float = 1e-5
     norm_first: bool = False
     need_projection: bool = True
+    dropout: float = 0.1
 
 
 @dataclasses.dataclass(frozen=True)
 class CascadedBranchConfig:
-    """``model_settings.cascaded_branch``, eval mode: the branch body
-    (``transformer_type`` and its ``transformer_args``), the keywords
-    (``keyword.number``, ``keyword.kw_projection.dimensions``,
-    ``keyword.batchnorms``) and the VQ's ``vq.args``."""
+    """``model_settings.cascaded_branch``: the branch body
+    (``transformer_type`` and its ``transformer_args``, ``dropout`` on the
+    attention weights in train mode), the keywords (``keyword.number``,
+    ``keyword.kw_projection.dimensions`` and ``.dropout``,
+    ``keyword.batchnorms``, whose ``replica_groups`` splits the batch into
+    groups with their own train-mode statistics) and the VQ's ``vq.args``."""
 
     transformer_type: str = "MultiheadAttentionAndNorm"
     n_layers: int = 1
@@ -62,6 +66,7 @@ class CascadedBranchConfig:
     norm_first: bool = False
     keyword_number: int = 8
     kw_projection: Optional[Tuple[int, ...]] = None
+    kw_projection_dropout: float = 0.1
     batchnorm_type: Optional[str] = "eachKw"  # None: no kw-BN
     bn_std_scale: Union[float, Tuple[float, ...]] = 1.0
     bn_parallel: bool = True
@@ -69,6 +74,47 @@ class CascadedBranchConfig:
     use_gumbel: bool = False
     hard: bool = True
     ground_truth_perplexity: Optional[float] = None
+    dropout: float = 0.1
+    bn_replica_groups: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ContrastiveLossConfig:
+    """``cl_loss``: ``type`` MaskedContrastiveLoss or SupConLoss and its
+    ``args`` (SupCon reads ``temperature``, ``temperature_trainable``,
+    ``contrast_mode`` and ``base_temperature``)."""
+
+    type: str = "MaskedContrastiveLoss"
+    temperature: float = 0.07
+    temperature_trainable: bool = False
+    margin: float = 0.0
+    dcl: bool = False
+    a2b: bool = True
+    b2a: bool = True
+    contrast_mode: str = "all"
+    base_temperature: float = 0.07
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """``audio_encoder.optim``: Adam (L2 decay in the gradient) or AdamW."""
+
+    name: str = "Adam"
+    lr: float = 1e-4
+    weight_decay: float = 1e-6
+    betas: Tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulerConfig:
+    """``audio_encoder.scheduler``: ``noam`` (reads ``warmup``) or
+    ``linear_warmup_decay``."""
+
+    name: str = "linear_warmup_decay"
+    warmup: int = 5000
+    max_step: int = 50000
+    final_lr: float = 1e-8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,13 +223,38 @@ class SpeechCLIPConfig:
     reduce_subword_embedding: Optional[str] = None
     clip_embed_dim: int = 512  # ViT-B/32 image embedding width
     precision: Union[int, str] = 16  # 16 / "bf16" -> bf16, 32 -> f32
+    # model_settings.*_projection.dropout
+    parallel_branch_projection_dropout: float = 0.1
+    cascaded_branch_projection_dropout: float = 0.1
+    image_encoder_projection_dropout: float = 0.1
+    # which towers train: audio_encoder.trainable (with reinit_layers /
+    # unfreeze_layers), clip.image_encoder_trainable, .text_encoder_trainable
+    audio_trainable: bool = False
+    reinit_layers: Tuple[int, ...] = ()
+    unfreeze_layers: Tuple[int, ...] = ()
+    image_encoder_trainable: bool = False
+    text_encoder_trainable: bool = False
+    cl_loss: ContrastiveLossConfig = ContrastiveLossConfig()
+    optim: OptimizerConfig = OptimizerConfig()
+    scheduler: SchedulerConfig = SchedulerConfig()
+    gradient_clip_val: float = 4.0  # trainer.gradient_clip_val; 0: no clip
+    accumulate_grad_batches: int = 1
+    # retrieval.audio_feat_src: the branch whose features the eval step returns
+    retrieval_audio_feat_src: Optional[str] = "parallel"
 
 
 FLICKR_VOCAB = "assets/flickr_stat/text_clip_vocab_usage_byfreq.npy"
 
 
 def base_config() -> SpeechCLIPConfig:
+    """SpeechCLIP base, parallel branch only."""
     return SpeechCLIPConfig()
+
+
+def flagship_config() -> SpeechCLIPConfig:
+    """SpeechCLIP base with both branches live (the JAX ``flagship_config()``):
+    full CLIP vocabulary, both objective weights 1.0."""
+    return SpeechCLIPConfig(cascaded_objective_weight=1.0)
 
 
 def base_cascaded_config() -> SpeechCLIPConfig:
@@ -194,7 +265,8 @@ def base_cascaded_config() -> SpeechCLIPConfig:
 def shipped_cascaded_config() -> SpeechCLIPConfig:
     """``configs/base/spchclp_c.yaml``: the cascaded branch over the reduced
     Flickr subword vocabulary."""
-    return dataclasses.replace(base_cascaded_config(), reduce_subword_embedding=FLICKR_VOCAB)
+    return dataclasses.replace(base_cascaded_config(), reduce_subword_embedding=FLICKR_VOCAB,
+                               retrieval_audio_feat_src="cascaded")
 
 
 def tiny_flagship_config() -> SpeechCLIPConfig:

@@ -8,9 +8,12 @@ copy straight across. Convolution kernels change layout: JAX's WIO
 HWIO ``(kh, kw, in, out)`` (the CLIP image towers' convs) becomes OIHW
 ``(out, in, kh, kw)``. The CLIP towers (``clip``: ``visual``, ``text``,
 ``logit_scale``) and the image projection (``img_enc_proj``) come across
-whatever the branches; the loss temperature (``criterion``) is dropped. The
-state tree (the cascaded branch's kw-BN running statistics) comes across
-with ``speechclip_state_from_jax``.
+whatever the branches; so do a trainable loss temperature (``criterion``:
+``log_inv_temp``, or SupCon's ``temp``; a fixed one is an empty subtree and
+stays behind, as the port's ``init`` builds none) and a learnable VQ
+temperature (``cascaded_branch.vq.curr_temp``). The state tree (the
+cascaded branch's kw-BN running statistics) comes across with
+``speechclip_state_from_jax``.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 
 PORT_KEYS = ("audio_encoder", "weighted_sum", "parallel_branch", "p_branch_proj",
-             "cascaded_branch", "c_branch_proj", "img_enc_proj", "clip")
+             "cascaded_branch", "c_branch_proj", "img_enc_proj", "clip", "criterion")
 
 
 def _tensors(tree: Any) -> Any:
@@ -52,7 +55,7 @@ def _hwio_to_oihw(tree: Any) -> Any:
 def speechclip_params_from_jax(tree: dict) -> dict:
     """JAX ``SpeechCLIPModel.init`` params (numpy leaves) -> the port's f32
     params dict on the CPU (cast with ``models.speechclip.cast_params``)."""
-    params = {k: _tensors(tree[k]) for k in PORT_KEYS if tree.get(k) is not None}
+    params = {k: _tensors(tree[k]) for k in PORT_KEYS if tree.get(k)}
     if "clip" in params:
         params["clip"]["visual"] = _hwio_to_oihw(params["clip"]["visual"])
     ae = params.get("audio_encoder")

@@ -103,10 +103,6 @@ def check_attention_operands(q, k, v, lens, what: str, max_head_dim: Optional[in
             raise ValueError(f"{what}: kernel path needs CUDA tensors, got {t.device}")
         if t.dtype not in dtypes or t.dtype != q.dtype:
             raise TypeError(f"{what}: kernel path runs {names} (q, k, v alike), got {t.dtype}")
-        if t.requires_grad:
-            raise RuntimeError(
-                f"{what}: kernel path is forward-only: an input requires grad"
-            )
     b, h, l, dh = q.shape
     s = k.shape[2]
     if k.shape != (b, h, s, dh) or v.shape != (b, h, s, dh):

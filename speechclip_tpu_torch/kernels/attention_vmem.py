@@ -14,7 +14,11 @@ optional causal flag, with the TPU kernel's rounding points:
 That is not ``masked_sdpa``'s rounding, which normalizes in f32 first.
 
 On a CUDA bf16 tensor it launches ``csrc/attention_vmem.cu``; on a CPU
-tensor, or with ``plain=True``, it runs ``attention_vmem_plain``. The
+tensor, or with ``plain=True``, it runs ``attention_vmem_plain``. Where q,
+k or v requires grad, the call goes through ``AttentionVmemFn``: the
+forward as above, the gradient from a recompute through
+``attention_vmem_plain`` (``_plain_grad``; JAX's ``_bwd`` recomputes
+through ``masked_sdpa``). The
 kernel sweeps K twice (the row max, then the rounded p and P V) with its
 scores in registers, so its shared memory depends on Dh alone and it takes
 rows of any length.
@@ -33,6 +37,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from ._plain_grad import needs_grad, plain_grad_function
 from ._attention_common import (
     check_attention_operands,
     empty_heads_out,
@@ -80,7 +85,7 @@ def attention_vmem_plain(q, k, v, lens: Optional[torch.Tensor], causal: bool = F
     ok = key_mask(lens, causal, q.shape[2], k.shape[2], q.device)
     if ok is not None:
         s = s.masked_fill(~ok, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).to(dt)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True).detach()).to(dt)
     acc = matmul_f32(p, v)
     denom = p.float().sum(dim=-1, keepdim=True)
     return (acc / denom.clamp(min=1e-30)).to(dt)
@@ -119,8 +124,19 @@ def rowwise_attention(q, k, v, lens, out, causal: bool, vmem_rounding: bool) -> 
 def attention_vmem(q, k, v, lens: Optional[torch.Tensor] = None,
                    causal: bool = False, plain: bool = False) -> torch.Tensor:
     """(B, H, L, Dh) x3 [+ lens (B,)] -> (B, H, L, Dh). CPU tensor or
-    ``plain``: the plain version. CUDA tensor: the kernel, or an exception."""
-    if plain or q.device.type == "cpu":
+    ``plain``: the plain version. CUDA tensor: the kernel, or an exception.
+    Differentiable: where an input requires grad, through
+    ``AttentionVmemFn`` (``plain``: the plain version's own autograd)."""
+    if plain:
+        return attention_vmem_plain(q, k, v, lens, causal)
+    if needs_grad(q, k, v):
+        return AttentionVmemFn.apply(q, k, v, lens, causal)
+    return _attention_vmem(q, k, v, lens, causal)
+
+
+def _attention_vmem(q, k, v, lens: Optional[torch.Tensor], causal: bool) -> torch.Tensor:
+    """The device dispatch of ``attention_vmem``."""
+    if q.device.type == "cpu":
         return attention_vmem_plain(q, k, v, lens, causal)
     check_attention_operands(q, k, v, lens, "attention_vmem")
     b, h, l, dh = q.shape
@@ -131,3 +147,6 @@ def attention_vmem(q, k, v, lens: Optional[torch.Tensor] = None,
 
 
 attention_vmem.launches = 0
+attention_vmem.recomputes = 0
+AttentionVmemFn = plain_grad_function("AttentionVmemFn", _attention_vmem, attention_vmem_plain,
+                                      attention_vmem)

@@ -9,13 +9,17 @@ residual epilogue [-> row LN for "post"] (csrc/gemm_epilogue.cu). On a CPU
 tensor: ``ffn_block_plain``, with the TPU kernel's rounding points — the
 fc1 pre-activation is f32 accumulator + f32 bias rounded to the activation
 dtype, then GELU (tanh for bf16, erf for f32), fc2 in f32 + f32 bias, f32
-residual and LayerNorm.
+residual and LayerNorm. Where an input requires grad, the call goes through
+``FfnBlockFn``: the forward as above, the gradient from a recompute through
+``ffn_block_plain`` (``_plain_grad``), the weight matrices cast to the
+activation dtype before it, inside the graph.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ._plain_grad import needs_grad, plain_grad_function
 from .mha_block import (
     EPI_BIAS,
     EPI_BIAS_GELU,
@@ -67,9 +71,18 @@ def ffn_block_plain(x, w1, b1, w2, b2, ln_g, ln_b, ln_mode: str,
 def ffn_block(x, w1, b1, w2, b2, ln_g, ln_b, ln_mode: str,
               eps: float) -> torch.Tensor:
     """(B, T, D) -> (B, T, D). CPU tensor: the plain version. CUDA tensor:
-    the hand-written kernels, or an exception."""
+    the hand-written kernels, or an exception. Differentiable: where an
+    input requires grad, through ``FfnBlockFn``."""
     if ln_mode not in LN_MODES:
         raise ValueError(f"ln_mode {ln_mode!r} not in {LN_MODES}")
+    if needs_grad(x, w1, b1, w2, b2, ln_g, ln_b):
+        return FfnBlockFn.apply(x, w1.to(x.dtype), b1, w2.to(x.dtype), b2, ln_g, ln_b,
+                                ln_mode, eps)
+    return _ffn_block(x, w1, b1, w2, b2, ln_g, ln_b, ln_mode, eps)
+
+
+def _ffn_block(x, w1, b1, w2, b2, ln_g, ln_b, ln_mode: str, eps: float) -> torch.Tensor:
+    """The device dispatch of ``ffn_block``."""
     if x.device.type == "cpu":
         return ffn_block_plain(x, w1, b1, w2, b2, ln_g, ln_b, ln_mode, eps)
     check_cuda_operands(x, w1, b1, w2, b2, ln_g, ln_b)
@@ -90,3 +103,5 @@ def ffn_block(x, w1, b1, w2, b2, ln_g, ln_b, ln_mode: str,
 
 
 ffn_block.launches = 0
+ffn_block.recomputes = 0
+FfnBlockFn = plain_grad_function("FfnBlockFn", _ffn_block, ffn_block_plain, ffn_block)

@@ -28,6 +28,11 @@ loads and CUDA-core f32 arithmetic throughout, the TPU kernel's own f32
 form; a block stages its Q rows and 32-key blocks of K and V in shared
 memory, a lane scores one key against its warp's rows, Dh up to
 F32_MAX_HEAD_DIM (the cascaded branch's 768-wide head).
+
+Where q, k or v requires grad, the call goes through ``FlashAttentionFn``:
+the forward as above, the gradient from a recompute through
+``flash_attention_plain`` (``_plain_grad``; JAX's ``_bwd`` recomputes
+through ``masked_sdpa``).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from ._plain_grad import needs_grad, plain_grad_function
 from ._sdpa_ref import NEG_INF
 from ._attention_common import check_attention_operands, empty_heads_out, key_mask, launch_args
 
@@ -57,7 +63,7 @@ def flash_attention_plain(q, k, v, lens: Optional[torch.Tensor], causal: bool = 
     ok = key_mask(lens, causal, q.shape[2], k.shape[2], q.device)
     if ok is not None:
         s = s.masked_fill(~ok, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True).detach())
     out = (p @ v.float()) / p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
     return out.to(q.dtype)
 
@@ -87,8 +93,19 @@ def wide_scores_shape(b: int, h: int, l: int, s: int):
 def flash_attention(q, k, v, lens: Optional[torch.Tensor] = None,
                     causal: bool = False, plain: bool = False) -> torch.Tensor:
     """(B, H, L, Dh) x3 [+ lens (B,)] -> (B, H, L, Dh). CPU tensor or
-    ``plain``: the plain version. CUDA tensor: the kernel, or an exception."""
-    if plain or q.device.type == "cpu":
+    ``plain``: the plain version. CUDA tensor: the kernel, or an exception.
+    Differentiable: where an input requires grad, through
+    ``FlashAttentionFn`` (``plain``: the plain version's own autograd)."""
+    if plain:
+        return flash_attention_plain(q, k, v, lens, causal)
+    if needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, lens, causal)
+    return _flash_attention(q, k, v, lens, causal)
+
+
+def _flash_attention(q, k, v, lens: Optional[torch.Tensor], causal: bool) -> torch.Tensor:
+    """The device dispatch of ``flash_attention``."""
+    if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, lens, causal)
     f32 = q.dtype == torch.float32
     check_attention_operands(q, k, v, lens, "flash_attention",
@@ -116,3 +133,6 @@ def flash_attention(q, k, v, lens: Optional[torch.Tensor] = None,
 
 
 flash_attention.launches = 0
+flash_attention.recomputes = 0
+FlashAttentionFn = plain_grad_function("FlashAttentionFn", _flash_attention,
+                                       flash_attention_plain, flash_attention)

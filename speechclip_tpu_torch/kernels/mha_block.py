@@ -19,6 +19,12 @@ rows of any length. On a CPU tensor it runs ``mha_layer_block_plain``,
 which keeps the TPU kernel's rounding points: f32 accumulation, f32 bias
 added before rounding qkv to the activation dtype, f32 masked softmax, f32
 residual and LayerNorm.
+
+Where an input requires grad, the call goes through ``MhaLayerBlockFn``
+(the JAX ``custom_vjp``'s counterpart, ``_plain_grad``): the forward as
+above, the gradient from a recompute through ``mha_layer_block_plain``.
+The weight matrices are cast to the activation dtype before it, inside the
+graph, so their gradients land on the caller's (f32) leaves.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 
 from . import _build
 from . import attention_vmem as rowwise
+from ._plain_grad import needs_grad, plain_grad_function
 from ._attention_common import MAX_HEAD_DIM, MAX_ROWS
 from ._sdpa_ref import masked_sdpa
 from ..ops.basic import matmul_f32
@@ -109,11 +116,6 @@ def check_cuda_operands(x: torch.Tensor, *params: Optional[torch.Tensor]):
         raise ValueError(f"kernel path needs a CUDA tensor, got {x.device}")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"kernel path runs bf16 activations, got {x.dtype}")
-    if x.requires_grad or any(p is not None and p.requires_grad for p in params):
-        raise RuntimeError(
-            "kernel path is forward-only: an input requires grad (the "
-            "backward kernels are not ported yet)"
-        )
     for p in params:
         if p is not None and p.device != x.device:
             raise ValueError(f"operand on {p.device}, activations on {x.device}")
@@ -232,9 +234,20 @@ def attention_core(qkv: torch.Tensor, lens: Optional[torch.Tensor], bsz: int,
 def mha_layer_block(x, w_in, b_in, w_out, b_out, ln_g, ln_b, lens,
                     heads: int, ln_mode: str, eps: float) -> torch.Tensor:
     """(B, T, D) -> (B, T, D). CPU tensor: the plain version. CUDA tensor:
-    the hand-written kernels, or an exception."""
+    the hand-written kernels, or an exception. Differentiable: where an
+    input requires grad, through ``MhaLayerBlockFn``."""
     if ln_mode not in LN_MODES:
         raise ValueError(f"ln_mode {ln_mode!r} not in {LN_MODES}")
+    args = (x, w_in, b_in, w_out, b_out, ln_g, ln_b)
+    if needs_grad(*args):
+        return MhaLayerBlockFn.apply(x, w_in.to(x.dtype), b_in, w_out.to(x.dtype), b_out,
+                                     ln_g, ln_b, lens, heads, ln_mode, eps)
+    return _mha_layer_block(*args, lens, heads, ln_mode, eps)
+
+
+def _mha_layer_block(x, w_in, b_in, w_out, b_out, ln_g, ln_b, lens,
+                     heads: int, ln_mode: str, eps: float) -> torch.Tensor:
+    """The device dispatch of ``mha_layer_block``."""
     if x.device.type == "cpu":
         return mha_layer_block_plain(
             x, w_in, b_in, w_out, b_out, ln_g, ln_b, lens, heads, ln_mode, eps
@@ -258,3 +271,6 @@ def mha_layer_block(x, w_in, b_in, w_out, b_out, ln_g, ln_b, lens,
 
 
 mha_layer_block.launches = 0
+mha_layer_block.recomputes = 0
+MhaLayerBlockFn = plain_grad_function("MhaLayerBlockFn", _mha_layer_block,
+                                      mha_layer_block_plain, mha_layer_block)

@@ -1,5 +1,7 @@
-"""SpeechCLIP's two branch heads, eval mode (port of
-speechclip_tpu/models/branches.py).
+"""SpeechCLIP's two branch heads (port of speechclip_tpu/models/branches.py),
+in eval mode or in train mode (dropout and the VQ's train forms drawn from
+one ``torch.Generator``; kw-BN on batch statistics, returning its new
+running statistics).
 
 - parallel branch (:308-367): a learnable CLS row prepended to the audio
   features, a TransformerEncoder over (CLS + frames), the CLS output
@@ -14,7 +16,7 @@ speechclip_tpu/models/branches.py).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -92,27 +94,41 @@ def cascaded_branch_init(
     return params, state
 
 
-def _project_keywords(params: Params, keywords: torch.Tensor) -> torch.Tensor:
+def _project_keywords(params: Params, branch_cfg, keywords: torch.Tensor, train: bool = False,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
     if params["proj"].get("mlp") is not None:
-        return mlp_apply(params["proj"]["mlp"], keywords)
+        return mlp_apply(params["proj"]["mlp"], keywords, branch_cfg.kw_projection_dropout,
+                         generator, train)
     return linear(params["proj"]["linear"], keywords)
+
+
+def _pre_vq_keywords(params: Params, state: Params, branch_cfg, audio_feat: torch.Tensor,
+                     audio_len: torch.Tensor, plain: bool, train: bool,
+                     generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, Params]:
+    """Branch body -> K keyword rows -> projection -> kw-BN: (keywords
+    (B, K, text_dim), the new state)."""
+    src, kpm, lens = _src_and_mask(params, audio_feat, audio_len)
+    out = branch_transformer_apply(params["transformer"], branch_cfg.transformer_type,
+                                   branch_cfg, src, kpm, key_valid_lens=lens, plain=plain,
+                                   train=train, generator=generator)
+    keywords = _project_keywords(params, branch_cfg, out[:, : branch_cfg.keyword_number],
+                                 train, generator)
+    if "bn" not in params:
+        return keywords, state
+    keywords, bn_state = kw_bn_apply(params["bn"], state["bn"], keywords,
+                                     batchnorm_type=branch_cfg.batchnorm_type,
+                                     parallel=branch_cfg.bn_parallel, train=train,
+                                     replica_groups=branch_cfg.bn_replica_groups)
+    return keywords, {**state, "bn": bn_state}
 
 
 def project_keywords_for_visualization(params: Params, state: Params, branch_cfg,
                                        audio_feat: torch.Tensor, audio_len: torch.Tensor,
                                        plain: bool = False) -> torch.Tensor:
-    """Branch body -> K keyword rows -> projection -> kw-BN: the keywords
-    before VQ, (B, K, text_dim), which the attention map also scores
-    against the token table."""
-    src, kpm, lens = _src_and_mask(params, audio_feat, audio_len)
-    out = branch_transformer_apply(params["transformer"], branch_cfg.transformer_type,
-                                   branch_cfg, src, kpm, key_valid_lens=lens, plain=plain)
-    keywords = _project_keywords(params, out[:, : branch_cfg.keyword_number])
-    if "bn" in params:
-        keywords = kw_bn_apply(params["bn"], state["bn"], keywords,
-                               batchnorm_type=branch_cfg.batchnorm_type,
-                               parallel=branch_cfg.bn_parallel)
-    return keywords
+    """The keywords before VQ at eval, (B, K, text_dim), which the attention
+    map also scores against the token table."""
+    return _pre_vq_keywords(params, state, branch_cfg, audio_feat, audio_len, plain,
+                            False, None)[0]
 
 
 def cascaded_branch_apply(
@@ -126,20 +142,27 @@ def cascaded_branch_apply(
     audio_feat: torch.Tensor,  # (B, T, D)
     audio_len: torch.Tensor,  # (B,)
     plain: bool = False,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
+    num_updates: Optional[torch.Tensor] = None,
 ):
     """-> (text-tower features (B, output_dim), vq_results, keywords
-    (B, K, text_dim) after VQ, in the activation dtype). Eval mode: the
-    kw-BN state is read, never updated."""
-    keywords = project_keywords_for_visualization(params, state, branch_cfg, audio_feat,
-                                                  audio_len, plain)
+    (B, K, text_dim) after VQ, in the activation dtype, the new state). At
+    eval the kw-BN state is read and returned as it is; in train mode it
+    moves with the batch statistics. ``num_updates`` drives a scheduled VQ
+    temperature."""
+    keywords, new_state = _pre_vq_keywords(params, state, branch_cfg, audio_feat, audio_len,
+                                           plain, train, generator)
     table = clip_params["text"]["token_embedding"]
     vq_results = vq_apply(
         params["vq"], cosine_scores(keywords, table), temp_spec=branch_cfg.vq_temp,
+        use_gumbel=branch_cfg.use_gumbel, hard=branch_cfg.hard, train=train,
+        generator=generator, num_updates=num_updates,
         ground_truth_perplexity=branch_cfg.ground_truth_perplexity,
     )
     keywords = (vq_results["subword_prob"] @ table.float()).to(audio_feat.dtype)
     feat = clip_mod.encode_keywords(clip_params, clip_cfg, keywords, sot_id, eot_id, plain)
-    return feat, vq_results, keywords
+    return feat, vq_results, keywords, new_state
 
 
 def cascaded_branch_hidden_states(params: Params, branch_cfg, audio_feat: torch.Tensor,
@@ -185,12 +208,16 @@ def parallel_branch_apply(
     audio_feat: torch.Tensor,  # (B, T, D)
     audio_len: torch.Tensor,  # (B,) feature lengths
     plain: bool = False,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """-> (B, out_dim). Keys are masked with ``audio_len + 1`` (the CLS)."""
+    """-> (B, out_dim). Keys are masked with ``audio_len + 1`` (the CLS); in
+    train mode the body's dropout is drawn from ``generator``."""
     src = _prepend_cls(params, audio_feat)
     out = branch_transformer_apply(
         params["transformer"], "TransformerEncoder", branch_cfg, src, None,
         key_valid_lens=audio_len + params["cls"].shape[1], plain=plain,
+        train=train, generator=generator,
     )
     out = out[:, 0]
     if "proj" in params:

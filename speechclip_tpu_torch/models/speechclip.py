@@ -1,11 +1,18 @@
-"""The SpeechCLIP model, eval mode (port of
-speechclip_tpu/models/speechclip.py: ``init``, ``forward_audio``,
-``encode_speech``, ``extract_hidden_states``, ``get_attention_weights``
-and ``get_attention_map`` on the speech side, with the parallel branch,
-the cascaded branch or both; ``encode_image_tower``,
-``project_image_feat``, ``forward_image`` and ``forward_text`` on the
-gallery side). A gallery feature is ``l2_normalize(forward_image(...)
+"""The SpeechCLIP model (port of speechclip_tpu/models/speechclip.py:
+``init``, ``forward_audio``, ``encode_speech``, ``extract_hidden_states``,
+``get_attention_weights`` and ``get_attention_map`` on the speech side,
+with the parallel branch, the cascaded branch or both;
+``encode_image_tower``, ``project_image_feat``, ``forward_image`` and
+``forward_text`` on the gallery side; and for training ``forward`` (the
+features of both sides, eval or train mode), ``compute_loss`` and
+``trainable_mask``). A gallery feature is ``l2_normalize(forward_image(...)
 .float())``, as the JAX model's ``forward`` makes it.
+
+HuBERT and the CLIP towers are frozen: their forwards run under
+``torch.no_grad()`` (the port's form of JAX's ``stop_gradient`` on the
+frozen outputs), so they take the kernels' forward-only launches and keep
+no graph. The cascaded branch's pass through the frozen text tower does
+carry a gradient, to the keywords, not to the tower's weights.
 
 Parameters are a plain nested dict with the JAX package's keys
 (``audio_encoder``, ``weighted_sum``, ``parallel_branch``,
@@ -23,7 +30,9 @@ bf16-rounded table; and the cascaded branch's bf16 pass through the tower
 casts each weight where it is used (``linear``), as JAX does.
 
 The model and ``cast_params`` run on the card unless the caller asks for
-the CPU (``device="cpu"``); without a card they raise.
+the CPU (``device="cpu"``); without a card they raise. A trainable encoder
+or CLIP tower, and ``wsum_remat``, raise ``NotImplementedError``: they wait
+for the ROADMAP item "Training".
 """
 
 from __future__ import annotations
@@ -39,12 +48,20 @@ from ..config import SpeechCLIPConfig
 from ..data.image import device_clip_preprocess
 from ..ops.basic import Params, l2_normalize
 from ..ops import retrieval
+from ..ops.losses import (
+    contrastive_temp_init,
+    contrastive_temperature,
+    masked_contrastive_loss,
+    supcon_loss,
+)
 from ..ops.mlp import mlp_apply, mlp_init
 from ..ops.transformer import TRANSFORMER_TYPES
 from ..ops.weighted_sum import weighted_sum_apply, weighted_sum_init
 from . import branches, clip as clip_mod, hubert
 
 WEIGHTED_SUM_MODE = "weighted_sum"
+LOSS_TYPES = ("MaskedContrastiveLoss", "SupConLoss")
+TRAINING_ITEM = "the ROADMAP item 'Training'"
 REPO_ROOT = Path(__file__).resolve().parents[2]
 
 
@@ -106,9 +123,22 @@ class SpeechCLIPModel:
             )
         if config.wsum_remat:
             raise NotImplementedError(
-                "wsum_remat (the frozen weighted-sum custom VJP) waits for the "
-                "ROADMAP item 'Training'"
+                "wsum_remat (the frozen weighted-sum autograd.Function, HuBERT-large's "
+                f"memory path) waits for {TRAINING_ITEM}"
             )
+        if (config.reinit_layers or config.unfreeze_layers) and not config.audio_trainable:
+            raise ValueError(
+                "reinit_layers/unfreeze_layers require audio_trainable: otherwise the "
+                "selected layers would stay frozen"
+            )
+        if config.audio_trainable:
+            raise NotImplementedError(
+                f"a trainable audio encoder (reinit/unfreeze) waits for {TRAINING_ITEM}")
+        if config.image_encoder_trainable or config.text_encoder_trainable:
+            raise NotImplementedError(
+                f"trainable CLIP towers wait for {TRAINING_ITEM}; both stay frozen")
+        if config.cl_loss.type not in LOSS_TYPES:
+            raise NotImplementedError(f"cl_loss type {config.cl_loss.type}")
         self.use_parallel = config.parallel_objective_weight > 0
         self.use_cascaded = config.cascaded_objective_weight > 0
         if not (self.use_parallel or self.use_cascaded):
@@ -149,6 +179,16 @@ class SpeechCLIPModel:
         cfg = self.config
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params: Params = {"audio_encoder": hubert.hubert_init(gen, self.audio_cfg)}
+        cl = cfg.cl_loss
+        if cl.type == "MaskedContrastiveLoss":
+            criterion = contrastive_temp_init(cl.temperature, cl.temperature_trainable,
+                                              self.device)
+        else:  # SupConLoss: the temperature itself
+            criterion = ({"temp": torch.tensor(cl.temperature, dtype=torch.float32,
+                                               device=self.device)}
+                         if cl.temperature_trainable else {})
+        if criterion:
+            params["criterion"] = criterion
         state: Params = {}
         if cfg.feat_select_idx == WEIGHTED_SUM_MODE:
             params["weighted_sum"] = weighted_sum_init(self.audio_cfg.num_hidden_states, self.device)
@@ -197,9 +237,10 @@ class SpeechCLIPModel:
         if wav.dtype == torch.int16:
             wav = wav.float() * (1.0 / 32768.0)
         wav = wav.to(self.compute_dtype)
-        hidden_states, feat_len = hubert.hubert_apply(
-            params["audio_encoder"], self.audio_cfg, wav, wav_len, plain=plain
-        )
+        with torch.no_grad():  # the frozen encoder
+            hidden_states, feat_len = hubert.hubert_apply(
+                params["audio_encoder"], self.audio_cfg, wav, wav_len, plain=plain
+            )
         if self.hidden_norm_type in ("method1", "method2"):
             hidden_states = hubert.normalize_hidden_states(
                 hidden_states, self.hidden_norm_type
@@ -238,7 +279,7 @@ class SpeechCLIPModel:
         audio_feat, audio_len = self.forward_audio(params, wav, wav_len, plain=plain)
         out: Dict[str, Any] = {}
         if self.use_cascaded:
-            feat, vq_results, keywords = branches.cascaded_branch_apply(
+            feat, vq_results, keywords, _ = branches.cascaded_branch_apply(
                 params["cascaded_branch"], state.get("cascaded_branch", {}),
                 self.config.cascaded_branch, params["clip"], self.clip_cfg,
                 self.sot_id, self.eot_id, audio_feat, audio_len, plain=plain,
@@ -260,25 +301,34 @@ class SpeechCLIPModel:
 
     def encode_image_tower(self, params: Params, images: torch.Tensor,
                            plain: bool = False) -> torch.Tensor:
-        """The CLIP image tower alone, on the model's device: (B, H, W, 3)
-        uint8 images take ``device_clip_preprocess`` first; then the compute
-        dtype and ``clip.encode_image`` -> (B, output_dim)."""
+        """The frozen CLIP image tower alone, on the model's device, under
+        ``torch.no_grad()``: (B, H, W, 3) uint8 images take
+        ``device_clip_preprocess`` first; then the compute dtype and
+        ``clip.encode_image`` -> (B, output_dim). The trainer's image-feature
+        cache (``forward``'s ``image_feat_frozen``) holds its output."""
         images = images.to(self.device)
-        if images.dtype == torch.uint8:
-            images = device_clip_preprocess(images, self.vision_cfg.image_size)
-        images = images.to(self.compute_dtype)
-        return clip_mod.encode_image(params["clip"], self.vision_cfg, images, plain)
+        with torch.no_grad():
+            if images.dtype == torch.uint8:
+                images = device_clip_preprocess(images, self.vision_cfg.image_size)
+            images = images.to(self.compute_dtype)
+            return clip_mod.encode_image(params["clip"], self.vision_cfg, images, plain)
 
-    def project_image_feat(self, params: Params, feat: torch.Tensor) -> torch.Tensor:
-        """The image projection MLP (``img_enc_proj``) where configured."""
+    def project_image_feat(self, params: Params, feat: torch.Tensor,
+                           generator: Optional[torch.Generator] = None,
+                           train: bool = False) -> torch.Tensor:
+        """The image projection MLP (``img_enc_proj``) where configured, the
+        trainable tail of the image side."""
         if "img_enc_proj" in params:
-            feat = mlp_apply(params["img_enc_proj"], feat)
+            feat = mlp_apply(params["img_enc_proj"], feat,
+                             self.config.image_encoder_projection_dropout, generator, train)
         return feat
 
-    def forward_image(self, params: Params, images: torch.Tensor,
-                      plain: bool = False) -> torch.Tensor:
+    def forward_image(self, params: Params, images: torch.Tensor, plain: bool = False,
+                      generator: Optional[torch.Generator] = None,
+                      train: bool = False) -> torch.Tensor:
         """Image tower, then the projection: (B, E) in the compute dtype."""
-        return self.project_image_feat(params, self.encode_image_tower(params, images, plain))
+        return self.project_image_feat(params, self.encode_image_tower(params, images, plain),
+                                       generator, train)
 
     def forward_text(self, params: Params, text: torch.Tensor,
                      eot_positions: Optional[torch.Tensor] = None,
@@ -292,6 +342,152 @@ class SpeechCLIPModel:
             eot_positions = eot_positions.to(self.device)
         return clip_mod.encode_text(params["clip"], self.clip_cfg, text.to(self.device),
                                     eot_positions, plain)
+
+    def forward(
+        self,
+        params: Params,
+        state: Params,
+        batch: Dict[str, torch.Tensor],
+        generator: Optional[torch.Generator] = None,
+        train: bool = False,
+        num_updates: Optional[torch.Tensor] = None,
+        plain: bool = False,
+    ) -> Tuple[Dict, Dict, Dict, Params]:
+        """-> (loss_feats, log_metrics, others, new_state), as the JAX
+        model's ``forward``. ``batch``: ``wav``, ``wav_len``, ``id`` and
+        either ``image`` or ``image_feat_frozen`` (the image tower's output,
+        cached by the trainer: only the projection runs). In train mode the
+        dropout and the Gumbel noise are drawn from ``generator``, kw-BN
+        normalizes with batch statistics and returns its running statistics
+        updated, and ``num_updates`` drives a scheduled VQ temperature.
+        Features come out L2-normalized in f32."""
+        audio_feat, audio_len = self.forward_audio(params, batch["wav"], batch["wav_len"],
+                                                   plain=plain)
+        if "image_feat_frozen" in batch:
+            frozen = batch["image_feat_frozen"].to(self.device, self.compute_dtype)
+            image_feat = self.project_image_feat(params, frozen, generator, train)
+        else:
+            image_feat = self.forward_image(params, batch["image"], plain, generator, train)
+        cfg = self.config
+        cascaded_feat = parallel_feat = vq_results = keywords = None
+        new_state = state
+        if self.use_cascaded:
+            cascaded_feat, vq_results, keywords, branch_state = branches.cascaded_branch_apply(
+                params["cascaded_branch"], state.get("cascaded_branch", {}),
+                cfg.cascaded_branch, params["clip"], self.clip_cfg, self.sot_id, self.eot_id,
+                audio_feat, audio_len, plain=plain, train=train, generator=generator,
+                num_updates=num_updates,
+            )
+            if branch_state:
+                new_state = {**state, "cascaded_branch": branch_state}
+            if "c_branch_proj" in params:
+                cascaded_feat = mlp_apply(params["c_branch_proj"], cascaded_feat,
+                                          cfg.cascaded_branch_projection_dropout, generator,
+                                          train)
+        if self.use_parallel:
+            parallel_feat = branches.parallel_branch_apply(
+                params["parallel_branch"], cfg.parallel_branch, audio_feat, audio_len,
+                plain=plain, train=train, generator=generator,
+            )
+            if "p_branch_proj" in params:
+                parallel_feat = mlp_apply(params["p_branch_proj"], parallel_feat,
+                                          cfg.parallel_branch_projection_dropout, generator,
+                                          train)
+        ids = batch["id"].to(self.device)
+        image_feat = l2_normalize(image_feat.float())
+        loss_feats: Dict[str, Any] = {"id": ids, "image_feat": image_feat}
+        log_metrics: Dict[str, Any] = {}
+        if cascaded_feat is not None:
+            cascaded_feat = l2_normalize(cascaded_feat.float())
+            loss_feats["cascaded_audio_feat"] = cascaded_feat
+            log_metrics["softmax_temp"] = vq_results["temp"]
+        if parallel_feat is not None:
+            parallel_feat = l2_normalize(parallel_feat.float())
+            loss_feats["parallel_audio_feat"] = parallel_feat
+        log_metrics["cl_temp"] = self._current_cl_temperature(params)
+        others = {
+            "cascaded_audio_feat": cascaded_feat, "parallel_audio_feat": parallel_feat,
+            "image_feat": image_feat, "id": ids, "vq_results": vq_results,
+            "keywords": keywords,
+        }
+        return loss_feats, log_metrics, others, new_state
+
+    def _current_cl_temperature(self, params: Params) -> torch.Tensor:
+        """The contrastive loss's temperature t (not 1 / t)."""
+        cl = self.config.cl_loss
+        if cl.type == "MaskedContrastiveLoss":
+            return 1.0 / contrastive_temperature(params.get("criterion", {}), cl.temperature,
+                                                 cl.temperature_trainable)
+        if cl.temperature_trainable:
+            return params["criterion"]["temp"]
+        return torch.tensor(cl.temperature, dtype=torch.float32)
+
+    def _pair_loss(self, params: Params, audio_feat: torch.Tensor, image_feat: torch.Tensor,
+                   ids: torch.Tensor) -> torch.Tensor:
+        cl = self.config.cl_loss
+        if cl.type == "MaskedContrastiveLoss":
+            return masked_contrastive_loss(
+                params.get("criterion", {}), audio_feat, image_feat, ids,
+                temperature=cl.temperature, temperature_trainable=cl.temperature_trainable,
+                margin=cl.margin, dcl=cl.dcl, a2b=cl.a2b, b2a=cl.b2a,
+            )
+        # SupConLoss: (audio, image) as two views, pair ids as the labels
+        return supcon_loss(torch.stack([audio_feat, image_feat], dim=1),
+                           temperature=self._current_cl_temperature(params), labels=ids,
+                           contrast_mode=cl.contrast_mode,
+                           base_temperature=cl.base_temperature)
+
+    def compute_loss(self, params: Params, loss_feats: Dict) -> Dict[str, torch.Tensor]:
+        """-> {"loss", "c_cl_loss" (cascaded), "p_cl_loss" (parallel)}: each
+        branch's pair loss against the image features, summed with the
+        objective weights."""
+        cfg = self.config
+        ids = loss_feats["id"]
+        image_feat = loss_feats["image_feat"].float()
+        losses = {"loss": torch.zeros((), dtype=torch.float32, device=image_feat.device)}
+        if self.use_cascaded:
+            losses["c_cl_loss"] = self._pair_loss(
+                params, loss_feats["cascaded_audio_feat"].float(), image_feat, ids)
+            losses["loss"] = losses["loss"] + cfg.cascaded_objective_weight * losses["c_cl_loss"]
+        if self.use_parallel:
+            losses["p_cl_loss"] = self._pair_loss(
+                params, loss_feats["parallel_audio_feat"].float(), image_feat, ids)
+            losses["loss"] = losses["loss"] + cfg.parallel_objective_weight * losses["p_cl_loss"]
+        return losses
+
+    def trainable_mask(self, params: Params) -> Params:
+        """A tree of bools over ``params``, True where a leaf trains: the
+        branches, the projections, the weighted sum and a trainable
+        criterion temperature; not the encoder, the CLIP towers or CLIP's
+        ``logit_scale`` (the JAX model's ``trainable_mask`` with every tower
+        frozen, the only configuration the port constructs). Selected
+        encoder layers without a trainable encoder raise, as there."""
+        cfg = self.config
+        if cfg.reinit_layers and cfg.unfreeze_layers:
+            raise ValueError("reinit_layers and unfreeze_layers are exclusive")
+        if (cfg.reinit_layers or cfg.unfreeze_layers) and not cfg.audio_trainable:
+            raise ValueError("reinit_layers/unfreeze_layers require audio_trainable")
+
+        def same(tree, value):
+            if isinstance(tree, dict):
+                return {k: same(v, value) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return [same(v, value) for v in tree]
+            return None if tree is None else value
+
+        mask: Params = {}
+        for key, sub in params.items():
+            if key == "audio_encoder":
+                mask[key] = same(sub, cfg.audio_trainable)
+            elif key == "clip":
+                mask[key] = {"visual": same(sub["visual"], cfg.image_encoder_trainable),
+                             "text": same(sub["text"], cfg.text_encoder_trainable),
+                             "logit_scale": False}
+            elif key == "criterion":
+                mask[key] = same(sub, cfg.cl_loss.temperature_trainable)
+            else:
+                mask[key] = same(sub, True)
+        return mask
 
     def extract_hidden_states(self, params: Params, wav: torch.Tensor,
                               wav_len: torch.Tensor, plain: bool = False):

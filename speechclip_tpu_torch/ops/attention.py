@@ -1,5 +1,6 @@
-"""Multi-head attention with torch ``nn.MultiheadAttention`` semantics, eval
-mode, and the attention dispatcher (port of speechclip_tpu/ops/attention.py).
+"""Multi-head attention with torch ``nn.MultiheadAttention`` semantics (in
+train mode with dropout on the attention weights), and the attention
+dispatcher (port of speechclip_tpu/ops/attention.py).
 
 The backend switch has the JAX package's names: "auto" (the default: the
 fused MHA block, else the whole-row kernel, where their gates admit the
@@ -11,6 +12,8 @@ The route is a function of shapes, dtype, masks and backend alone, the same
 on the CPU and on the card (``attention_route``); the device only picks the
 body. A CUDA bf16 tensor on a kernel route launches the kernel or raises; a
 CPU tensor, or ``plain=True``, runs the plain version of the same route.
+Attention-weight dropout in train mode closes every kernel route, as in
+JAX: the kernels never form the weights.
 The JAX package's mesh plan (shard_map over a TPU mesh) has no counterpart:
 under torch each rank already holds its local batch.
 """
@@ -23,7 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .basic import Params, linear, matmul_f32
+from .basic import Params, dropout, linear, matmul_f32
 from .masking import key_padding_mask as _key_padding_mask
 from ..kernels._sdpa_ref import NEG_INF
 from ..kernels.attention_vmem import attention_vmem, vmem_eligible
@@ -117,12 +120,17 @@ def sdpa_plain(
     v: torch.Tensor,  # (B, H, S, Dh)
     bias: Optional[torch.Tensor] = None,  # additive, broadcastable to (B,H,L,S)
     return_weights: bool = False,
+    dropout_rate: float = 0.0,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The port of ``sdpa_xla`` with its rounding points. bf16 without
     weights: ``q * bf16(scale)``, logits accumulated in f32 and rounded to
     bf16, bias and softmax in f32, weights rounded to bf16, P V accumulated
     in f32. Otherwise: f32 logits scaled after the product, f32 softmax,
-    weights cast to v's dtype for P V (and returned in f32)."""
+    weights cast to v's dtype for P V (and returned in f32). In train mode
+    the weights take dropout before P V (and are returned dropped, as
+    torch's)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     if not return_weights and q.dtype == torch.bfloat16:
         qs = q * torch.full((), scale, dtype=torch.bfloat16, device=q.device)
@@ -130,11 +138,12 @@ def sdpa_plain(
         if bias is not None:
             x = x + bias.float()
         w16 = torch.softmax(x, dim=-1).to(torch.bfloat16)
+        w16 = dropout(w16, dropout_rate, train, generator)
         return matmul_f32(w16, v).to(v.dtype), None
     logits = matmul_f32(q, k.transpose(-1, -2)) * scale
     if bias is not None:
         logits = logits + bias.float()
-    weights = torch.softmax(logits, dim=-1)
+    weights = dropout(torch.softmax(logits, dim=-1), dropout_rate, train, generator)
     out = matmul_f32(weights.to(v.dtype), v).to(v.dtype)
     return out, (weights if return_weights else None)
 
@@ -159,20 +168,25 @@ def multi_head_attention(
     attn_mask: Optional[torch.Tensor] = None,  # (L, S) additive f32 or bool
     key_valid_lens: Optional[torch.Tensor] = None,  # (B,) structured mask
     causal: bool = False,
+    dropout_rate: float = 0.0,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
     need_weights: bool = False,
     average_attn_weights: bool = True,
     plain: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """torch-parity MHA forward, eval mode -> (output (B, L, D), weights):
-    weights (B, L, S) if averaged over heads, else (B, H, L, S), or None.
-    ``plain=True`` runs the plain version of whichever route is taken."""
+    """torch-parity MHA forward -> (output (B, L, D), weights): weights
+    (B, L, S) if averaged over heads, else (B, H, L, S), or None. In train
+    mode at ``dropout_rate > 0`` the weights take dropout (drawn from
+    ``generator``) and no kernel route is taken. ``plain=True`` runs the
+    plain version of whichever route is taken."""
     in_w, in_b = params["in_proj"]["w"], params["in_proj"]["b"]
     self_attention = query is key and key is value
     b, l, d = query.shape
     route = attention_route(
         b, l, key.shape[1], d, num_heads, query.element_size(),
         self_attention=self_attention,
-        structured=not need_weights
+        structured=not need_weights and not (train and dropout_rate > 0)
         and _structured_masks(attn_mask, key_padding_mask, key_valid_lens),
         causal=causal,
     )
@@ -205,7 +219,8 @@ def multi_head_attention(
         key_padding_mask = _key_padding_mask(key_valid_lens, key.shape[1])
     if causal and attn_mask is None:
         attn_mask = causal_bias(key.shape[1], query.device)[: l]
-    out, weights = sdpa_plain(q, k, v, padding_bias(key_padding_mask, attn_mask), need_weights)
+    out, weights = sdpa_plain(q, k, v, padding_bias(key_padding_mask, attn_mask), need_weights,
+                              dropout_rate, train, generator)
     out = linear(params["out_proj"], _merge_heads(out))
     if not need_weights:
         return out, None

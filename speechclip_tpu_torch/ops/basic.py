@@ -87,6 +87,21 @@ def layer_norm(
     return y.to(x.dtype)
 
 
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout (speechclip_tpu/ops/basic.py ``dropout``): each
+    element kept with probability ``1 - rate`` and scaled by ``1 / (1 -
+    rate)`` in ``x.dtype``, the mask drawn from ``generator``. The identity
+    when not training or at rate 0."""
+    if not train or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout needs a generator when train=True and rate > 0")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def l2_normalize(x: torch.Tensor) -> torch.Tensor:
     """x / ||x|| over the trailing axis, computed in f32 and returned in
     ``x.dtype``."""

@@ -1,5 +1,4 @@
-"""The branch transformer bodies, eval mode (port of
-speechclip_tpu/ops/transformer.py):
+"""The branch transformer bodies (port of speechclip_tpu/ops/transformer.py):
 
 - ``transformer_encoder``: N torch-style encoder layers (post-norm by
   default, GELU FFN) plus a final LayerNorm, the parallel branch's body;
@@ -9,7 +8,9 @@ speechclip_tpu/ops/transformer.py):
   two by ``transformer_type``.
 
 A layer runs through ``kernels.fused_layer`` where its gates admit the
-shapes, else unfused with ``ops.attention.multi_head_attention``. Key
+shapes and no dropout is active (``not (train and dropout_rate > 0)``,
+as in JAX), else unfused with ``ops.attention.multi_head_attention`` and
+the JAX package's dropout placement. Key
 masking is by per-batch valid lengths; a bare key-padding mask (the
 hidden-state and attention-map extractions, as in the reference) keeps
 the layer unfused on ``sdpa_plain``.
@@ -23,7 +24,16 @@ from typing import List, Optional, Tuple
 import torch
 
 from .attention import multi_head_attention
-from .basic import Params, gelu, layer_norm, layer_norm_init, linear, linear_init, uniform
+from .basic import (
+    Params,
+    dropout,
+    gelu,
+    layer_norm,
+    layer_norm_init,
+    linear,
+    linear_init,
+    uniform,
+)
 from ..kernels.fused_layer import fused_encoder_layer, fused_mha_and_norm
 
 
@@ -67,16 +77,22 @@ def encoder_layer_apply(
     activation: str = "gelu",
     layer_norm_eps: float = 1e-5,
     norm_first: bool = False,
+    dropout_rate: float = 0.0,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
     plain: bool = False,
 ) -> torch.Tensor:
-    """torch nn.TransformerEncoderLayer, eval mode: the fused layer where
-    its gates admit the shapes, else the unfused layer of the JAX package
-    (ops/transformer.py ``encoder_layer_apply``)."""
+    """torch nn.TransformerEncoderLayer: the fused layer where its gates
+    admit the shapes and no dropout is active, else the unfused layer of the
+    JAX package (ops/transformer.py ``encoder_layer_apply``), with dropout
+    on the attention weights, the attention output, the FFN's middle and its
+    output in train mode."""
     if activation != "gelu":
         raise NotImplementedError(
             f"activation {activation!r}: the branches run GELU layers only"
         )
-    if key_padding_mask is None or key_valid_lens is not None:
+    if not (train and dropout_rate > 0) and (
+            key_padding_mask is None or key_valid_lens is not None):
         fused = fused_encoder_layer(
             x,
             key_valid_lens,
@@ -93,14 +109,17 @@ def encoder_layer_apply(
         if fused is not None:
             return fused
 
+    drop = lambda h: dropout(h, dropout_rate, train, generator)
+
     def sa(h):
-        return multi_head_attention(
+        return drop(multi_head_attention(
             params["self_attn"], h, h, h, num_heads=nhead,
-            key_padding_mask=key_padding_mask, key_valid_lens=key_valid_lens, plain=plain,
-        )[0]
+            key_padding_mask=key_padding_mask, key_valid_lens=key_valid_lens,
+            dropout_rate=dropout_rate, train=train, generator=generator, plain=plain,
+        )[0])
 
     def ff(h):
-        return linear(params["linear2"], gelu(linear(params["linear1"], h)))
+        return drop(linear(params["linear2"], drop(gelu(linear(params["linear1"], h)))))
 
     if norm_first:
         x = x + sa(layer_norm(params["norm1"], x, layer_norm_eps))
@@ -131,6 +150,9 @@ def transformer_encoder_apply(
     activation: str = "gelu",
     layer_norm_eps: float = 1e-5,
     norm_first: bool = False,
+    dropout_rate: float = 0.0,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
     plain: bool = False,
     return_hidden_states: bool = False,
 ):
@@ -151,6 +173,9 @@ def transformer_encoder_apply(
             activation=activation,
             layer_norm_eps=layer_norm_eps,
             norm_first=norm_first,
+            dropout_rate=dropout_rate,
+            train=train,
+            generator=generator,
             plain=plain,
         )
     hiddens.append(x)
@@ -170,15 +195,20 @@ def mha_and_norm_apply(
     key_padding_mask: Optional[torch.Tensor] = None,
     key_valid_lens: Optional[torch.Tensor] = None,
     layer_norm_eps: float = 1e-5,
+    dropout_rate: float = 0.0,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
     need_weights: bool = False,
     plain: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """LayerNorm(MHA(src) + src) -> (out, per-head weights (B, H, T, T) if
-    ``need_weights`` else None). The fused ``mha_layer_block`` where its
-    gates admit the shapes (never at one 768-wide head: Dh > 128), else
+    ``need_weights`` else None); in train mode the attention weights take
+    dropout. The fused ``mha_layer_block`` where its gates admit the shapes
+    and no dropout is active (never at one 768-wide head: Dh > 128), else
     ``multi_head_attention``, whose route is ``sdpa_plain`` under "auto"
     and ``flash_attention`` under "pallas" at that head."""
-    if not need_weights and (key_padding_mask is None or key_valid_lens is not None):
+    if not need_weights and not (train and dropout_rate > 0) and (
+            key_padding_mask is None or key_valid_lens is not None):
         fused = fused_mha_and_norm(
             src, key_valid_lens, heads=nhead, eps=layer_norm_eps,
             attn=params["attn"], norm=params["norm"], plain=plain,
@@ -188,6 +218,7 @@ def mha_and_norm_apply(
     attn_out, weights = multi_head_attention(
         params["attn"], src, src, src, num_heads=nhead,
         key_padding_mask=key_padding_mask, key_valid_lens=key_valid_lens,
+        dropout_rate=dropout_rate, train=train, generator=generator,
         need_weights=need_weights, average_attn_weights=False, plain=plain,
     )
     return layer_norm(params["norm"], attn_out + src, layer_norm_eps), weights
@@ -216,19 +247,23 @@ def branch_transformer_apply(
     key_padding_mask: Optional[torch.Tensor],
     key_valid_lens: Optional[torch.Tensor] = None,
     plain: bool = False,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
+    """The body in eval mode, or in train mode with ``branch_cfg.dropout``
+    drawn from ``generator``."""
     if kind == "TransformerEncoder":
         return transformer_encoder_apply(
             params, src, nhead=branch_cfg.nhead, key_valid_lens=key_valid_lens,
             key_padding_mask=key_padding_mask, activation=branch_cfg.activation,
             layer_norm_eps=branch_cfg.layer_norm_eps, norm_first=branch_cfg.norm_first,
-            plain=plain,
+            dropout_rate=branch_cfg.dropout, train=train, generator=generator, plain=plain,
         )
     if kind == "MultiheadAttentionAndNorm":
         return mha_and_norm_apply(
             params, src, nhead=branch_cfg.nhead, key_padding_mask=key_padding_mask,
             key_valid_lens=key_valid_lens, layer_norm_eps=branch_cfg.layer_norm_eps,
-            plain=plain,
+            dropout_rate=branch_cfg.dropout, train=train, generator=generator, plain=plain,
         )[0]
     raise NotImplementedError(f"transformer type {kind!r}")
 

@@ -1,11 +1,14 @@
-"""Vector quantization over the CLIP subword vocabulary at eval (port of
+"""Vector quantization over the CLIP subword vocabulary (port of
 speechclip_tpu/ops/vq.py): special tokens are masked out of the (B, K, V)
-cosine scores at f32 ``finfo.min``, the argmax becomes a one-hot over the
-vocabulary, and the codebook-usage diagnostics (perplexities, per-keyword
-entropy, diversity loss) come with it. The straight-through and Gumbel
-estimators are training-time and wait for the training slice; at eval the
-JAX package returns the hard one-hot whatever ``hard`` and ``use_gumbel``
-say, and so does this port.
+cosine scores at f32 ``finfo.min``, and the codebook-usage diagnostics
+(perplexities, per-keyword entropy, diversity loss) come with the result.
+At eval the result is the argmax's one-hot, whatever ``hard`` and
+``use_gumbel`` say. In train mode it is ``softmax(x / temp)``, or with
+``use_gumbel`` ``softmax((x + g) / temp)`` with Gumbel noise ``g`` drawn
+from the generator; with ``hard`` the forward value is the one-hot of its
+argmax and the gradient the soft one's (straight-through:
+``hard + soft - soft.detach()``). The temperature is fixed, learnable (a
+parameter) or scheduled: ``max(max_t * decay ** num_updates, min_t)``.
 """
 
 from __future__ import annotations
@@ -55,8 +58,14 @@ def current_temperature(params: Params, temp_spec,
     max_t, min_t, decay = payload
     if num_updates is None:
         return torch.tensor(max_t, dtype=torch.float32)
-    t = max_t * torch.pow(torch.tensor(decay), num_updates.float())
+    t = max_t * torch.pow(torch.tensor(decay, device=num_updates.device), num_updates.float())
     return torch.clamp(t, min=min_t)
+
+
+def gumbel_noise(shape, generator: torch.Generator) -> torch.Tensor:
+    """-log(-log(u)) of f32 uniforms u in [1e-20, 1) from ``generator``."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return -torch.log(-torch.log(u.clamp(min=1e-20)))
 
 
 def vq_apply(
@@ -65,16 +74,20 @@ def vq_apply(
     *,
     temp_spec,
     prob_mask: Sequence[int] = (0, 2, 3),
+    use_gumbel: bool = False,
+    hard: bool = True,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
     num_updates: Optional[torch.Tensor] = None,
     ground_truth_perplexity: Optional[float] = None,
 ) -> dict:
-    """Eval-mode VQ -> the JAX package's result dict: subword_prob (the
-    one-hot, f32), targets (B, K, 1), code_perplexity, prob_perplexity,
-    ent_per_t (K,), diversity_loss, temp, num_vars."""
+    """-> the JAX package's result dict: subword_prob (f32; the one-hot at
+    eval), targets (B, K, 1), code_perplexity, prob_perplexity, ent_per_t
+    (K,), diversity_loss, temp, num_vars."""
     num_vars = x.shape[-1]
-    x = x.float()
+    x = raw = x.float()
+    masked = torch.zeros(num_vars, dtype=torch.bool, device=x.device)
     if prob_mask:
-        masked = torch.zeros(num_vars, dtype=torch.bool, device=x.device)
         masked[list(prob_mask)] = True
         x = x.masked_fill(masked, MASK_VALUE)
     result = {"num_vars": num_vars}
@@ -86,8 +99,24 @@ def vq_apply(
     avg_probs = soft.reshape(-1, num_vars).mean(dim=0)
     result["prob_perplexity"] = torch.exp(-(avg_probs * torch.log(avg_probs + 1e-7)).sum())
     result["ent_per_t"] = (-(soft * torch.log(soft + 1e-9)).sum(dim=-1)).mean(dim=0)
-    result["temp"] = current_temperature(params, temp_spec, num_updates)
-    result["subword_prob"] = hard_x
+    temp = current_temperature(params, temp_spec, num_updates)
+    result["temp"] = temp
+    out = hard_x
+    if train:
+        # the specials are masked after the division: finfo.min / temp
+        # overflows to -inf, whose product with a zero gradient is NaN in
+        # the temperature's gradient; the softmax is the same either way
+        if use_gumbel:
+            if generator is None:
+                raise ValueError("the Gumbel VQ needs a generator in train mode")
+            logits = (raw + gumbel_noise(x.shape, generator)) / temp
+            y_soft = torch.softmax(logits.masked_fill(masked, MASK_VALUE), dim=-1)
+            y_hard = torch.nn.functional.one_hot(y_soft.argmax(dim=-1), num_vars).float()
+        else:
+            y_soft = torch.softmax((raw / temp).masked_fill(masked, MASK_VALUE), dim=-1)
+            y_hard = hard_x
+        out = y_hard + y_soft - y_soft.detach() if hard else y_soft
+    result["subword_prob"] = out
     if ground_truth_perplexity is not None:
         result["diversity_loss"] = (
             (result["prob_perplexity"] - ground_truth_perplexity) ** 2
@@ -95,5 +124,5 @@ def vq_apply(
         )
     else:
         result["diversity_loss"] = (num_vars - result["prob_perplexity"]) / num_vars
-    result["targets"] = k[..., None]
+    result["targets"] = (out.argmax(dim=-1) if train else k)[..., None]
     return result

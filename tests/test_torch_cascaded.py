@@ -79,7 +79,7 @@ def test_kw_bn_matches_jax(layout, dtype):
     want, _ = jkw.kw_bn_apply(jparams, jax.tree.map(jnp.asarray, state),
                               jnp.asarray(kw).astype(_jdt(dtype)),
                               batchnorm_type=bn_type, parallel=parallel)
-    got = pkw.kw_bn_apply(pparams, _tensors(state), torch.from_numpy(kw).to(dtype),
+    got, _ = pkw.kw_bn_apply(pparams, _tensors(state), torch.from_numpy(kw).to(dtype),
                           batchnorm_type=bn_type, parallel=parallel)
     assert got.dtype == dtype
     assert_match(got, want, dtype)
@@ -207,7 +207,7 @@ def test_cascaded_branch_apply_matches_jax(tiny, dtype):
       jnp.asarray(tiny["feat"]).astype(_jdt(dtype)), jnp.asarray(LENS))
     pp = cast_params(tiny["pparams"], dtype, device="cpu")
     ps = cast_params(_tensors(tiny["state"]), dtype, device="cpu")
-    feat, vq, kw = pb.cascaded_branch_apply(
+    feat, vq, kw, _ = pb.cascaded_branch_apply(
         pp["cascaded_branch"], ps["cascaded_branch"], tiny["pcfg"], pp["clip"], _text_cfg(tiny),
         jm.sot_id, jm.eot_id, torch.from_numpy(tiny["feat"]).to(dtype), torch.from_numpy(LENS))
     assert feat.shape == (3, 16) and kw.shape == (3, 4, 32) and kw.dtype == dtype

@@ -70,6 +70,51 @@ def cascaded_config_from_jax(cb) -> port_config.CascadedBranchConfig:
         use_gumbel=vq.get("use_gumbel", False),
         hard=vq.get("hard", True),
         ground_truth_perplexity=vq.get("groundTruthPerplexity"),
+        kw_projection_dropout=(kw.get("kw_projection") or {}).get("dropout", 0.1),
+        dropout=ta.get("dropout", 0.0),
+        bn_replica_groups=0 if bn is None else bn.get("replica_groups", 0),
+    )
+
+
+def _proj_dropout(node):
+    return 0.1 if node is None else node.get("dropout", 0.1)
+
+
+def training_fields_from_jax(cfg) -> dict:
+    """The port's training fields for a JAX ConfigNode: the loss, the
+    optimizer and schedule, the clip, accumulation, and which towers train."""
+    ae, cl, ms = cfg.audio_encoder, cfg.cl_loss, cfg.model_settings
+    args, opt, sched = cl.args, ae.optim, ae.scheduler
+    return dict(
+        parallel_branch_projection_dropout=_proj_dropout(ms.get("parallel_branch_projection")),
+        cascaded_branch_projection_dropout=_proj_dropout(ms.get("cascaded_branch_projection")),
+        image_encoder_projection_dropout=_proj_dropout(ms.get("image_encoder_projection")),
+        audio_trainable=bool(ae.get("trainable", False)),
+        reinit_layers=tuple(ae.get("reinit_layers", []) or []),
+        unfreeze_layers=tuple(ae.get("unfreeze_layers", []) or []),
+        image_encoder_trainable=bool(cfg.clip.get("image_encoder_trainable", False)),
+        text_encoder_trainable=bool(cfg.clip.get("text_encoder_trainable", False)),
+        cl_loss=port_config.ContrastiveLossConfig(
+            type=cl.type,
+            temperature=args.get("temperature", 0.07),
+            temperature_trainable=args.get("learnable_temperature",
+                                           args.get("temperature_trainable", False)),
+            margin=args.get("margin", 0.0), dcl=args.get("dcl", False),
+            a2b=args.get("a2b", True), b2a=args.get("b2a", True),
+            contrast_mode=args.get("contrast_mode", "all"),
+            base_temperature=args.get("base_temperature", 0.07),
+        ),
+        optim=port_config.OptimizerConfig(
+            name=opt.name, lr=float(opt.args.lr),
+            weight_decay=float(opt.args.get("weight_decay", 0.0)),
+            betas=tuple(opt.args.get("betas", [0.9, 0.999])),
+            eps=float(opt.args.get("eps", 1e-8)),
+        ),
+        scheduler=port_config.SchedulerConfig(**{
+            k: sched[k] for k in ("name", "warmup", "max_step", "final_lr") if k in sched}),
+        gradient_clip_val=float(cfg.get_path("trainer.gradient_clip_val", 0) or 0),
+        accumulate_grad_batches=int(cfg.get_path("trainer.accumulate_grad_batches", 1) or 1),
+        retrieval_audio_feat_src=cfg.get_path("retrieval.audio_feat_src"),
     )
 
 
@@ -110,6 +155,7 @@ def port_config_from_jax(cfg) -> port_config.SpeechCLIPConfig:
             layer_norm_eps=ta.layer_norm_eps,
             norm_first=ta.norm_first,
             need_projection=ms.parallel_branch.get("need_projection", True),
+            dropout=ta.get("dropout", 0.0),
         ),
         parallel_branch_projection=None if proj is None else tuple(proj.dimensions),
         cascaded_branch=cascaded_config_from_jax(ms.cascaded_branch),
@@ -120,6 +166,7 @@ def port_config_from_jax(cfg) -> port_config.SpeechCLIPConfig:
         reduce_subword_embedding=cfg.clip.get("reduce_subword_embbedding"),
         clip_embed_dim=jm.clip_cfg.embed_dim,
         precision=cfg.trainer.precision,
+        **training_fields_from_jax(cfg),
     )
 
 
@@ -150,8 +197,9 @@ def shipped_cascaded():
      (lambda: parallel_only(flagship_tiny_config()), port_config.tiny_config),
      (lambda: bench_variant_config("base_casc"), port_config.base_cascaded_config),
      (shipped_cascaded, port_config.shipped_cascaded_config),
-     (flagship_tiny_config, port_config.tiny_flagship_config)],
-    ids=["base", "tiny", "base_casc", "spchclp_c", "tiny_flagship"],
+     (flagship_tiny_config, port_config.tiny_flagship_config),
+     (flagship_config, port_config.flagship_config)],
+    ids=["base", "tiny", "base_casc", "spchclp_c", "tiny_flagship", "flagship"],
 )
 def test_presets_match_jax_field_by_field(jax_preset, port_preset):
     want = dataclasses.asdict(port_config_from_jax(jax_preset()))
@@ -194,11 +242,20 @@ def test_base_hubert_is_jax_hubert_base():
 
 @pytest.mark.parametrize(
     "field, value",
-    [("wsum_remat", True), ("audio_encoder_type", "s3prl_plus")],
+    [("wsum_remat", True), ("audio_encoder_type", "s3prl_plus"), ("audio_trainable", True),
+     ("image_encoder_trainable", True), ("text_encoder_trainable", True)],
 )
 def test_out_of_slice_configs_raise(field, value):
     cfg = dataclasses.replace(port_config.tiny_config(), **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SpeechCLIPModel(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field", ["reinit_layers", "unfreeze_layers"])
+def test_selected_layers_need_a_trainable_encoder(field):
+    """JAX's guard: selected layers of a frozen encoder would stay frozen."""
+    cfg = dataclasses.replace(port_config.tiny_config(), **{field: (1,)})
+    with pytest.raises(ValueError, match="audio_trainable"):
         SpeechCLIPModel(cfg, device="cpu")
 
 
@@ -238,7 +295,8 @@ def test_conv_weights_change_layout_linear_weights_do_not(tiny_models):
     np.testing.assert_array_equal(
         np.asarray(jl0["self_attn"]["in_proj"]["w"]), pl0["self_attn"]["in_proj"]["w"].numpy()
     )
-    # the CLIP towers come across whatever the branches; the loss temperature does not
+    # the CLIP towers come across whatever the branches; a fixed loss
+    # temperature is an empty subtree and stays behind
     assert set(pparams["clip"]) == {"visual", "text", "logit_scale"}
     assert "criterion" not in pparams
 

@@ -10,8 +10,6 @@ Tolerance: recall@k within 1e-4 (f32 means; a rank flip moves recall by
 100 / N >= 0.5).
 """
 
-import types
-
 import numpy as np
 import pytest
 import torch

@@ -138,12 +138,25 @@ def test_cuda_inputs_the_kernels_do_not_take_raise(cuda):
     args = list(_mha_args(cuda, 2, 64, 768, 12, "post", True))
     with pytest.raises(TypeError, match="bf16"):
         mha_layer_block(args[0].float(), *args[1:])
-    args[0] = args[0].clone().requires_grad_(True)
-    with pytest.raises(RuntimeError, match="grad"):
-        mha_layer_block(*args)
-    args[0] = args[0].detach()
+    # an input that requires grad is taken: the forward launches the kernel,
+    # the gradient comes from the plain recompute
+    x = args[0].clone().requires_grad_(True)
+    launches = mha_layer_block.launches
+    mha_layer_block(x, *args[1:]).float().sum().backward()
+    assert mha_layer_block.launches == launches + 1 and torch.isfinite(x.grad).all()
     with pytest.raises(ValueError, match="attention core"):
         mha_layer_block(*(args[:8] + [4] + args[9:]))  # Dh = 192: over the gate's 128
+
+
+def test_fused_conv_chain_stays_forward_only(cuda):
+    """JAX gives fused_conv_chain no VJP (it is on no model path): an input
+    that requires grad raises on the card."""
+    from speechclip_tpu_torch.kernels.conv_frontend import fused_conv_chain
+
+    x = torch.zeros(1, 64, 512, dtype=torch.bfloat16, device=cuda, requires_grad=True)
+    w = [torch.zeros(3, 512, 512, dtype=torch.bfloat16, device=cuda)]
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fused_conv_chain(x, w, (3,))
 
 
 def test_gemm_rejects_misaligned_operands(cuda):
