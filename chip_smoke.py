@@ -88,7 +88,21 @@ line each (a failed check exits non-zero before the last line):
     warm-up steps) on the kernel path, with the image-feature cache
     (``image_feat_frozen``, the frozen tower's output computed once) and on
     the plain path, each from its own train state; peak memory; every
-    step's loss finite.
+    step's loss finite;
+18. the trainer: a seeded Flickr8k-shaped corpus written to a temporary
+    directory (770 train pairs of 6.5-10 s, 250 dev pairs of 3-17 s,
+    JPEGs where PIL works, else a FlickrDataset subclass hands out the
+    seeded images); ``configs/base/spchclp_p.yaml`` through the port's CLI
+    (``run_task.main``, in this process) and ``spchclp_c.yaml`` through
+    ``Trainer`` with slim checkpoints, each at full width, B = 256, 6 steps,
+    2 validations (batches of 16) and checkpoints: every train step's and
+    eval batch's launches against the gates' counts (``attention_vmem`` on
+    the 17 s bucket), no plain kernel on a CUDA tensor, recall against a
+    float64 recompute, the files and ``config.yaml``, step 1 against
+    ``make_train_step`` bitwise, step 3's checkpoint restored bitwise, a
+    resumed fit to step 6; the trainer's ms/step from its
+    ``steps_per_sec``, the loop's host share, the cache, validation and
+    save times.
 
 Rates (utt/s, images/s, sequences/s) come from CUDA events around as many
 back-to-back calls as fill about 1 s.
@@ -119,7 +133,8 @@ Before each path runs, every kernel's launch count is set to 0; it is read
 right after, so the counts in the summary are that path's own.
 
 The last lines are a JSON summary of the kernels (with their backward
-rows and recompute counts) and of the timed train step and, last,
+rows and recompute counts), of the timed train step and of the trainer
+and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 
@@ -150,6 +165,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+T_START = time.perf_counter()
 
 BF16_ATOL = 0.125  # bf16 outputs of magnitude <= 8 differ by <= 4 ulp
 MIN_COSINE = 0.999
@@ -2184,6 +2201,605 @@ def phase_train_timed(smi):
                 plain_ms_range=spread["plain path"], peak_gib=peak)
 
 
+TRAINER_IMAGES = {"train": 154, "dev": 50}  # 5 captions each: 770 and 250 pairs
+TRAINER_CAPTIONS = 5
+TRAINER_SECONDS = {"train": (6.5, 10.0), "dev": (3.0, 17.0)}
+TRAINER_SR = 16000
+TRAINER_IMAGE_SIDE = 224
+TRAINER_OVERRIDES = ["trainer.max_steps=6", "trainer.save_at_steps=[3]",
+                     "data.dev_batch_size=16", "trainer.log_every_n_steps=1"]
+TRAINER_SEED = 7122
+TRAINER_SAVE_STEP = 3
+TRAINER_CONFIGS = {"spchclp_p": "configs/base/spchclp_p.yaml",
+                   "spchclp_c": "configs/base/spchclp_c.yaml"}
+
+
+def _seeded_image(name: str):
+    """The uint8 (side, side, 3) image a corpus entry stands for, seeded by
+    its file name."""
+    import zlib
+
+    import numpy as np
+
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    return rng.integers(0, 256, (TRAINER_IMAGE_SIDE, TRAINER_IMAGE_SIDE, 3), dtype=np.uint8)
+
+
+def _image_decoder():
+    """None where PIL writes and reads a JPEG here, else why not."""
+    try:
+        import io
+
+        from PIL import Image
+
+        buf = io.BytesIO()
+        Image.fromarray(_seeded_image("probe")).save(buf, format="JPEG")
+        buf.seek(0)
+        Image.open(buf).convert("RGB")
+        return None
+    except Exception as e:  # ImportError, or a PIL without a JPEG codec
+        return f"no JPEG codec: {type(e).__name__}: {e}"
+
+
+def _write_trainer_corpus(root: str, write_jpegs: bool):
+    """A seeded Flickr8k-shaped corpus in FlickrDataset's layout: per split
+    its images with TRAINER_CAPTIONS real 16 kHz PCM16 WAVs each, their
+    durations uniform in TRAINER_SECONDS (one dev caption exactly 17 s);
+    ``Flickr8k.token.txt``; the split lists (test = dev); the JPEGs where
+    PIL is there. -> {split: [durations]}."""
+    import os
+    import wave
+
+    import numpy as np
+
+    rng = np.random.default_rng(TRAINER_SEED)
+    wav_dir = os.path.join(root, "flickr_audio", "wavs")
+    os.makedirs(wav_dir)
+    os.makedirs(os.path.join(root, "Images"))
+    captions, durations = [], {}
+    for split, n_images in TRAINER_IMAGES.items():
+        names = [f"{split}{i:04d}" for i in range(n_images)]
+        lo, hi = TRAINER_SECONDS[split]
+        secs = rng.uniform(lo, hi, (n_images, TRAINER_CAPTIONS))
+        if split == "dev":
+            secs[0, 0] = hi
+        durations[split] = secs.ravel().tolist()
+        for name, row in zip(names, secs):
+            if write_jpegs:
+                from PIL import Image
+
+                Image.fromarray(_seeded_image(f"{name}.jpg")).save(
+                    os.path.join(root, "Images", f"{name}.jpg"), quality=95)
+            for n, sec in enumerate(row):
+                pcm = np.clip(rng.standard_normal(int(sec * TRAINER_SR)) * 3000.0, -32768, 32767)
+                with wave.open(os.path.join(wav_dir, f"{name}_{n}.wav"), "wb") as w:
+                    w.setnchannels(1)
+                    w.setsampwidth(2)
+                    w.setframerate(TRAINER_SR)
+                    w.writeframes(pcm.astype("<i2").tobytes())
+                captions.append(f"{name}.jpg#{n}\tcaption {n} of {name} .")
+        with open(os.path.join(root, f"Flickr_8k.{split}Images.txt"), "w") as f:
+            f.write("\n".join(f"{name}.jpg" for name in names))
+    with open(os.path.join(root, "Flickr_8k.testImages.txt"), "w") as f:
+        f.write("\n".join(f"dev{i:04d}.jpg" for i in range(TRAINER_IMAGES["dev"])))
+    with open(os.path.join(root, "Flickr8k.token.txt"), "w") as f:
+        f.write("\n".join(captions))
+    return durations
+
+
+def _seeded_image_dataset():
+    """FlickrDataset whose image read returns the seeded image its entry
+    stands for, normalized as ``load_image`` normalizes a 224 x 224 image
+    (used where no JPEG can be written or read: the host decode is
+    substituted, nothing on the device changes)."""
+    import os
+
+    from speechclip_tpu_torch.data.datasets import FlickrDataset
+    from speechclip_tpu_torch.data.image import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
+
+    class SeededImageFlickr(FlickrDataset):
+        def get_item(self, index, skip_wav=False, skip_image=False):
+            out = super().get_item(index, skip_wav=skip_wav, skip_image=True)
+            entry = self.data[index]
+            if "image" in entry and not skip_image:
+                if self.image_mode != "clip":
+                    fail(f"image substitution covers image_mode clip, not {self.image_mode}")
+                img = _seeded_image(os.path.basename(entry["image"])).astype("float32") / 255.0
+                out["image"] = (img - CLIP_IMAGE_MEAN) / CLIP_IMAGE_STD
+            return out
+
+    return SeededImageFlickr
+
+
+def _encoder_layer_launches(b, t, d, heads, f):
+    """The kernel launches of one encoder layer of (b, t, d) in bf16 under
+    "auto", from the gates: the fused half-layers where ``block_eligible``
+    (``ffn_block`` where ``ffn_eligible`` too), else the unfused layer's
+    attention route."""
+    from speechclip_tpu_torch.kernels.ffn_block import ffn_eligible
+    from speechclip_tpu_torch.kernels.mha_block import block_eligible
+    from speechclip_tpu_torch.ops.attention import attention_route
+
+    if block_eligible(b, t, d, heads, 2):
+        return {"mha_layer_block": 1, "ffn_block": int(ffn_eligible(b, t, d, f, 2))}
+    route = attention_route(b, t, t, d, heads, 2)
+    return {route: 1} if route in ("attention_vmem", "flash_attention") else {}
+
+
+def _add(total, part, times=1):
+    for name, n in part.items():
+        total[name] = total.get(name, 0) + n * times
+    return total
+
+
+def _expected_launches(model, b, samples, train):
+    """A train step's (dropout > 0 keeps the branch layer unfused, and its
+    attention on ``sdpa_plain``) or an eval batch's launches at B = b and a
+    buffer of ``samples``: HuBERT's layers, the parallel branch's layers
+    (T + 1 rows), the cascaded branch's head (K + T rows, one head) and the
+    text tower's causal K + 2 rows: where the gates send them."""
+    from speechclip_tpu_torch.models.hubert import conv_output_length
+    from speechclip_tpu_torch.ops.attention import attention_route
+
+    cfg, a = model.config, model.audio_cfg
+    t = conv_output_length(a, samples)
+    out = _add({}, _encoder_layer_launches(b, t, a.encoder_embed_dim, a.encoder_heads,
+                                           a.encoder_ffn_dim), a.encoder_layers)
+    pb = cfg.parallel_branch
+    if model.use_parallel and not (train and pb.dropout > 0):
+        _add(out, _encoder_layer_launches(b, t + 1, pb.d_model, pb.nhead, pb.dim_feedforward),
+             pb.n_layers)
+    if model.use_cascaded:
+        cb, k = cfg.cascaded_branch, cfg.cascaded_branch.keyword_number
+        for rows, d, heads, causal, layers in ((k + t, cb.d_model, cb.nhead, False, cb.n_layers),
+                                               (k + 2, model.clip_cfg.width, model.clip_cfg.heads,
+                                                True, model.clip_cfg.layers)):
+            if train and cb.dropout > 0 and not causal:
+                continue
+            route = attention_route(b, rows, rows, d, heads, 2, causal=causal)
+            if route in ("attention_vmem", "flash_attention", "mha_block"):
+                _add(out, {"mha_layer_block" if route == "mha_block" else route: 1}, layers)
+    return {name: n for name, n in out.items() if n}
+
+
+@contextlib.contextmanager
+def _instrumented_trainer(rec):
+    """Record, for every trainer built while it is open, each train step's
+    and eval batch's launches (count deltas: nothing is reset), each
+    validation's collected features and recalls, and any call of a plain
+    kernel version on a CUDA tensor (the kernels' wrappers never fall back;
+    the train path keeps its recomputes at 0)."""
+    import torch
+
+    import speechclip_tpu_torch.training.trainer as trainer_mod
+    from speechclip_tpu_torch.kernels import (attention_vmem, conv_frontend, flash_attention,
+                                              fused_layer)
+    from speechclip_tpu_torch.ops import attention as attention_mod
+
+    counters = _counters()
+    snap = lambda: {n: f.launches for n, f in counters.items()}
+    delta = lambda a, b: {n: a[n] - b[n] for n in a if a[n] != b[n]}
+    patches = []
+
+    def patch(module, name, new):
+        patches.append((module, name, getattr(module, name)))
+        setattr(module, name, new)
+
+    make_train, make_eval, metrics = (trainer_mod.make_train_step, trainer_mod.make_eval_step,
+                                      trainer_mod.retrieval_metrics)
+
+    def counted_train(*args, **kwargs):
+        step = make_train(*args, **kwargs)
+
+        def run(state, batch):
+            before = snap()
+            out = step(state, batch)
+            rec["steps"].append(delta(snap(), before))
+            return out
+        return run
+
+    def counted_eval(*args, **kwargs):
+        step = make_eval(*args, **kwargs)
+
+        def run(state, batch):
+            before = snap()
+            out = step(state, batch)
+            rec["eval"].append((int(batch["wav"].shape[1]), int(batch["wav"].shape[0]),
+                                delta(snap(), before)))
+            return out
+        return run
+
+    def recorded_metrics(collected, recall_at, device="cuda"):
+        out = metrics(collected, recall_at, device)
+        rec["validations"].append((collected, out))
+        return out
+
+    def guard(name, fn):
+        def plain(*args, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                rec["plain_on_cuda"].append(name)
+            return fn(*args, **kwargs)
+        return plain
+
+    patch(trainer_mod, "make_train_step", counted_train)
+    patch(trainer_mod, "make_eval_step", counted_eval)
+    patch(trainer_mod, "retrieval_metrics", recorded_metrics)
+    for module, name in ((fused_layer, "mha_layer_block_plain"), (fused_layer, "ffn_block_plain"),
+                         (attention_mod, "mha_layer_block_plain"),
+                         (attention_vmem, "attention_vmem_plain"),
+                         (flash_attention, "flash_attention_plain"),
+                         (conv_frontend, "fused_conv_chain_plain")):
+        patch(module, name, guard(name, getattr(module, name)))
+    try:
+        yield
+    finally:
+        for module, name, old in reversed(patches):
+            setattr(module, name, old)
+
+
+@contextlib.contextmanager
+def _dataset_class(cls):
+    from speechclip_tpu_torch.data import datasets
+
+    old = datasets.DATASETS["flickr"]
+    datasets.DATASETS["flickr"] = cls or old
+    try:
+        yield
+    finally:
+        datasets.DATASETS["flickr"] = old
+
+
+def _read_metrics(workdir):
+    import json
+    import os
+
+    train, val = {}, {}
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        for line in f:
+            r = json.loads(line)
+            (train if "train_loss" in r else val)[r["step"]] = r
+    return train, val
+
+
+def _check_trainer_run(label, trainer, rec, launches, first_step):
+    """Phase 18's checks of one fit to step 6 from ``first_step`` + 1:
+    launches per train step and per eval batch against the gates' counts
+    (``attention_vmem`` > 0 on the 17 s bucket), the counted total, the
+    recalls against a float64 recompute, finite losses, the files, and no
+    plain kernel on a CUDA tensor. -> the run's summary."""
+    import os
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from speechclip_tpu_torch.config import load_config
+    from speechclip_tpu_torch.ops import retrieval
+
+    model, stats = trainer.model, trainer.loop_stats
+    train_len = int(trainer.config.audio_encoder.max_audio_len)
+    batch = int(trainer.config.data.batch_size)
+    want_step = _expected_launches(model, batch, train_len, train=True)
+    steps = list(range(first_step + 1, 7))
+    if len(rec["steps"]) != len(steps) or any(s != want_step for s in rec["steps"]):
+        fail(f"trainer {label}: per-step launches {rec['steps']}, expected {want_step} each")
+    by_bucket = {}
+    total = _add({}, want_step, len(steps))
+    for samples, rows, got in rec["eval"]:
+        want = _expected_launches(model, rows, samples, train=False)
+        if got != want:
+            fail(f"trainer {label}: eval batch of {rows} x {samples} samples launched {got}, "
+                 f"the gates give {want}")
+        entry = by_bucket.setdefault(samples, {"batches": 0, "launches": {}})
+        entry["batches"] += 1
+        _add(entry["launches"], got)
+        _add(total, got)
+    total = {n: total.get(n, 0) for n in launches}
+    if launches != total:
+        fail(f"trainer {label}: launches {launches} over the run, the steps and eval batches "
+             f"sum to {total}")
+    longest = max(by_bucket)
+    if not by_bucket[longest]["launches"].get("attention_vmem"):
+        fail(f"trainer {label}: no attention_vmem on the {longest}-sample bucket")
+    if rec["plain_on_cuda"]:
+        fail(f"trainer {label}: plain kernel versions ran on CUDA tensors: {rec['plain_on_cuda']}")
+    recomputes = _recomputes(_counters())
+    if any(recomputes.values()):
+        fail(f"trainer {label}: backward recomputes {recomputes} on a frozen-tower train path")
+    # recall against a float64 recompute from the collected features
+    for collected, (r_ab, r_ba, r_mean) in rec["validations"]:
+        ids = collected["id"]
+        _, first = np.unique(ids, return_index=True)
+        first = np.sort(first)
+        img_ids = ids[first]
+        s64 = collected["audio_feat"].astype(np.float64) @ collected["image_feat"][first].astype(
+            np.float64).T
+        dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+        scores = retrieval.scores(dev(collected["audio_feat"]), dev(collected["image_feat"][first]))
+        _check_eval_direction(f"trainer {label} audio -> image", scores, ids, img_ids, r_ab, s64)
+        _check_eval_direction(f"trainer {label} image -> audio", scores.T, img_ids, ids, r_ba,
+                              s64.T)
+    train, val = _read_metrics(trainer.workdir)
+    if sorted(train)[-len(steps):] != steps or not all(
+            np.isfinite(train[s]["train_loss"]) for s in steps):
+        fail(f"trainer {label}: metrics.jsonl train lines {sorted(train)}")
+    val_steps = sorted(s for s in val if s > first_step)
+    if not val_steps or not all(np.isfinite(val[s]["val_loss"]) and "val_recall_mean_10" in val[s]
+                                for s in val_steps):
+        fail(f"trainer {label}: metrics.jsonl validation lines {val}")
+    ckpts = os.path.join(trainer.workdir, "ckpts")
+    for part in ("last", f"step_{TRAINER_SAVE_STEP}", "val_loss", "val_recall_mean_10",
+                 "config.yaml"):
+        if not os.path.exists(os.path.join(ckpts, part)):
+            fail(f"trainer {label}: ckpts/{part} missing")
+    for monitor in ("val_loss", "val_recall_mean_10"):
+        if not os.listdir(os.path.join(ckpts, monitor)):
+            fail(f"trainer {label}: ckpts/{monitor} is empty")
+    if load_config(os.path.join(ckpts, "config.yaml")) != trainer.config:
+        fail(f"trainer {label}: ckpts/config.yaml does not read back to the run's tree")
+    ms = [1000.0 / train[s]["steps_per_sec"] for s in steps if s > 1]
+    return {
+        "steps": steps,
+        "launches": launches,
+        "launches_per_step": want_step,
+        "eval_by_bucket": {str(k): v for k, v in sorted(by_bucket.items())},
+        "train_loss": [train[s]["train_loss"] for s in steps],
+        "val": {s: {k: val[s][k] for k in ("val_loss", "val_recall_mean_1",
+                                            "val_recall_mean_10")} for s in val_steps},
+        "ms_per_step": statistics.median(ms) if ms else None,
+        "ms_per_step_each": ms,
+        "host_share": stats["data_wait_s"] / stats["train_wall_s"],
+        "epoch_first_wait_s": [w[0] for w in stats["data_waits"] if w],
+        "other_wait_s": statistics.median([x for w in stats["data_waits"] for x in w[1:]] or [0]),
+        "data_wait_s": stats["data_wait_s"],
+        "train_wall_s": stats["train_wall_s"],
+        "image_cache_s": stats["image_cache_s"],
+        "validation_s": [v for _, v in stats["validations"]],
+        "saves": [{"step": s, "seconds": t, "bytes": n} for s, t, n in stats["saves"]],
+    }
+
+
+def _new_record():
+    return {"steps": [], "eval": [], "validations": [], "plain_on_cuda": []}
+
+
+def _counted_fit(run, rec):
+    """``run()`` (which builds a trainer and fits: -> (trainer, final
+    state)) with every count at 0 just before and read just after, the
+    trainer instrumented (``_instrumented_trainer``)."""
+    import torch
+
+    counters = _counters()
+    _reset(counters)
+    with _instrumented_trainer(rec):
+        trainer, state = run()
+    torch.cuda.synchronize()
+    return trainer, state, {name: f.launches for name, f in counters.items()}
+
+
+def _cli_fit(argv):
+    from speechclip_tpu_torch import run_task
+
+    runner = run_task.main(argv)
+    return runner.trainer, runner.result
+
+
+def _api_fit(tree, **fit_kwargs):
+    from speechclip_tpu_torch.training.trainer import Trainer
+
+    trainer = Trainer(tree)
+    return trainer, trainer.fit(**fit_kwargs)
+
+
+def _step_one_check(label, tree, workdir, first):
+    """The trainer adds no math: a fresh Trainer's initial state (the same
+    seed), the first batch of its train loader with the cached image
+    features, one ``make_train_step``: train_loss and grad_norm against the
+    fit's step-1 line."""
+    import dataclasses
+
+    import torch
+
+    from speechclip_tpu_torch.training.train_step import make_train_step, to_device
+    from speechclip_tpu_torch.training.trainer import Trainer, _inject_cached_image_feats
+
+    trainer = Trainer(tree, workdir=workdir)
+    state = trainer.create_state()
+    state = dataclasses.replace(state, params=trainer.model.load_pretrained(state.params))
+    train_loader, _ = trainer.build_loaders()
+    batch = next(iter(train_loader))
+    if trainer._cache_image_features():
+        cache, id2row = trainer.build_image_feature_cache(train_loader.dataset, state.params)
+        batch = _inject_cached_image_feats(batch, cache, id2row)
+    step = make_train_step(trainer.model, trainer.optimizer, trainer.scheduler,
+                           trainer.model.config.accumulate_grad_batches)
+    _, metrics = step(state, to_device(batch, trainer.model.device))
+    got = {k: float(metrics[k]) for k in ("train_loss", "grad_norm")}
+    diff = {k: got[k] - first[k] for k in got}
+    say(f"  {label} step 1 through make_train_step on the trainer's first batch: {got}, the "
+        f"fit's step 1 {({k: first[k] for k in got})}, difference {diff} (expect 0: the same "
+        f"kernels on the same inputs)")
+    if any(diff.values()):
+        fail(f"trainer {label}: the fit's step 1 differs from make_train_step's: {diff}")
+    del trainer, state, step
+    torch.cuda.empty_cache()
+    return diff
+
+
+def _restore_check(label, tree, workdir, final_state):
+    """Restore ckpts/step_3 into a fresh Trainer: the params (the frozen
+    towers of a slim checkpoint through ``load_pretrained``: the seeded
+    init, as the run's), the kw-BN statistics, the optimizer's state, the
+    step and the generator's state equal what was saved, bitwise."""
+    import os
+
+    import torch
+
+    from speechclip_tpu_torch.training.checkpoint import STATE_FILE
+    from speechclip_tpu_torch.training.optim import tree_leaves
+    from speechclip_tpu_torch.training.trainer import Trainer
+
+    path = os.path.join(workdir, "ckpts", f"step_{TRAINER_SAVE_STEP}")
+    trainer = Trainer(tree, workdir=workdir)
+    state = trainer.restore(path, trainer.create_state())
+    saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
+    slim = trainer.ckpt.is_slim(path)
+
+    def same(a, b):
+        return a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+
+    triples = list(_paired_leaves(state.params, saved["params"], final_state.params))
+    ok = len(triples) == len(list(tree_leaves(state.params)))
+    frozen = 0
+    for leaf, want, end in triples:
+        if want is None:  # slim: a frozen tower, from load_pretrained
+            frozen += 1
+            ok &= same(leaf, end)
+        else:
+            ok &= same(leaf, want)
+    ok &= all(same(a, b) for a, b in zip(tree_leaves(state.model_state),
+                                         tree_leaves(saved["model_state"])))
+    opt = trainer.optimizer.state_dict()["state"]
+    ok &= opt.keys() == saved["optimizer"]["state"].keys() and all(
+        same(opt[k][n], v) for k in opt for n, v in saved["optimizer"]["state"][k].items())
+    ok &= state.step == saved["step"] == TRAINER_SAVE_STEP
+    ok &= torch.equal(state.generator.get_state(), saved["generator"])
+    say(f"  {label} restore of step_{TRAINER_SAVE_STEP} ({'slim: ' + str(frozen) + ' frozen leaves from load_pretrained' if slim else 'full'}): "
+        f"{len(triples)} param leaves, kw-BN state, {len(opt)} optimizer states, step "
+        f"{state.step}, generator state: bitwise equal {bool(ok)}")
+    if not ok:
+        fail(f"trainer {label}: the restored state differs from step_{TRAINER_SAVE_STEP}")
+    if slim != (frozen > 0):
+        fail(f"trainer {label}: slim {slim} but {frozen} leaves came from load_pretrained")
+    del trainer, state
+    torch.cuda.empty_cache()
+
+
+def _paired_leaves(tree, *others):
+    """(leaf, the other trees' leaves at its place) for every leaf of
+    ``tree`` that is not None; a slim checkpoint's frozen leaves are None."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _paired_leaves(tree[k], *(o[k] for o in others))
+    elif isinstance(tree, (list, tuple)):
+        for items in zip(tree, *others):
+            yield from _paired_leaves(*items)
+    elif tree is not None:
+        yield (tree, *others)
+
+
+def phase_trainer(smi, train):
+    """Phase 18, the trainer: a seeded Flickr8k-shaped corpus on disk; the
+    shipped parallel config through the port's CLI (``run_task.main``, in
+    this process) and the shipped cascaded config (slim checkpoints)
+    through the ``Trainer`` API, each at full width, B = 256, precision 16,
+    the image-feature cache, with TRAINER_OVERRIDES: 6 steps (2 epochs of
+    3), 2 validations, checkpoints; the checks of ``_check_trainer_run``,
+    step 1 against ``make_train_step``, the restore of step_3 and (parallel)
+    a resumed fit to step 6; the times."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from speechclip_tpu_torch.config import load_config
+    from speechclip_tpu_torch.data import native
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        why = _image_decoder()
+        corpus = os.path.join(tmp, "flickr")
+        t0 = time.perf_counter()
+        durations = _write_trainer_corpus(corpus, write_jpegs=why is None)
+        decode = "PIL" if why is None else f"substituted ({why})"
+        say(f"phase 18 trainer: corpus of {len(durations['train'])} train pairs "
+            f"({min(durations['train']):.2f}-{max(durations['train']):.2f} s) and "
+            f"{len(durations['dev'])} dev pairs ({min(durations['dev']):.2f}-"
+            f"{max(durations['dev']):.2f} s) written in {time.perf_counter() - t0:.1f} s; image "
+            f"decode: {decode}; WAV decode: {'native' if native.available() else 'python'}")
+        out = {"image_decode": decode, "native_wav": native.available()}
+        cls = None if why is None else _seeded_image_dataset()
+        with _dataset_class(cls):
+            # the parallel config through the CLI
+            run_p = os.path.join(tmp, "p_run")
+            argv = ["TrainKWClip_GeneralTransformer", "--config", TRAINER_CONFIGS["spchclp_p"],
+                    "--train", "--dataset_root", corpus, "--save_path", run_p,
+                    "--seed", str(TRAINER_SEED), "--override", *TRAINER_OVERRIDES]
+            rec = _new_record()
+            trainer, final_state, launches = _counted_fit(lambda: _cli_fit(argv), rec)
+            tree = trainer.config
+            summary = _check_trainer_run("spchclp_p", trainer, rec, launches, 0)
+            first = _read_metrics(run_p)[0][1]
+            del trainer, rec
+            gc.collect()
+            torch.cuda.empty_cache()
+            summary["step1_diff"] = _step_one_check("spchclp_p", tree, os.path.join(tmp, "p_step1"),
+                                                    first)
+            _restore_check("spchclp_p", tree, run_p, final_state)
+            del final_state
+            gc.collect()
+            torch.cuda.empty_cache()
+            # resume from step_3 in a fresh trainer, to step 6
+            rec = _new_record()
+            step_path = os.path.join(run_p, "ckpts", f"step_{TRAINER_SAVE_STEP}")
+            resumed, state, r_launches = _counted_fit(lambda: _api_fit(tree, resume=step_path), rec)
+            if state.step != 6:
+                fail(f"trainer spchclp_p: the resumed fit ended at step {state.step}")
+            summary["resume"] = _check_trainer_run("spchclp_p resume", resumed, rec, r_launches,
+                                                   TRAINER_SAVE_STEP)
+            out["spchclp_p"] = summary
+            del resumed, state, rec
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # the cascaded config through the Trainer API, slim checkpoints
+            run_c = os.path.join(tmp, "c_run")
+            tree_c = load_config(TRAINER_CONFIGS["spchclp_c"],
+                                 overrides=TRAINER_OVERRIDES + ["trainer.checkpoint_frozen=false"])
+            tree_c.set_path("data.dataset.dataset_root", corpus)
+            tree_c.set_path("trainer.default_root_dir", run_c)
+            tree_c["seed"] = TRAINER_SEED
+            rec = _new_record()
+            trainer_c, state_c, launches_c = _counted_fit(lambda: _api_fit(tree_c), rec)
+            summary_c = _check_trainer_run("spchclp_c", trainer_c, rec, launches_c, 0)
+            if not trainer_c.ckpt.is_slim(os.path.join(run_c, "ckpts", "last")):
+                fail("trainer spchclp_c: checkpoint_frozen false wrote a full checkpoint")
+            first_c = _read_metrics(run_c)[0][1]
+            del trainer_c, rec
+            gc.collect()
+            torch.cuda.empty_cache()
+            summary_c["step1_diff"] = _step_one_check("spchclp_c", tree_c,
+                                                      os.path.join(tmp, "c_step1"), first_c)
+            _restore_check("spchclp_c", tree_c, run_c, state_c)
+            out["spchclp_c"] = summary_c
+            del state_c
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    for label in ("spchclp_p", "spchclp_c"):
+        r = out[label]
+        say(f"phase 18 {label} on {smi}: launches {r['launches']} ({r['launches_per_step']} a "
+            f"train step); eval by bucket (samples: batches, launches) {r['eval_by_bucket']}; "
+            f"train_loss {[round(v, 4) for v in r['train_loss']]}; validations {r['val']}; "
+            f"trainer ms/step (1000 / steps_per_sec, median of steps 2-6) {r['ms_per_step']:.3f} "
+            f"{[round(v, 3) for v in r['ms_per_step_each']]} beside phase 17's image-cache step "
+            f"{train['cache_ms']:.3f}; host share (loader wait + H2D over the train loop's wall) "
+            f"{r['host_share']:.4f} ({r['data_wait_s']:.3f} of {r['train_wall_s']:.3f} s; each "
+            f"epoch's first batch {[round(v, 3) for v in r['epoch_first_wait_s']]} s, the others' "
+            f"median {r['other_wait_s']:.3f} s); "
+            f"image-cache build {r['image_cache_s']:.3f} s; validations "
+            f"{[round(v, 3) for v in r['validation_s']]} s; checkpoint saves "
+            f"{[(s['step'], round(s['seconds'], 3), s['bytes']) for s in r['saves']]} "
+            f"(step, s, bytes)")
+    say(f"phase 18 trainer: wall {out['wall_s']:.1f} s")
+    return out
+
+
 # kernel -> (source, the TPU kernel it replaces, the phase-2 row whose
 # times and bound it reports, the path whose launches it reports)
 REPLACES = {
@@ -2288,6 +2904,8 @@ def main(argv) -> int:
         dict(flash_attention=2 + text_layers))
     torch.cuda.empty_cache()
     train = phase_train_timed(smi)
+    torch.cuda.empty_cache()
+    trainer = phase_trainer(smi, train)
 
     kernels = []
     for name, (source, replaces, row, path) in REPLACES.items():
@@ -2314,7 +2932,8 @@ def main(argv) -> int:
         if name in kern["backward"]:
             kernels[-1]["backward"] = kern["backward"][name]
             kernels[-1]["recomputes"] = {path: r[name] for path, r in recomputes.items()}
-    print(json.dumps({"kernels": kernels, "train": train}))
+    say(f"chip_smoke wall {time.perf_counter() - T_START:.1f} s")
+    print(json.dumps({"kernels": kernels, "train": train, "trainer": trainer}))
     print(json.dumps({
         "ok": True,
         "device": {

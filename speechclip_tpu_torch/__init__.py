@@ -13,7 +13,11 @@ tower over token ids, and the validation epoch's two-way retrieval eval
 (``training/train_step.py``: both branches over the frozen HuBERT and CLIP
 towers, the contrastive loss, clip, Adam and the LR schedule), whose
 kernels take their gradients from a recompute through their plain versions,
-as the JAX package's ``custom_vjp``s do. The encoder
+as the JAX package's ``custom_vjp``s do; and the trainer
+(``python -m speechclip_tpu_torch.run_task``: the YAML config tree read by
+``config.load_config``, the bucketed Flickr8k / SpokenCOCO loaders of
+``data/``, ``training/trainer.py``'s fit and validation, the checkpoints of
+``training/checkpoint.py``). The encoder
 layers take the JAX package's length-dependent routes (``ops/attention.py``,
 ``kernels/fused_layer.py``) through hand-written Hopper kernels (``csrc/``:
 the two fused half-layers, whole-row attention, streaming flash attention
@@ -21,7 +25,9 @@ at any head width, and the stride-2 conv chain) on CUDA tensors, and
 through their plain PyTorch versions on CPU tensors. Entry points run on
 the card unless the caller passes ``device="cpu"``.
 
-The package imports torch and numpy only: never jax, yaml or speechclip_tpu.
+The package imports torch, numpy and the standard library (PIL and scipy
+inside the functions that need them): never jax, yaml, regex or
+speechclip_tpu.
 """
 
 from .config import (

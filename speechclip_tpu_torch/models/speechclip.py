@@ -5,7 +5,8 @@ with the parallel branch, the cascaded branch or both;
 ``encode_image_tower``, ``project_image_feat``, ``forward_image`` and
 ``forward_text`` on the gallery side; and for training ``forward`` (the
 features of both sides, eval or train mode), ``compute_loss`` and
-``trainable_mask``). A gallery feature is ``l2_normalize(forward_image(...)
+``trainable_mask``; ``load_pretrained`` for the configured tower weight
+files). A gallery feature is ``l2_normalize(forward_image(...)
 .float())``, as the JAX model's ``forward`` makes it.
 
 HuBERT and the CLIP towers are frozen: their forwards run under
@@ -37,6 +38,7 @@ for the ROADMAP item "Training".
 
 from __future__ import annotations
 
+import logging
 import math
 import os
 from pathlib import Path
@@ -63,6 +65,7 @@ WEIGHTED_SUM_MODE = "weighted_sum"
 LOSS_TYPES = ("MaskedContrastiveLoss", "SupConLoss")
 TRAINING_ITEM = "the ROADMAP item 'Training'"
 REPO_ROOT = Path(__file__).resolve().parents[2]
+logger = logging.getLogger(__name__)
 
 
 def compute_dtype(precision) -> torch.dtype:
@@ -221,6 +224,44 @@ class SpeechCLIPModel:
         if cfg.image_encoder_projection is not None:
             params["img_enc_proj"] = mlp_init(gen, cfg.image_encoder_projection)
         return params, state
+
+    def load_pretrained(self, params: Params) -> Params:
+        """``params`` with the frozen towers swapped for the configured
+        weight files (``audio_pretrained_path``: a fairseq or HF HuBERT;
+        ``clip_pretrained_path``: an OpenAI or HF CLIP, cut to the reduced
+        vocabulary where one is configured), converted by
+        ``convert.from_torch`` and cast as ``cast_params`` casts, on the
+        model's device. A configured file that is missing logs a warning
+        and leaves the random tower, as the JAX model does. The other
+        leaves (the trainable ones the optimizer holds) are kept as they
+        are."""
+        params = dict(params)
+        ae_path = self.config.audio_pretrained_path
+        if ae_path:
+            if os.path.exists(ae_path):
+                from ..convert.from_torch import load_hubert_checkpoint
+
+                params["audio_encoder"] = cast_params(
+                    load_hubert_checkpoint(ae_path, self.audio_cfg), self.compute_dtype,
+                    self.device)
+                logger.info("loaded HuBERT weights from %s", ae_path)
+            else:
+                logger.warning("HuBERT checkpoint %s not found; random init", ae_path)
+        clip_path = self.config.clip_pretrained_path
+        if clip_path:
+            if os.path.exists(clip_path):
+                from ..config import CLIPConfig
+                from ..convert.from_torch import load_clip_checkpoint
+
+                clip_params = load_clip_checkpoint(
+                    clip_path, CLIPConfig(vision=self.vision_cfg, text=self.clip_cfg))
+                if self.reduced_vocab is not None:
+                    clip_params = clip_mod.reduce_token_embedding(clip_params, self.reduced_vocab)
+                params["clip"] = cast_params(clip_params, self.compute_dtype, self.device)
+                logger.info("loaded CLIP weights from %s", clip_path)
+            else:
+                logger.warning("CLIP checkpoint %s not found; random init", clip_path)
+        return params
 
     def forward_audio(
         self,

@@ -1,0 +1,83 @@
+"""Train and evaluate SpeechCLIP (port of
+speechclip_tpu/tasks/train_kwclip.py): the config tree (a YAML file and
+``--override``s for a fresh run; the ``config.yaml`` beside the checkpoint
+for ``--resume``, with the CLI's settings applied again), then
+``Trainer.fit`` (``--train``) or ``Trainer.validate`` on the dev split
+(``--eval``) or the test split (``--test``) from ``--ckpt`` / ``--resume``.
+
+Checkpoints are the port's own run directories. A reference Lightning
+``.ckpt`` raises: its converter waits for ``convert/reference_ckpt.py``.
+"""
+
+from __future__ import annotations
+
+import logging
+import random
+
+import numpy as np
+import torch
+
+from ..config import load_config, parse_override_value
+from ..training.checkpoint import load_config_from_checkpoint
+from ..training.logging import set_logging
+from ..training.trainer import TOKENIZER_ITEM, Trainer
+from .base_task import BaseTask
+
+logger = logging.getLogger(__name__)
+DDP_ITEM = "the DDP step of the ROADMAP item 'Training, the rest'"
+
+
+def _seed_everything(seed: int) -> None:
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+class TrainKWClip_GeneralTransformer(BaseTask):
+    def run(self):
+        """Fit (returns the final ``TrainState``) or validate (returns the
+        metrics); the trainer stays on ``self.trainer``."""
+        args = self.args
+        if args.devices is not None and args.devices > 1:
+            raise NotImplementedError(f"--devices {args.devices}: {DDP_ITEM}")
+        ckpt_arg = args.resume or args.ckpt
+        if ckpt_arg and ckpt_arg.endswith(".ckpt"):
+            raise NotImplementedError(
+                f"{ckpt_arg}: a reference Lightning checkpoint needs convert/reference_ckpt.py, "
+                "which waits for the ROADMAP item 'Surfaces' (Queue 1 item 4)")
+        set_logging(args.log_level)
+        _seed_everything(args.seed)
+        device = "cpu" if args.platform == "cpu" else "cuda"
+
+        if args.resume:
+            config = load_config_from_checkpoint(args.resume)
+        else:
+            if not args.config:
+                raise ValueError("--config required for fresh runs")
+            config = load_config(args.config, overrides=args.override)
+        if args.dataset_root:
+            config.set_path("data.dataset.dataset_root", args.dataset_root)
+        if args.save_path:
+            config.set_path("trainer.default_root_dir", args.save_path)
+        config["seed"] = args.seed
+        for ov in args.override:
+            key, _, value = ov.partition("=")
+            config.set_path(key.strip(), parse_override_value(value.strip()))
+
+        logger.warning("the CLIP tokenizer is not in the port yet (%s); text tokenization and "
+                       "keyword diagnostics disabled", TOKENIZER_ITEM)
+        trainer = self.trainer = Trainer(config, tokenizer=None, device=device)
+        self.config = config
+
+        if args.train:
+            return trainer.fit(resume=args.resume)
+        if args.eval or args.test:
+            state = trainer.create_state()
+            if ckpt_arg:
+                state = trainer.restore(ckpt_arg, state)
+            # --test evaluates the test split, --eval the dev/val split
+            split = "test" if args.test else "dev"
+            metrics = trainer.validate(state, split=split)
+            logger.info("validation metrics (%s): %s", split, metrics)
+            return metrics
+        raise ValueError("specify one of --train / --eval / --test")

@@ -15,14 +15,17 @@ updates, in place) and the frozen ones in the compute dtype as
 ``cast_params`` casts them; the kw-BN running statistics; the micro-batch
 count; and the ``torch.Generator`` the dropout masks and the Gumbel noise
 are drawn from. Data-parallel training (with the loss's feature all-gather)
-waits for the ROADMAP item "Training".
+waits for the ROADMAP item "Training, the rest" (DDP). ``device_prefetch``
+stages host batches on the card ahead of the step that takes them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from collections import deque
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..models.speechclip import SpeechCLIPModel, cast_params
@@ -45,8 +48,8 @@ def _place(params: Params, mask: Params, dtype: torch.dtype, device) -> Params:
     frozen = cast_params(params, dtype, device)
 
     def walk(p, f, m):
-        if isinstance(p, dict):
-            return {k: walk(p[k], f[k], m[k]) for k in p}
+        if isinstance(p, dict):  # sorted keys: one leaf order, so one optimizer order
+            return {k: walk(p[k], f[k], m[k]) for k in sorted(p)}
         if isinstance(p, (list, tuple)):
             return [walk(a, b, c) for a, b, c in zip(p, f, m)]
         if p is None or not m:
@@ -164,3 +167,37 @@ def make_eval_step(model: SpeechCLIPModel):
         return out
 
     return eval_step
+
+
+def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """A host batch of numpy arrays -> tensors on ``device``: on the card
+    through pinned host memory with a non-blocking copy, so the copy runs
+    beside the work already queued; on the CPU the arrays' own memory."""
+    device = torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t
+    return out
+
+
+def staged(items: Iterable, size: int = 2) -> Iterator:
+    """``items`` with a bounded lookahead: the producer runs ``size``
+    elements ahead of the consumer, so work an element starts when it is
+    made (a non-blocking copy) overlaps the consumer's."""
+    buf: deque = deque()
+    for item in items:
+        buf.append(item)
+        if len(buf) >= size:
+            yield buf.popleft()
+    while buf:
+        yield buf.popleft()
+
+
+def device_prefetch(batches: Iterable[Dict[str, np.ndarray]], device,
+                    size: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
+    """Stage the next batches on ``device`` while the current one runs
+    (``size`` = 2: double buffering). One card: no mesh, no sharding."""
+    return staged((to_device(b, device) for b in batches), size)

@@ -115,6 +115,8 @@ def training_fields_from_jax(cfg) -> dict:
         gradient_clip_val=float(cfg.get_path("trainer.gradient_clip_val", 0) or 0),
         accumulate_grad_batches=int(cfg.get_path("trainer.accumulate_grad_batches", 1) or 1),
         retrieval_audio_feat_src=cfg.get_path("retrieval.audio_feat_src"),
+        audio_pretrained_path=ae.get("pretrained_path") if ae.get("pretrained", False) else None,
+        clip_pretrained_path=cfg.clip.get("pretrained_path"),
     )
 
 
