@@ -14,7 +14,10 @@ line each (a failed check exits non-zero before the last line):
    at its gate's largest T=782; ``attention_vmem`` at the 17 s shapes and a
    causal one; ``flash_attention`` at the flash-backend shape, a 17 s shape
    and the causal CLIP-text shape, in bf16 and, as ``forward_text`` runs
-   it, in f32), with the error, the tolerance and
+   it, in f32; the large models' layers: HuBERT-large's pre-norm layer at
+   B=64, T=319, H=16, the large branch's post-norm layer at T=320, H=8,
+   Dh=128, and the large cascaded head at Dh=1024 in bf16 and f32), with
+   the error, the tolerance and
    median CUDA-event times of kernel and plain; and the wgmma GEMM of
    ``mha_layer_block`` and ``ffn_block`` alone at the main path's four
    products (QKV, out-proj, fc1, fc2 at M = 64 x 319) and one ragged shape,
@@ -102,7 +105,29 @@ line each (a failed check exits non-zero before the last line):
     ``make_train_step`` bitwise, step 3's checkpoint restored bitwise, a
     resumed fit to step 6; the trainer's ms/step from its
     ``steps_per_sec``, the loop's host share, the cache, validation and
-    save times.
+    save times;
+19. the large models' encode + retrieve (``bench_variant_config("large_par")``:
+    HuBERT-large's 24 pre-norm layers of 16 heads, the s3prl per-state
+    LayerNorm, the 1024-wide parallel branch, 768-wide features; seeded
+    random weights) at B = 64 and B = 256 x 6.4 s against the all-plain
+    path, 25 ``mha_layer_block`` a forward and no ``ffn_block``
+    (``ffn_eligible`` fails at D = 1024, F = 4096); the forward with
+    ``wsum_remat`` on against it off (bf16 limits) and its launches; utt/s
+    at B = 256 (bench.py's hubert_large_utt_per_sec shape); the large
+    cascaded branch under "auto" (24 ``mha_layer_block``) and "pallas" (37
+    ``flash_attention``: 24 HuBERT layers, the 1024-wide head, 12 text
+    layers) at B = 64 against the all-plain path;
+20. the large train step (``large_par``, dropout 0.1) at B = 128 and 256:
+    ``wsum_remat`` on against off from one train state (loss, the
+    weighted-sum logits' gradient, ``grad_norm``); ms per step and peak GiB
+    off and on with the image-feature cache (24 ``mha_layer_block`` a step,
+    48 with the recompute) and at B = 128 with the images (24 more for the
+    ViT-L/14 tower);
+21. the trainer on phase 18's corpus with ``configs/large_flickr``:
+    ``spchclp_p.yaml`` through the CLI and ``spchclp_c.yaml`` with
+    ``audio_encoder.wsum_remat=true`` through ``Trainer``, each checked as
+    phase 18 checks (the eval buckets past T = 460 run ``attention_vmem``
+    at D = 1024), each with a resumed fit.
 
 Rates (utt/s, images/s, sequences/s) come from CUDA events around as many
 back-to-back calls as fill about 1 s.
@@ -151,7 +176,10 @@ for the gallery side (the ViT-B/32 gallery under both backends and its
 preprocessing alone, text, the ViT-L/14 and RN50 towers; the eval of
 phase 13 in parts), and the train step of phase 17 (profiled, with the
 image-feature cache, and split into the frozen HuBERT forward, the frozen
-image tower and the rest); it prints no result line.
+image tower and the rest), and the large paths (``phase_profile_large``:
+phase 19's encode at B = 256, profiled and split into HuBERT-large's front
+end, its layers, the s3prl weighted sum and the rest; phase 20's B = 256
+image-cache step with ``wsum_remat`` off and on); it prints no result line.
 """
 
 from __future__ import annotations
@@ -160,6 +188,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -176,6 +205,14 @@ BRANCH_SHAPE = dict(b=64, t=320, d=768, heads=8, f=3072)
 # at base width
 REPAIR_SHAPES = {"12 s": dict(HUBERT_SHAPE, b=16, t=600),
                  "gate limit": dict(HUBERT_SHAPE, b=16, t=782)}
+# The large models' layers: HuBERT-large's pre-norm layer (16 heads of 64)
+# and the large parallel branch's post-norm layer (8 heads of 128); their
+# FFN fails ffn_eligible at D = 1024, F = 4096 and runs in torch
+LARGE_LAYER_SHAPES = {"hubert-large": dict(b=64, t=319, d=1024, heads=16, f=4096, mode="pre"),
+                      "large branch": dict(b=64, t=320, d=1024, heads=8, f=4096, mode="post")}
+# flash_attention on the large cascaded branch's one 1024-wide head over
+# T + K = 327 rows under "pallas", in bf16 and (precision 32) in f32
+LARGE_FLASH_SHAPE = (64, 1, 327, 1024, True, False, True)
 # (b, h, l, dh, lens, causal, packed): packed = head-split views of one qkv
 # buffer, as the dispatcher hands them over
 ATTENTION_SHAPES = {
@@ -269,6 +306,41 @@ BACKWARD_ATTENTION_SHAPES = {
         "text tower K+2 f32": ((64, 8, 10, 64, False, True, True), "float32"),
     },
 }
+# The large models (phases 19-21): bench_variant_config("large_par") and
+# ("large_casc") at full width, seeded random weights. Path label ->
+# (batch, samples per buffer, shortest length, backend, launches expected per
+# forward: HuBERT-large's 24 layers and the parallel branch's 1 on
+# mha_layer_block, no ffn_block: ffn_eligible fails at D = 1024, F = 4096)
+LARGE_PATHS = {
+    "large main": (64, WAV_SAMPLES, WAV_SAMPLES // 2, "auto",
+                   dict(mha_layer_block=25, ffn_block=0, attention_vmem=0, flash_attention=0,
+                        fused_conv_chain=0)),
+}
+# the large cascaded branch (K = 8, one 1024-wide head, the 49408-row
+# vocabulary, ViT-L/14's 768-wide text tower): "auto" runs HuBERT-large's 24
+# layers on mha_layer_block (the head and the 10-token text layers take
+# sdpa_plain); "pallas" 24 + the head + 12 text layers on flash_attention
+LARGE_CASCADED_PATHS = {
+    "large cascaded auto": ("auto", dict(mha_layer_block=24, ffn_block=0, attention_vmem=0,
+                                         flash_attention=0, fused_conv_chain=0)),
+    "large cascaded pallas": ("pallas", dict(mha_layer_block=0, ffn_block=0, attention_vmem=0,
+                                             flash_attention=37, fused_conv_chain=0)),
+}
+LARGE_THROUGHPUT_BATCH = 256  # bench.py's hubert_large_utt_per_sec batch
+# phase 20: the large train step at bench.py's train_step_ms_large_par_b128
+# batch and the shipped configs' 256, wsum_remat off and on
+LARGE_TRAIN_BATCHES = (128, 256)
+# phase 20: wsum_remat on against off at B = 128. The two differ only in
+# the recompute's f32 weights (the stacked s3prl sum rounds them to bf16):
+# measured on the H100 1e-6 apart in loss (relative), 3.5e-5 in 1 - the
+# logits' gradient cosine and 1.4e-4 in grad_norm (relative); the limits
+# sit 100x, 3x and 7x above. The logits' gradient without its centring
+# term <w, dots> gives a cosine of 0.754 and fails
+# (scripts/torch_wsum_fault_probe.py).
+WSUM_LOSS_RTOL = 1e-4
+WSUM_MIN_GRAD_COSINE = 0.9999
+WSUM_GRAD_NORM_RTOL = 1e-3
+
 # The training phase (flagship_config(): both branches, frozen towers):
 # bench.py's train batch (6.4 s, lengths U[3.2 s, 6.4 s], 224 x 224 f32
 # images, ids arange(B) % (B // 5))
@@ -601,12 +673,41 @@ def phase_kernels():
     _vit_l14_block_row(gallery_gen, results, deferred)
     _attention_row("flash_attention", "clip text f32", TEXT_F32_FLASH_SHAPE, gallery_gen, results,
                    deferred, torch.float32)
+    # the large models' rows, from a generator of their own
+    _large_rows(torch.Generator(device="cuda").manual_seed(24), results, deferred)
     # the backward rows, from a generator of their own (as the gallery's)
     backward = _backward_rows(torch.Generator(device="cuda").manual_seed(18), results)
     _device_rows(deferred, results)
     _conv_layer_device_rows(conv_layers, results)
     _backward_device_rows(backward, results)
     return results
+
+
+def _large_rows(gen, results, deferred):
+    """Phase 2's rows of the large models: ``mha_layer_block`` on
+    HuBERT-large's pre-norm layer and on the large branch's post-norm layer
+    (LARGE_LAYER_SHAPES; their FFN fails ``ffn_eligible`` and runs in torch),
+    and ``flash_attention`` on the large cascaded head in bf16 and in f32
+    (LARGE_FLASH_SHAPE)."""
+    import torch
+
+    from speechclip_tpu_torch.kernels.ffn_block import ffn_eligible
+    from speechclip_tpu_torch.kernels.mha_block import mha_layer_block, mha_layer_block_plain
+
+    for label, shape in LARGE_LAYER_SHAPES.items():
+        if ffn_eligible(shape["b"], shape["t"], shape["d"], shape["f"], 2):
+            fail(f"{label}: ffn_eligible admits D = {shape['d']}, F = {shape['f']}")
+        x, lens, m, _ = _layer_inputs(shape, gen)
+        h, mode = shape["heads"], shape["mode"]
+        args = (x, m["w_in"], m["b_in"], m["w_out"], m["b_out"], m["ln_g"], m["ln_b"], lens, h,
+                mode, 1e-5)
+        row = f"{label} B={shape['b']} T={shape['t']} H={h} Dh={shape['d'] // h} {mode}"
+        _compare("mha_layer_block", row, functools.partial(mha_layer_block, *args),
+                 functools.partial(mha_layer_block_plain, *args), results,
+                 layer_work(shape, lens)[0], deferred=deferred)
+    for dtype in (torch.bfloat16, torch.float32):
+        _attention_row("flash_attention", "large cascaded 1024", LARGE_FLASH_SHAPE, gen, results,
+                       deferred, dtype)
 
 
 def _backward_row(name, label, kern, plain, args, diff, g, results, backward, library=None):
@@ -980,17 +1081,18 @@ def _recomputes(counters):
     return {name: f.recomputes for name, f in counters.items() if hasattr(f, "recomputes")}
 
 
-def phase_path(phase, label, model, params, gallery, seed):
-    """Drive one path once through ``encode_speech`` + ``retrieve`` with every
-    launch count set to 0 just before and read just after; check the
-    features against the all-plain path on the same card."""
+def phase_path(phase, label, model, params, gallery, seed, spec=None):
+    """Drive one path (``spec``, else PATHS[label]) once through
+    ``encode_speech`` + ``retrieve`` with every launch count set to 0 just
+    before and read just after; check the features against the all-plain
+    path on the same card."""
     import torch
 
     from speechclip_tpu_torch import retrieve
     from speechclip_tpu_torch.models.hubert import conv_output_length
     from speechclip_tpu_torch.ops.attention import attention_backend
 
-    b, samples, shortest, backend, expect = PATHS[label]
+    b, samples, shortest, backend, expect = spec or PATHS[label]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     wav, wav_len = _wavs(b, samples, shortest, gen)
     counters = _counters()
@@ -1176,16 +1278,17 @@ def _cascaded_pre_vq(model, params, state, wav, wav_len, plain):
     return branches.cosine_scores(kw, params["clip"]["text"]["token_embedding"])
 
 
-def phase_cascaded(label, model, params, state, gallery, seed):
+def phase_cascaded(label, model, params, state, gallery, seed, spec=None, phase=9):
     """Drive the cascaded branch once through ``encode_speech`` + ``retrieve``
-    with the launch counts at 0 just before and read just after; hold it to
-    the all-plain path on the card."""
+    (``spec``: (backend, launches), else CASCADED_PATHS[label]) with the
+    launch counts at 0 just before and read just after; hold it to the
+    all-plain path on the card."""
     import torch
 
     from speechclip_tpu_torch import retrieve
     from speechclip_tpu_torch.ops.attention import attention_backend
 
-    backend, expect = CASCADED_PATHS[label]
+    backend, expect = spec or CASCADED_PATHS[label]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     wav, wav_len = _wavs(64, WAV_SAMPLES, WAV_SAMPLES // 2, gen)
     counters = _counters()
@@ -1208,7 +1311,7 @@ def phase_cascaded(label, model, params, state, gallery, seed):
     feat_cos = row_cosine_min(feats[rows], plain_feats[rows]) if bool(rows.any()) else 1.0
     top1, overlap = _top_agreement(top, plain_top)
     b, k = ids.shape
-    say(f"phase 9 {label} path (backend {backend}): encode_speech B={b} x {WAV_SAMPLES} samples, "
+    say(f"phase {phase} {label} path (backend {backend}): encode_speech B={b} x {WAV_SAMPLES} samples, "
         f"K={k}, vocabulary {scores.shape[-1]} -> {tuple(feats.shape)}, launches {launches} "
         f"(expect {expect}); vs plain: pre-VQ scores min row cosine {score_cos:.6f} "
         f"(tol {MIN_COSINE}), keyword ids agreeing {id_share:.4f} of {b * k} (tol "
@@ -1343,6 +1446,64 @@ def phase_profile_train(smi):
     say(f"profile train step split on {smi} ({RATE_NOTE}): " + ", ".join(
         f"{name} {v:.3f} ms" for name, v in ms.items())
         + f", the rest (branches forward + backward, loss, clip, Adam) {rest:.3f} ms")
+
+
+def phase_profile_large(smi):
+    """Where the large paths' time goes: the large encode + retrieve step of
+    phase 19 at B = 256 (``_profile_step``) and its split by CUDA events
+    (``_rate``) into HuBERT-large's front end (the waveform normalization,
+    the conv chain with a LayerNorm after every conv, ``pos_conv``), its 24
+    layers, the s3prl weighted sum and the branch + retrieval; then phase
+    20's train step at B = 256 with the image-feature cache, ``wsum_remat``
+    off and on, profiled."""
+    import torch
+
+    from speechclip_tpu_torch import bench_variant_config, retrieve
+    from speechclip_tpu_torch.models import hubert
+
+    model, params, _ = _model(bench_variant_config("large_par"))
+    b = LARGE_THROUGHPUT_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    gallery = torch.nn.functional.normalize(
+        torch.randn(GALLERY, model.config.clip_embed_dim, generator=gen, device="cuda"), dim=-1)
+    wav, wav_len = _wavs(b, WAV_SAMPLES, WAV_SAMPLES // 2, gen)
+    ae, cfg = params["audio_encoder"], model.audio_cfg
+    x = wav.to(model.compute_dtype)
+
+    def step():
+        return retrieve(model.encode_speech(params, {}, wav, wav_len)["parallel_audio_feat"],
+                        gallery, TOPK)
+
+    with torch.no_grad():
+        _profile_step(f"large main B={b} x {WAV_SAMPLES} samples (backend auto)", step, b, smi)
+        parts = {"front end": lambda: hubert._encoder_prelude(ae, cfg, x, wav_len),
+                 "HuBERT-large": lambda: hubert.hubert_apply(ae, cfg, x, wav_len),
+                 "forward_audio": lambda: model.forward_audio(params, wav, wav_len),
+                 "encode + retrieve": step}
+        ms = {name: 1e3 / _rate(fn, 1) for name, fn in parts.items()}
+    say(f"profile large main split on {smi} ({RATE_NOTE}): front end {ms['front end']:.3f} ms, "
+        f"24 layers {ms['HuBERT-large'] - ms['front end']:.3f}, s3prl weighted sum "
+        f"{ms['forward_audio'] - ms['HuBERT-large']:.3f}, branch + retrieval "
+        f"{ms['encode + retrieve'] - ms['forward_audio']:.3f}; whole {ms['encode + retrieve']:.3f}")
+    del model, params, wav, x
+    torch.cuda.empty_cache()
+    batch = _train_batch(b, gen)
+    for remat in (False, True):
+        model = _large_train_model(remat)
+        state, _, step = _train_state(model)
+        cached = {k: v for k, v in batch.items() if k != "image"}
+        cached["image_feat_frozen"] = model.encode_image_tower(state.params,
+                                                               batch["image"]).float()
+        holder = [state]
+
+        def one(step=step, holder=holder, cached=cached):
+            holder[0], _ = step(holder[0], cached)
+
+        del state
+        _profile_step(f"large train step B={b} with the image-feature cache, wsum_remat "
+                      f"{'on' if remat else 'off'}", one, 1, smi)
+        del model, holder, step, one, cached
+        torch.cuda.empty_cache()
 
 
 def phase_profile_gallery(model, params, smi):
@@ -2212,6 +2373,9 @@ TRAINER_SEED = 7122
 TRAINER_SAVE_STEP = 3
 TRAINER_CONFIGS = {"spchclp_p": "configs/base/spchclp_p.yaml",
                    "spchclp_c": "configs/base/spchclp_c.yaml"}
+# phase 21: the large Flickr configs, the cascaded one with wsum_remat on
+LARGE_TRAINER_CONFIGS = {"spchclp_p": "configs/large_flickr/spchclp_p.yaml",
+                         "spchclp_c": "configs/large_flickr/spchclp_c.yaml"}
 
 
 def _seeded_image(name: str):
@@ -2326,6 +2490,22 @@ def _encoder_layer_launches(b, t, d, heads, f):
     return {route: 1} if route in ("attention_vmem", "flash_attention") else {}
 
 
+def _tower_launches(model, b):
+    """The kernel launches of one frozen ViT image tower forward on b
+    images in bf16 under "auto", from the gates (a ModifiedResNet has
+    none): ViT-L/14's 257 rows take ``mha_layer_block``, ViT-B/32's 50
+    ``sdpa_plain``."""
+    from speechclip_tpu_torch.config import CLIPVisionConfig
+    from speechclip_tpu_torch.ops.attention import attention_route
+
+    v = model.vision_cfg
+    if not isinstance(v, CLIPVisionConfig):
+        return {}
+    t = (v.image_size // v.patch_size) ** 2 + 1
+    name = {"mha_block": "mha_layer_block"}.get(attention_route(b, t, t, v.width, v.heads, 2))
+    return {name: v.layers} if name else {}
+
+
 def _add(total, part, times=1):
     for name, n in part.items():
         total[name] = total.get(name, 0) + n * times
@@ -2334,7 +2514,8 @@ def _add(total, part, times=1):
 
 def _expected_launches(model, b, samples, train):
     """A train step's (dropout > 0 keeps the branch layer unfused, and its
-    attention on ``sdpa_plain``) or an eval batch's launches at B = b and a
+    attention on ``sdpa_plain``; ``wsum_remat`` doubles HuBERT's layers) or
+    an eval batch's launches at B = b and a
     buffer of ``samples``: HuBERT's layers, the parallel branch's layers
     (T + 1 rows), the cascaded branch's head (K + T rows, one head) and the
     text tower's causal K + 2 rows: where the gates send them."""
@@ -2343,8 +2524,11 @@ def _expected_launches(model, b, samples, train):
 
     cfg, a = model.config, model.audio_cfg
     t = conv_output_length(a, samples)
+    # a train step under wsum_remat runs the frozen encoder twice: the
+    # forward and the backward's recompute
+    passes = 2 if train and model.wsum_remat_engaged else 1
     out = _add({}, _encoder_layer_launches(b, t, a.encoder_embed_dim, a.encoder_heads,
-                                           a.encoder_ffn_dim), a.encoder_layers)
+                                           a.encoder_ffn_dim), a.encoder_layers * passes)
     pb = cfg.parallel_branch
     if model.use_parallel and not (train and pb.dropout > 0):
         _add(out, _encoder_layer_launches(b, t + 1, pb.d_model, pb.nhead, pb.dim_feedforward),
@@ -2364,8 +2548,9 @@ def _expected_launches(model, b, samples, train):
 
 @contextlib.contextmanager
 def _instrumented_trainer(rec):
-    """Record, for every trainer built while it is open, each train step's
-    and eval batch's launches (count deltas: nothing is reset), each
+    """Record, for every trainer built while it is open, each train step's,
+    eval batch's and image-feature cache build's launches (count deltas:
+    nothing is reset), each
     validation's collected features and recalls, and any call of a plain
     kernel version on a CUDA tensor (the kernels' wrappers never fall back;
     the train path keeps its recomputes at 0)."""
@@ -2409,6 +2594,14 @@ def _instrumented_trainer(rec):
             return out
         return run
 
+    build_cache = trainer_mod.Trainer.build_image_feature_cache
+
+    def counted_cache(self, dataset, params):
+        before = snap()
+        out = build_cache(self, dataset, params)
+        rec["cache"].append((len(out[0]), delta(snap(), before)))
+        return out
+
     def recorded_metrics(collected, recall_at, device="cuda"):
         out = metrics(collected, recall_at, device)
         rec["validations"].append((collected, out))
@@ -2424,6 +2617,7 @@ def _instrumented_trainer(rec):
     patch(trainer_mod, "make_train_step", counted_train)
     patch(trainer_mod, "make_eval_step", counted_eval)
     patch(trainer_mod, "retrieval_metrics", recorded_metrics)
+    patch(trainer_mod.Trainer, "build_image_feature_cache", counted_cache)
     for module, name in ((fused_layer, "mha_layer_block_plain"), (fused_layer, "ffn_block_plain"),
                          (attention_mod, "mha_layer_block_plain"),
                          (attention_vmem, "attention_vmem_plain"),
@@ -2494,6 +2688,12 @@ def _check_trainer_run(label, trainer, rec, launches, first_step):
         entry["batches"] += 1
         _add(entry["launches"], got)
         _add(total, got)
+    for n_images, got in rec["cache"]:  # the frozen tower in chunks of 64 images
+        want = _add({}, _tower_launches(model, 64), -(-n_images // 64))
+        if got != want:
+            fail(f"trainer {label}: the image-feature cache of {n_images} images launched {got}, "
+                 f"the gates give {want}")
+        _add(total, got)
     total = {n: total.get(n, 0) for n in launches}
     if launches != total:
         fail(f"trainer {label}: launches {launches} over the run, the steps and eval batches "
@@ -2560,7 +2760,7 @@ def _check_trainer_run(label, trainer, rec, launches, first_step):
 
 
 def _new_record():
-    return {"steps": [], "eval": [], "validations": [], "plain_on_cuda": []}
+    return {"steps": [], "eval": [], "cache": [], "validations": [], "plain_on_cuda": []}
 
 
 def _counted_fit(run, rec):
@@ -2688,15 +2888,18 @@ def _paired_leaves(tree, *others):
         yield (tree, *others)
 
 
-def phase_trainer(smi, train):
-    """Phase 18, the trainer: a seeded Flickr8k-shaped corpus on disk; the
-    shipped parallel config through the port's CLI (``run_task.main``, in
-    this process) and the shipped cascaded config (slim checkpoints)
-    through the ``Trainer`` API, each at full width, B = 256, precision 16,
-    the image-feature cache, with TRAINER_OVERRIDES: 6 steps (2 epochs of
-    3), 2 validations, checkpoints; the checks of ``_check_trainer_run``,
-    step 1 against ``make_train_step``, the restore of step_3 and (parallel)
-    a resumed fit to step 6; the times."""
+def phase_trainer(smi, beside, phase=18, configs=TRAINER_CONFIGS, c_overrides=(),
+                  resume_c=False):
+    """Phase 18 (and 21 for the large configs), the trainer: a seeded
+    Flickr8k-shaped corpus on disk; the parallel config ``configs["spchclp_p"]``
+    through the port's CLI (``run_task.main``, in this process) and the
+    cascaded one ``configs["spchclp_c"]`` (slim checkpoints, plus
+    ``c_overrides``) through the ``Trainer`` API, each at full width, B =
+    256, precision 16, the image-feature cache, with TRAINER_OVERRIDES: 6
+    steps (2 epochs of 3), 2 validations, checkpoints; the checks of
+    ``_check_trainer_run``, step 1 against ``make_train_step``, the restore
+    of step_3 and a resumed fit to step 6 (the cascaded run's too with
+    ``resume_c``); the times, each run's ms/step beside ``beside[key]``."""
     import gc
     import os
     import shutil
@@ -2707,6 +2910,23 @@ def phase_trainer(smi, train):
     from speechclip_tpu_torch.config import load_config
     from speechclip_tpu_torch.data import native
 
+    def clear():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def resume(label, tree, run_dir, summary):
+        rec = _new_record()
+        step_path = os.path.join(run_dir, "ckpts", f"step_{TRAINER_SAVE_STEP}")
+        resumed, state, r_launches = _counted_fit(lambda: _api_fit(tree, resume=step_path), rec)
+        if state.step != 6:
+            fail(f"trainer {label}: the resumed fit ended at step {state.step}")
+        summary["resume"] = _check_trainer_run(f"{label} resume", resumed, rec, r_launches,
+                                               TRAINER_SAVE_STEP)
+        del resumed, state, rec
+        clear()
+
+    name = {key: f"{'' if phase == 18 else 'large '}{key}" for key in configs}
+    lp, lc = name["spchclp_p"], name["spchclp_c"]
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
     try:
@@ -2715,7 +2935,7 @@ def phase_trainer(smi, train):
         t0 = time.perf_counter()
         durations = _write_trainer_corpus(corpus, write_jpegs=why is None)
         decode = "PIL" if why is None else f"substituted ({why})"
-        say(f"phase 18 trainer: corpus of {len(durations['train'])} train pairs "
+        say(f"phase {phase} trainer: corpus of {len(durations['train'])} train pairs "
             f"({min(durations['train']):.2f}-{max(durations['train']):.2f} s) and "
             f"{len(durations['dev'])} dev pairs ({min(durations['dev']):.2f}-"
             f"{max(durations['dev']):.2f} s) written in {time.perf_counter() - t0:.1f} s; image "
@@ -2725,70 +2945,58 @@ def phase_trainer(smi, train):
         with _dataset_class(cls):
             # the parallel config through the CLI
             run_p = os.path.join(tmp, "p_run")
-            argv = ["TrainKWClip_GeneralTransformer", "--config", TRAINER_CONFIGS["spchclp_p"],
+            argv = ["TrainKWClip_GeneralTransformer", "--config", configs["spchclp_p"],
                     "--train", "--dataset_root", corpus, "--save_path", run_p,
                     "--seed", str(TRAINER_SEED), "--override", *TRAINER_OVERRIDES]
             rec = _new_record()
             trainer, final_state, launches = _counted_fit(lambda: _cli_fit(argv), rec)
             tree = trainer.config
-            summary = _check_trainer_run("spchclp_p", trainer, rec, launches, 0)
+            summary = _check_trainer_run(lp, trainer, rec, launches, 0)
             first = _read_metrics(run_p)[0][1]
             del trainer, rec
-            gc.collect()
-            torch.cuda.empty_cache()
-            summary["step1_diff"] = _step_one_check("spchclp_p", tree, os.path.join(tmp, "p_step1"),
-                                                    first)
-            _restore_check("spchclp_p", tree, run_p, final_state)
+            clear()
+            summary["step1_diff"] = _step_one_check(lp, tree, os.path.join(tmp, "p_step1"), first)
+            _restore_check(lp, tree, run_p, final_state)
             del final_state
-            gc.collect()
-            torch.cuda.empty_cache()
-            # resume from step_3 in a fresh trainer, to step 6
-            rec = _new_record()
-            step_path = os.path.join(run_p, "ckpts", f"step_{TRAINER_SAVE_STEP}")
-            resumed, state, r_launches = _counted_fit(lambda: _api_fit(tree, resume=step_path), rec)
-            if state.step != 6:
-                fail(f"trainer spchclp_p: the resumed fit ended at step {state.step}")
-            summary["resume"] = _check_trainer_run("spchclp_p resume", resumed, rec, r_launches,
-                                                   TRAINER_SAVE_STEP)
+            clear()
+            resume(lp, tree, run_p, summary)  # from step_3 in a fresh trainer, to step 6
             out["spchclp_p"] = summary
-            del resumed, state, rec
-            gc.collect()
-            torch.cuda.empty_cache()
 
             # the cascaded config through the Trainer API, slim checkpoints
             run_c = os.path.join(tmp, "c_run")
-            tree_c = load_config(TRAINER_CONFIGS["spchclp_c"],
-                                 overrides=TRAINER_OVERRIDES + ["trainer.checkpoint_frozen=false"])
+            tree_c = load_config(configs["spchclp_c"], overrides=TRAINER_OVERRIDES + [
+                "trainer.checkpoint_frozen=false", *c_overrides])
             tree_c.set_path("data.dataset.dataset_root", corpus)
             tree_c.set_path("trainer.default_root_dir", run_c)
             tree_c["seed"] = TRAINER_SEED
             rec = _new_record()
             trainer_c, state_c, launches_c = _counted_fit(lambda: _api_fit(tree_c), rec)
-            summary_c = _check_trainer_run("spchclp_c", trainer_c, rec, launches_c, 0)
+            summary_c = _check_trainer_run(lc, trainer_c, rec, launches_c, 0)
             if not trainer_c.ckpt.is_slim(os.path.join(run_c, "ckpts", "last")):
-                fail("trainer spchclp_c: checkpoint_frozen false wrote a full checkpoint")
+                fail(f"trainer {lc}: checkpoint_frozen false wrote a full checkpoint")
             first_c = _read_metrics(run_c)[0][1]
             del trainer_c, rec
-            gc.collect()
-            torch.cuda.empty_cache()
-            summary_c["step1_diff"] = _step_one_check("spchclp_c", tree_c,
-                                                      os.path.join(tmp, "c_step1"), first_c)
-            _restore_check("spchclp_c", tree_c, run_c, state_c)
-            out["spchclp_c"] = summary_c
+            clear()
+            summary_c["step1_diff"] = _step_one_check(lc, tree_c, os.path.join(tmp, "c_step1"),
+                                                      first_c)
+            _restore_check(lc, tree_c, run_c, state_c)
             del state_c
-            gc.collect()
-            torch.cuda.empty_cache()
+            clear()
+            if resume_c:
+                resume(lc, tree_c, run_c, summary_c)
+            out["spchclp_c"] = summary_c
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out["wall_s"] = time.perf_counter() - t_phase
-    for label in ("spchclp_p", "spchclp_c"):
-        r = out[label]
-        say(f"phase 18 {label} on {smi}: launches {r['launches']} ({r['launches_per_step']} a "
-            f"train step); eval by bucket (samples: batches, launches) {r['eval_by_bucket']}; "
+    for key in ("spchclp_p", "spchclp_c"):
+        r = out[key]
+        say(f"phase {phase} {name[key]} ({configs[key]}) on {smi}: launches {r['launches']} "
+            f"({r['launches_per_step']} a train step); eval by bucket (samples: batches, "
+            f"launches) {r['eval_by_bucket']}; "
             f"train_loss {[round(v, 4) for v in r['train_loss']]}; validations {r['val']}; "
             f"trainer ms/step (1000 / steps_per_sec, median of steps 2-6) {r['ms_per_step']:.3f} "
-            f"{[round(v, 3) for v in r['ms_per_step_each']]} beside phase 17's image-cache step "
-            f"{train['cache_ms']:.3f}; host share (loader wait + H2D over the train loop's wall) "
+            f"{[round(v, 3) for v in r['ms_per_step_each']]} beside {beside[key]}; host share "
+            f"(loader wait + H2D over the train loop's wall) "
             f"{r['host_share']:.4f} ({r['data_wait_s']:.3f} of {r['train_wall_s']:.3f} s; each "
             f"epoch's first batch {[round(v, 3) for v in r['epoch_first_wait_s']]} s, the others' "
             f"median {r['other_wait_s']:.3f} s); "
@@ -2796,7 +3004,220 @@ def phase_trainer(smi, train):
             f"{[round(v, 3) for v in r['validation_s']]} s; checkpoint saves "
             f"{[(s['step'], round(s['seconds'], 3), s['bytes']) for s in r['saves']]} "
             f"(step, s, bytes)")
-    say(f"phase 18 trainer: wall {out['wall_s']:.1f} s")
+    say(f"phase {phase} trainer: wall {out['wall_s']:.1f} s")
+    return out
+
+
+def phase_large_encode(smi):
+    """Phase 19, the large encode + retrieve path
+    (``bench_variant_config("large_par")``: HuBERT-large, the s3prl
+    per-state LayerNorm, the 1024-wide parallel branch, 768-wide features)
+    at B = 64 and B = 256 against the all-plain path (``phase_path``: 25
+    ``mha_layer_block`` a forward); the same forward with ``wsum_remat`` on
+    (``hubert_frozen_weighted_sum``, the same params), held to the forward
+    with it off within the bf16 limits, with its own launches; utt/s at B =
+    256 of the kernel path, the plain path and the kernel path with
+    ``wsum_remat``; then the large cascaded branch
+    (``bench_variant_config("large_casc")``) under "auto" and "pallas" at B
+    = 64 (``phase_cascaded``). -> (launches by path, rates)."""
+    import torch
+
+    from speechclip_tpu_torch import SpeechCLIPModel, bench_variant_config
+    from speechclip_tpu_torch.ops.attention import attention_backend
+
+    model, params, _ = _model(bench_variant_config("large_par"))
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    gallery = torch.nn.functional.normalize(
+        torch.randn(GALLERY, model.config.clip_embed_dim, generator=gen, device="cuda"), dim=-1)
+    launches = {}
+    b, samples, shortest, backend, expect = LARGE_PATHS["large main"]
+    launches["large main"] = phase_path(19, "large main", model, params, gallery, 30,
+                                        LARGE_PATHS["large main"])
+    launches["large main B=256"] = phase_path(
+        19, "large main B=256", model, params, gallery, 31,
+        (LARGE_THROUGHPUT_BATCH, samples, shortest, backend, expect))
+
+    remat = SpeechCLIPModel(dataclasses.replace(model.config, wsum_remat=True))
+    wav, wav_len = _wavs(b, samples, shortest, torch.Generator(device="cuda").manual_seed(32))
+    counters = _counters()
+    with attention_backend(backend):
+        ref_feat, ref_len = model.forward_audio(params, wav, wav_len)
+        ref = model.encode_speech(params, {}, wav, wav_len)["parallel_audio_feat"]
+        feat, feat_len = remat.forward_audio(params, wav, wav_len)
+        _reset(counters)
+        out = remat.encode_speech(params, {}, wav, wav_len)["parallel_audio_feat"]
+        torch.cuda.synchronize()
+        r_launches = {name: f.launches for name, f in counters.items()}
+    err = float((feat.float() - ref_feat.float()).abs().max())
+    cos_ws, cos = row_cosine_min(feat, ref_feat), row_cosine_min(out, ref)
+    say(f"phase 19 large wsum_remat (hubert_frozen_weighted_sum, the same params): B={b} x "
+        f"{samples} samples, launches {r_launches} (expect {expect}); the weighted-sum feature "
+        f"{tuple(feat.shape)} {feat.dtype} vs wsum_remat off: max abs {err:.6f} (tol "
+        f"{BF16_ATOL}), min row cosine {cos_ws:.6f} (tol {MIN_COSINE}); lengths equal "
+        f"{torch.equal(feat_len, ref_len)}; features min row cosine {cos:.6f} (tol {MIN_COSINE})")
+    if not (bool(torch.isfinite(out).all()) and err <= BF16_ATOL and min(cos_ws, cos) >= MIN_COSINE
+            and torch.equal(feat_len, ref_len) and feat.dtype == ref_feat.dtype):
+        fail("large wsum_remat: the forward disagrees with the forward without it")
+    if r_launches != expect:
+        fail(f"large wsum_remat: kernel launches {r_launches}, expected {expect}")
+    launches["large wsum_remat"] = r_launches
+    del wav, wav_len, ref_feat, ref, feat, out
+
+    wav, wav_len = _wavs(LARGE_THROUGHPUT_BATCH, samples, shortest,
+                         torch.Generator(device="cuda").manual_seed(33))
+    with attention_backend(backend):
+        rates = {"kernel": _utt_per_s(model, params, gallery, wav, wav_len, False),
+                 "plain": _utt_per_s(model, params, gallery, wav, wav_len, True),
+                 "kernel wsum_remat": _utt_per_s(remat, params, gallery, wav, wav_len, False)}
+    say(f"phase 19 large encode+retrieve throughput at B={LARGE_THROUGHPUT_BATCH} x {samples} "
+        f"samples (bench.py's hubert_large_utt_per_sec shape) on {smi}: "
+        + ", ".join(f"{k} path {v:.2f} utt/s" for k, v in rates.items()) + f" ({RATE_NOTE})")
+    del model, params, remat, wav, wav_len
+    torch.cuda.empty_cache()
+
+    model, params, state = _model(bench_variant_config("large_casc"))
+    for i, (label, spec) in enumerate(LARGE_CASCADED_PATHS.items()):
+        launches[label] = phase_cascaded(label, model, params, state, gallery, 34 + i, spec,
+                                         phase=19)
+    del model, params, state
+    torch.cuda.empty_cache()
+    return launches, rates
+
+
+def _large_train_model(wsum_remat: bool, batch_chunk: int = 64):
+    """``bench_variant_config("large_par")`` (the flagship dropout 0.1) on the
+    card, ``wsum_remat`` as given."""
+    from speechclip_tpu_torch import SpeechCLIPModel, bench_variant_config
+
+    cfg = bench_variant_config("large_par")
+    return SpeechCLIPModel(dataclasses.replace(
+        cfg, audio=dataclasses.replace(cfg.audio, conv_batch_chunk=batch_chunk),
+        wsum_remat=wsum_remat))
+
+
+def _wsum_grads(model, state, optimizer, batch):
+    """One train-mode forward and backward at ``state`` (dropout drawn from a
+    generator seeded 0): (loss, the weighted-sum logits' gradient,
+    grad_norm over the trainable leaves)."""
+    import torch
+
+    from speechclip_tpu_torch.training.optim import global_norm
+
+    leaves = optimizer.param_groups[0]["params"]
+    feats, _, _, _ = model.forward(
+        state.params, state.model_state, batch,
+        generator=torch.Generator(device="cuda").manual_seed(0), train=True,
+        num_updates=torch.tensor(0, device="cuda"))
+    loss = model.compute_loss(state.params, feats)["loss"]
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    ws = state.params["weighted_sum"]["weights"]
+    i = next(i for i, p in enumerate(leaves) if p is ws)
+    return float(loss.detach()), grads[i].detach().float(), float(global_norm(grads))
+
+
+def wsum_on_off(models, batch):
+    """One train-mode forward and backward of ``models[False]`` and
+    ``models[True]`` (``wsum_remat`` off and on) from the same seeded train
+    state and dropout, held to each other: the loss (``WSUM_LOSS_RTOL``),
+    the weighted-sum logits' gradient (cosine ``WSUM_MIN_GRAD_COSINE``) and
+    ``grad_norm`` (``WSUM_GRAD_NORM_RTOL``). -> {remat: (loss, the logits'
+    gradient, grad_norm)}."""
+    import torch
+
+    agree = {}
+    for remat in (False, True):
+        state, optimizer, _ = _train_state(models[remat])
+        agree[remat] = _wsum_grads(models[remat], state, optimizer, batch)
+        del state, optimizer
+        torch.cuda.empty_cache()
+    (loss, g, norm), (r_loss, r_g, r_norm) = agree[False], agree[True]
+    g_cos = float(torch.nn.functional.cosine_similarity(g, r_g, dim=0))
+    loss_err = abs(r_loss - loss) / abs(loss)
+    norm_err = abs(r_norm - norm) / norm
+    say(f"phase 20 large train step, wsum_remat on vs off at B={batch['wav'].shape[0]} (one "
+        f"forward and backward from the same train state, dropout from one seed): loss "
+        f"{r_loss:.6f} vs {loss:.6f} (relative {loss_err:.2e}, tol {WSUM_LOSS_RTOL}); the "
+        f"weighted-sum logits' gradient cosine {g_cos:.6f} (tol {WSUM_MIN_GRAD_COSINE}), max "
+        f"abs {float((g - r_g).abs().max()):.3e} of {float(g.abs().max()):.3e}; grad_norm "
+        f"{r_norm:.6f} vs {norm:.6f} (relative {norm_err:.2e}, tol {WSUM_GRAD_NORM_RTOL})")
+    if not (math.isfinite(r_loss) and loss_err <= WSUM_LOSS_RTOL
+            and g_cos >= WSUM_MIN_GRAD_COSINE and norm_err <= WSUM_GRAD_NORM_RTOL):
+        fail("large train step: wsum_remat on disagrees with it off")
+    return agree
+
+
+def phase_large_train(smi):
+    """Phase 20, the large train step (``bench_variant_config("large_par")``,
+    dropout 0.1, backend "auto") at B = 128 and 256: at B = 128 one
+    forward and backward with ``wsum_remat`` off and on from the same train
+    state, held to each other (``wsum_on_off``); then, each from its own train
+    state, ms per step (``_step_ms``) and peak GiB, off and on, with the
+    image-feature cache at both batches and with the images (the ViT-L/14
+    tower each step) at B = 128 (bench.py's train_step_ms_large_par_b128);
+    each path's first step counted: 24 ``mha_layer_block`` for HuBERT-large
+    (48 with the recompute), 24 more for the tower; the branch's layer is
+    unfused at dropout 0.1. -> {label: {ms, range, peak_gib, launches}}."""
+    import torch
+
+    from speechclip_tpu_torch.ops.attention import attention_backend
+
+    out = {}
+    models = {remat: _large_train_model(remat) for remat in (False, True)}
+    layers = models[False].audio_cfg.encoder_layers
+    tower_layers = models[False].vision_cfg.layers
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    with attention_backend("auto"):
+        for b in LARGE_TRAIN_BATCHES:
+            batch = _train_batch(b, gen)
+            state, _, _ = _train_state(models[False])
+            cached = {k: v for k, v in batch.items() if k != "image"}
+            cached["image_feat_frozen"] = models[False].encode_image_tower(
+                state.params, batch["image"]).float()
+            del state
+            torch.cuda.empty_cache()
+            if b == LARGE_TRAIN_BATCHES[0]:
+                agree = wsum_on_off(models, batch)
+            runs = [(False, cached)] + ([(True, batch)] if b == LARGE_TRAIN_BATCHES[0] else [])
+            for images, data in runs:
+                for remat in (False, True):
+                    label = (f"B={b} {'images' if images else 'image cache'} wsum_remat "
+                             f"{'on' if remat else 'off'}")
+                    state, _, step = _train_state(models[remat])
+                    state, _, launches, recomputes = _counted_step(step, state, data)
+                    expect = layers * (2 if remat else 1) + (tower_layers if images else 0)
+                    _expect_launches(f"large train {label}", launches, mha_layer_block=expect)
+                    _expect_recomputes(f"large train {label}", recomputes)
+                    holder, losses = [state], []
+                    del state
+
+                    def one(holder=holder, losses=losses, step=step, data=data):
+                        holder[0], metrics = step(holder[0], data)
+                        losses.append(metrics["train_loss"])
+
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    times = _step_ms(one)
+                    peak = torch.cuda.max_memory_allocated() / 2**30
+                    finite = bool(torch.isfinite(torch.stack(losses)).all())
+                    out[label] = dict(ms=statistics.median(times),
+                                      range=[min(times), max(times)], peak_gib=peak,
+                                      launches=launches)
+                    say(f"phase 20 large train step {label}: {statistics.median(times):.3f} "
+                        f"ms [{min(times):.3f}, {max(times):.3f}] (median [min, max] of "
+                        f"{TRAIN_TIMED_STEPS} back-to-back steps by CUDA events, after "
+                        f"{TRAIN_WARMUP_STEPS} warm-up steps), peak {peak:.3f} GiB, launches a "
+                        f"step {launches}, losses finite {finite}, on {smi}")
+                    if not finite:
+                        fail(f"large train {label}: a non-finite loss")
+                    del holder, step, one
+                    torch.cuda.empty_cache()
+            del batch, cached, data
+            torch.cuda.empty_cache()
+    del models
+    torch.cuda.empty_cache()
+    out["agreement"] = dict(loss=agree[False][0], loss_remat=agree[True][0],
+                            grad_norm=agree[False][2], grad_norm_remat=agree[True][2])
     return out
 
 
@@ -2805,9 +3226,9 @@ def phase_trainer(smi, train):
 REPLACES = {
     "mha_layer_block": ("speechclip_tpu_torch/csrc/gemm_epilogue.cu + "
                         "speechclip_tpu_torch/csrc/attention_vmem.cu",
-                        "speechclip_tpu/kernels/mha_block.py:59", "hubert", "main"),
+                        "speechclip_tpu/kernels/mha_block.py:59", "hubert B=", "main"),
     "ffn_block": ("speechclip_tpu_torch/csrc/gemm_epilogue.cu",
-                  "speechclip_tpu/kernels/ffn_block.py:40", "hubert", "main"),
+                  "speechclip_tpu/kernels/ffn_block.py:40", "hubert B=", "main"),
     "attention_vmem": ("speechclip_tpu_torch/csrc/attention_vmem.cu",
                        "speechclip_tpu/kernels/attention_vmem.py:64", "hubert 17s", "long 17s"),
     "flash_attention": ("speechclip_tpu_torch/csrc/flash_attention.cu",
@@ -2858,6 +3279,8 @@ def main(argv) -> int:
         del model, params
         torch.cuda.empty_cache()
         phase_profile_train(smi)
+        torch.cuda.empty_cache()
+        phase_profile_large(smi)
         return 0
     launches = {"main": phase_path(3, "main", model, params, gallery, seed=2)}
     phase_throughput(model, params, gallery, smi)
@@ -2905,7 +3328,21 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     train = phase_train_timed(smi)
     torch.cuda.empty_cache()
-    trainer = phase_trainer(smi, train)
+    cache_step = f"phase 17's image-cache step {train['cache_ms']:.3f}"
+    trainer = phase_trainer(smi, {"spchclp_p": cache_step, "spchclp_c": cache_step})
+    torch.cuda.empty_cache()
+
+    large_launches, large_rates = phase_large_encode(smi)
+    launches.update(large_launches)
+    large_train = phase_large_train(smi)
+    for label, run in large_train.items():
+        if "launches" in run:
+            launches[f"large train {label}"] = run["launches"]
+    beside = {key: "phase 20's B=256 image-cache step, wsum_remat {}: {:.3f}".format(
+        on, large_train[f"B=256 image cache wsum_remat {on}"]["ms"])
+        for key, on in (("spchclp_p", "off"), ("spchclp_c", "on"))}
+    large_trainer = phase_trainer(smi, beside, phase=21, configs=LARGE_TRAINER_CONFIGS,
+                                  c_overrides=["audio_encoder.wsum_remat=true"], resume_c=True)
 
     kernels = []
     for name, (source, replaces, row, path) in REPLACES.items():
@@ -2926,6 +3363,7 @@ def main(argv) -> int:
             "library_device_ms": timed["library_device_ms"],
             "path": path,
             "shape": label,
+            "launches_by_path": {p: n[name] for p, n in launches.items() if n.get(name)},
         })
         if "layers" in timed:
             kernels[-1]["layers"] = timed["layers"]
@@ -2933,7 +3371,9 @@ def main(argv) -> int:
             kernels[-1]["backward"] = kern["backward"][name]
             kernels[-1]["recomputes"] = {path: r[name] for path, r in recomputes.items()}
     say(f"chip_smoke wall {time.perf_counter() - T_START:.1f} s")
-    print(json.dumps({"kernels": kernels, "train": train, "trainer": trainer}))
+    print(json.dumps({"kernels": kernels, "train": train, "trainer": trainer,
+                      "large": {"encode_utt_per_s": large_rates, "train": large_train,
+                                "trainer": large_trainer}}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -15,6 +15,12 @@ kw-BN -> VQ over the CLIP subword vocabulary -> the CLIP text tower):
 ``tiny_flagship_config()`` is ``flagship_tiny_config()`` with both branches
 live.
 
+The large models (the reference's 4-GPU configs, ``configs/large_*``):
+``flagship_large_config()`` is the JAX ``flagship_large_config()``
+(HuBERT-large with the s3prl per-state LayerNorm, ViT-L/14, both branches
+1024 wide, a trainable loss temperature), and ``bench_variant_config(v)``
+the JAX switch ``{base,large}[_par|_casc]`` over the two flagships.
+
 The CLIP towers (the named presets of speechclip_tpu/models/clip.py): the
 image tower is a ViT (``CLIPVisionConfig``: ViT-B/32, the base configs';
 ViT-B/16; ViT-L/14, the large configs') or a ModifiedResNet
@@ -30,7 +36,8 @@ import json
 import re
 from typing import Any, Iterable, Mapping, Optional, Tuple, Union
 
-from .models.hubert import HUBERT_BASE, HubertConfig
+from .models.hubert import HUBERT_BASE, HUBERT_LARGE, HubertConfig
+from .models.hubert import NAMED_CONFIGS as NAMED_HUBERT_CONFIGS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,6 +286,41 @@ def shipped_cascaded_config() -> SpeechCLIPConfig:
                                retrieval_audio_feat_src="cascaded",
                                audio_pretrained_path=HUBERT_BASE_WEIGHTS,
                                clip_pretrained_path=CLIP_VIT_B32_WEIGHTS)
+
+
+def flagship_large_config() -> SpeechCLIPConfig:
+    """The large preset (the JAX ``flagship_large_config()``): the flagship
+    with HuBERT-large, the s3prl hidden-state normalization, CLIP ViT-L/14
+    (768-wide embeddings), both branch transformers 1024 wide with a 4096
+    FFN, and a trainable loss temperature."""
+    vit_l14 = NAMED_CLIP_CONFIGS["ViT-L/14"]
+    base = flagship_config()
+    return dataclasses.replace(
+        base, audio=HUBERT_LARGE, normalize_hiddenstates=True, normalize_type="s3prl",
+        clip_text=vit_l14.text, clip_vision=vit_l14.vision, clip_embed_dim=vit_l14.text.output_dim,
+        cl_loss=dataclasses.replace(base.cl_loss, temperature_trainable=True),
+        parallel_branch=dataclasses.replace(base.parallel_branch, d_model=1024,
+                                            dim_feedforward=4096),
+        cascaded_branch=dataclasses.replace(base.cascaded_branch, d_model=1024,
+                                            dim_feedforward=4096))
+
+
+def bench_variant_config(variant: str) -> SpeechCLIPConfig:
+    """``{base,large}[_par|_casc]`` (the JAX ``bench_variant_config``): the
+    flagship or the large flagship, with ``_par`` keeping the parallel
+    branch alone and ``_casc`` the cascaded one."""
+    prefix = variant.split("_")[0]
+    if prefix == "base":
+        cfg = flagship_config()
+    elif prefix == "large":
+        cfg = flagship_large_config()
+    else:
+        raise ValueError(f"unknown bench variant {variant!r}")
+    if variant.endswith("_par"):
+        cfg = dataclasses.replace(cfg, cascaded_objective_weight=0.0)
+    elif variant.endswith("_casc"):
+        cfg = dataclasses.replace(cfg, parallel_objective_weight=0.0)
+    return cfg
 
 
 def tiny_flagship_config() -> SpeechCLIPConfig:
@@ -838,7 +880,6 @@ def load_config(path: Optional[str] = None, overrides: Iterable[str] = (),
 
 VARIANTS_ITEM = "the ROADMAP item 'Variants' (Queue 1 item 3)"
 TRAINING_REST_ITEM = "the ROADMAP item 'Training, the rest' (Queue 1 item 2)"
-PORT_HUBERT_NAMES = ("hubert", "hubert_base")
 
 
 def _dims(node) -> Optional[Tuple[int, ...]]:
@@ -863,12 +904,10 @@ def _audio_config(ae) -> HubertConfig:
         if unknown - {"dropout", "attention_dropout", "activation_dropout", "layerdrop", "remat"}:
             raise NotImplementedError(f"audio_encoder.custom fields {sorted(unknown)}")
         audio = HubertConfig(**{k: v for k, v in kwargs.items() if k not in unknown})
-    elif ae.name in PORT_HUBERT_NAMES:
-        audio = HUBERT_BASE
+    elif ae.name in NAMED_HUBERT_CONFIGS:
+        audio = NAMED_HUBERT_CONFIGS[ae.name]
     else:
-        raise NotImplementedError(
-            f"audio_encoder.name {ae.name!r} (HuBERT-large and the large configs) waits for "
-            f"{VARIANTS_ITEM}")
+        raise KeyError(f"audio_encoder.name {ae.name!r}: not one of {sorted(NAMED_HUBERT_CONFIGS)}")
     chunk = ae.get("conv_batch_chunk")
     if chunk is not None:
         audio = dataclasses.replace(audio, conv_batch_chunk=int(chunk))
@@ -934,14 +973,9 @@ def _loss_config(cl) -> ContrastiveLossConfig:
 def model_config_from_tree(tree: ConfigTree) -> SpeechCLIPConfig:
     """The port's ``SpeechCLIPConfig`` for a run's config tree, read as the
     JAX ``SpeechCLIPModel`` and ``build_optimizer`` read it. What the port
-    lacks raises ``NotImplementedError`` naming its ROADMAP item:
-    HuBERT-large (so the ``large_*`` configs), other upstreams,
-    ``wsum_remat``, a trainable encoder or CLIP tower."""
+    lacks raises ``NotImplementedError`` naming its ROADMAP item: other
+    upstreams, a trainable encoder or CLIP tower."""
     ae, ms, clip = tree.audio_encoder, tree.model_settings, tree.clip
-    if ae.get("wsum_remat", False):
-        raise NotImplementedError(
-            f"audio_encoder.wsum_remat (the frozen weighted-sum autograd.Function) waits for "
-            f"{TRAINING_REST_ITEM}")
     if ae.get("trainable", False):
         raise NotImplementedError(
             f"a trainable audio encoder (audio_encoder.trainable, reinit/unfreeze) waits for "
@@ -958,6 +992,7 @@ def model_config_from_tree(tree: ConfigTree) -> SpeechCLIPConfig:
         feat_select_idx=tuple(select) if isinstance(select, (list, tuple)) else select,
         normalize_hiddenstates=bool(ae.get("normalize_hiddenstates", False)),
         normalize_type=ae.get("normalize_type"),
+        wsum_remat=bool(ae.get("wsum_remat", False)),
         parallel_objective_weight=ms.parallel_objective_weight,
         cascaded_objective_weight=ms.cascaded_objective_weight,
         parallel_branch=BranchConfig(

@@ -325,8 +325,14 @@ int launch(const scl::AttnArgs& a, cudaStream_t stream) {
 // mean of v, as the plain version does. What bounds it: Dh + 4 R Dh / 4
 // shared-memory reads and 2 R Dh FMAs per lane per key block, and the K/V
 // staging (each (batch, head)'s K and V are read by ceil(L / (W R))
-// blocks).
+// blocks). Past Dh = 768 (the large cascaded branch's 1024-wide head) a
+// 32-key block of K and one of V (256 KB at Dh = 1024) do not fit beside
+// each other in shared memory, so the block stages them in turn through one
+// buffer (`ONE_KV`): K for the scores, then V over it for P V, with a
+// barrier between.
 constexpr int F32_KEYS = 32;  // keys per softmax block, one per lane
+constexpr int F32_MAX_DH = 1024;
+constexpr int F32_SPLIT_DH = 768;  // widest Dh whose K and V blocks share memory side by side
 
 struct AttnArgsF32 {
   const float* q;
@@ -340,9 +346,9 @@ struct AttnArgsF32 {
 };
 
 // Shared memory of a block of `rows` query rows at head dim dh (floats: K
-// rows padded to dh + 4, V rows, Q rows).
-__host__ __device__ inline int f32_smem_bytes(int dh, int rows) {
-  return (F32_KEYS * (dh + 4) + F32_KEYS * dh + rows * dh) * 4;
+// rows padded to dh + 4, V rows unless `one_kv` puts them over K, Q rows).
+__host__ __device__ inline int f32_smem_bytes(int dh, int rows, bool one_kv) {
+  return (F32_KEYS * (dh + 4) + (one_kv ? 0 : F32_KEYS * dh) + rows * dh) * 4;
 }
 
 // rows [r0, r0 + n) of a (rows, dh) f32 operand (row stride `ld`) into a
@@ -362,14 +368,16 @@ __device__ __forceinline__ void load_rows_f32(float* dst, int lds, const float* 
   }
 }
 
-template <int NA, int R>  // NA: output columns per lane (Dh <= 32 NA); R: rows per warp
+// NA: output columns per lane (Dh <= 32 NA); R: rows per warp; ONE_KV: K and
+// V staged in turn through one buffer
+template <int NA, int R, bool ONE_KV>
 __global__ void __launch_bounds__(256) flash_f32_kernel(AttnArgsF32 a) {
   extern __shared__ __align__(16) float fsm[];
   const int dh = a.dh, ldk = dh + 4;
   const int rows = (blockDim.x / 32) * R;
   float* Ks = fsm;
-  float* Vs = Ks + F32_KEYS * ldk;
-  float* Qs = Vs + F32_KEYS * dh;
+  float* Vs = ONE_KV ? Ks : Ks + F32_KEYS * ldk;
+  float* Qs = Ks + F32_KEYS * ldk + (ONE_KV ? 0 : F32_KEYS * dh);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int q0 = blockIdx.x * rows, h = blockIdx.y, b = blockIdx.z;
@@ -397,25 +405,33 @@ __global__ void __launch_bounds__(256) flash_f32_kernel(AttnArgsF32 a) {
   for (int k0 = 0; k0 < keys; k0 += F32_KEYS) {
     __syncthreads();  // the previous block's K and V are consumed (and Q is staged)
     load_rows_f32(Ks, ldk, kb, a.ks[2], k0, F32_KEYS, S, dh, 1.f);
-    load_rows_f32(Vs, dh, vb, a.vs[2], k0, F32_KEYS, S, dh, 1.f);
+    if (!ONE_KV) load_rows_f32(Vs, dh, vb, a.vs[2], k0, F32_KEYS, S, dh, 1.f);
     __syncthreads();
-    if (row0 >= L || k0 >= warp_keys) continue;
+    const bool active = row0 < L && k0 < warp_keys;
     float s[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) s[r] = 0.f;
-    const float* kr = Ks + lane * ldk;
-    const float* qr = Qs + warp * R * dh;
-    for (int d = 0; d < dh; d += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(kr + d);
+    if (active) {
+      const float* kr = Ks + lane * ldk;
+      const float* qr = Qs + warp * R * dh;
+      for (int d = 0; d < dh; d += 4) {
+        const float4 kv = *reinterpret_cast<const float4*>(kr + d);
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(qr + r * dh + d);
-        s[r] = fmaf(qv.x, kv.x, s[r]);
-        s[r] = fmaf(qv.y, kv.y, s[r]);
-        s[r] = fmaf(qv.z, kv.z, s[r]);
-        s[r] = fmaf(qv.w, kv.w, s[r]);
+        for (int r = 0; r < R; ++r) {
+          const float4 qv = *reinterpret_cast<const float4*>(qr + r * dh + d);
+          s[r] = fmaf(qv.x, kv.x, s[r]);
+          s[r] = fmaf(qv.y, kv.y, s[r]);
+          s[r] = fmaf(qv.z, kv.z, s[r]);
+          s[r] = fmaf(qv.w, kv.w, s[r]);
+        }
       }
     }
+    if (ONE_KV) {  // every warp's scores are taken: V goes over K
+      __syncthreads();
+      load_rows_f32(Vs, dh, vb, a.vs[2], k0, F32_KEYS, S, dh, 1.f);
+      __syncthreads();
+    }
+    if (!active) continue;
     const int key = k0 + lane;
     float p[R];
 #pragma unroll
@@ -466,26 +482,30 @@ __global__ void __launch_bounds__(256) flash_f32_kernel(AttnArgsF32 a) {
 }
 
 // NA columns per lane; R rows per warp and W warps per block chosen so the
-// block's shared memory fits at the widest Dh of the bucket (768: 8 rows).
+// block's shared memory fits at the widest Dh of the bucket (768: 8 rows,
+// K and V side by side, 216.5 KiB; 1024: 16 rows, K and V in turn, 192.5
+// KiB: every block streams all of its head's K and V, so more rows a block
+// read them fewer times).
 template <int NA>
 int launch_f32(const AttnArgsF32& a, int B, int H, cudaStream_t stream) {
-  constexpr int R = NA <= 8 ? 4 : 2, W = NA <= 16 ? 8 : 4;
-  const int rows = W * R, smem = f32_smem_bytes(a.dh, rows);
-  cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel<NA, R>,
+  constexpr bool ONE_KV = NA * 32 > F32_SPLIT_DH;
+  constexpr int R = NA <= 8 ? 4 : 2, W = NA <= 16 || ONE_KV ? 8 : 4;
+  const int rows = W * R, smem = f32_smem_bytes(a.dh, rows, ONE_KV);
+  cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel<NA, R, ONE_KV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_f32_kernel<NA, R><<<dim3((a.L - 1) / rows + 1, H, B), W * 32, smem, stream>>>(a);
+  flash_f32_kernel<NA, R, ONE_KV><<<dim3((a.L - 1) / rows + 1, H, B), W * 32, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The f32 form (see flash_f32_kernel): any Dh % 8 == 0 up to 768.
+// The f32 form (see flash_f32_kernel): any Dh % 8 == 0 up to 1024.
 extern "C" int scl_flash_attention_f32(const void* q, const void* k, const void* v,
                                        const void* lens, void* out, int B, int H, int L,
                                        int S, int dh, const long long* strides, int causal,
                                        float scale, void* stream) {
-  if (dh % 8 != 0 || dh > 768 || L < 1 || S < 1 || H > 65535 || B > 65535)
+  if (dh % 8 != 0 || dh > F32_MAX_DH || L < 1 || S < 1 || H > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   AttnArgsF32 a;
   a.q = static_cast<const float*>(q);
@@ -507,7 +527,8 @@ extern "C" int scl_flash_attention_f32(const void* q, const void* k, const void*
   if (na <= 4) return launch_f32<4>(a, B, H, st);
   if (na <= 8) return launch_f32<8>(a, B, H, st);
   if (na <= 16) return launch_f32<16>(a, B, H, st);
-  return launch_f32<24>(a, B, H, st);
+  if (na <= 24) return launch_f32<24>(a, B, H, st);
+  return launch_f32<32>(a, B, H, st);
 }
 
 // `scores`: for dh > 128, an f32 scratch of B * H * ceil64(L) * ceil64(S)

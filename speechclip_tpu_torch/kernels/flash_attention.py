@@ -27,7 +27,8 @@ which runs in its f32 token table's dtype) take ``flash_f32_kernel``: f32
 loads and CUDA-core f32 arithmetic throughout, the TPU kernel's own f32
 form; a block stages its Q rows and 32-key blocks of K and V in shared
 memory, a lane scores one key against its warp's rows, Dh up to
-F32_MAX_HEAD_DIM (the cascaded branch's 768-wide head).
+F32_MAX_HEAD_DIM (the large cascaded branch's 1024-wide head; past 768 the
+K and V blocks take turns in one shared buffer).
 
 Where q, k or v requires grad, the call goes through ``FlashAttentionFn``:
 the forward as above, the gradient from a recompute through
@@ -52,7 +53,7 @@ from ._attention_common import check_attention_operands, empty_heads_out, key_ma
 # the score pass and the output-column chunk of the P V pass.
 FLASH_BQ, FLASH_BK, SCORE_CHUNK, WIDE_CHUNK = 64, 64, 64, 128
 SHORT_ROWS = 128  # rows up to this run one block per (batch, head)
-F32_MAX_HEAD_DIM = 768  # the f32 form: its K, V and Q tiles fit shared memory up to here
+F32_MAX_HEAD_DIM = 1024  # the f32 form: its K (then V) and Q tiles fit shared memory up to here
 
 
 def flash_attention_plain(q, k, v, lens: Optional[torch.Tensor], causal: bool = False):

@@ -15,6 +15,17 @@ leaves them to XLA. An encoder layer runs through
 shapes (T <= 782 at base width in bf16), else as the unfused layer with
 ``ops.attention.multi_head_attention`` (``attention_vmem`` up to T = 934).
 
+Presets: ``HUBERT_BASE`` (post-norm, GroupNorm extractor) and
+``HUBERT_LARGE`` (hubert_large_ll60k: 1024 wide, 24 pre-norm layers of 16
+heads, a LayerNorm after every conv, conv biases, per-utterance waveform
+normalization), by name in ``NAMED_CONFIGS`` as in the JAX package.
+
+``hubert_frozen_weighted_sum`` is the frozen encoder's weighted-sum
+feature without the stack of hidden states (``audio_encoder.wsum_remat``):
+a ``torch.autograd.Function`` whose forward folds each state into an f32
+accumulator as the layer loop makes it, and whose backward recomputes the
+encoder to contract each state with the cotangent.
+
 Parameters: the JAX package's pytree keys; linear weights (in, out); conv
 weights in torch's (out, in / groups, k) layout.
 """
@@ -28,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.fused_layer import fused_encoder_layer
-from ..ops.attention import multi_head_attention
+from ..ops.attention import attention_backend, get_attention_backend, multi_head_attention
 from ..ops.basic import Params, gelu, layer_norm, layer_norm_init, linear, normal
 from ..ops.masking import (
     conv_frame_valid_lengths,
@@ -74,6 +85,22 @@ class HubertConfig:
 
 
 HUBERT_BASE = HubertConfig()
+HUBERT_LARGE = HubertConfig(
+    conv_bias=True,
+    encoder_embed_dim=1024,
+    encoder_layers=24,
+    encoder_ffn_dim=4096,
+    encoder_heads=16,
+    layer_norm_first=True,
+    extractor_mode="layer_norm",
+    normalize_waveform=True,
+)
+
+NAMED_CONFIGS = {
+    "hubert": HUBERT_BASE,
+    "hubert_base": HUBERT_BASE,
+    "hubert_large_ll60k": HUBERT_LARGE,
+}
 
 
 def hubert_init(generator: torch.Generator, cfg: HubertConfig) -> Params:
@@ -292,6 +319,116 @@ def conv_output_length(cfg: HubertConfig, n_samples: int) -> int:
     for (_ch, k, s) in cfg.conv_layers:
         length = (length - k) // s + 1
     return length
+
+
+# ---------------------------------------------------------------------------
+# The frozen weighted sum with a backward recompute: O(2 states) live, not O(N)
+# ---------------------------------------------------------------------------
+def _process_state(h: torch.Tensor, norm_type: Optional[str]) -> torch.Tensor:
+    """The per-state normalization before the weighted sum: method1 / method2
+    (``normalize_hidden_states``) or the s3prl per-state LayerNorm."""
+    if norm_type is None:
+        return h
+    if norm_type in ("method1", "method2"):
+        return normalize_hidden_states((h,), norm_type)[0]
+    if norm_type == "s3prl":
+        return layer_norm(None, h)
+    raise NotImplementedError(norm_type)
+
+
+def _wsum_pass(
+    cfg: HubertConfig,
+    norm_type: Optional[str],
+    params: Params,
+    wav: torch.Tensor,
+    wav_lengths: torch.Tensor,
+    w: torch.Tensor,  # (N,) f32 softmax weights
+    g: Optional[torch.Tensor] = None,
+    plain: bool = False,
+) -> torch.Tensor:
+    """One eval-mode encoder pass that consumes each hidden state as the
+    layer loop produces it, so at most the current state and the
+    accumulator are live.
+
+    ``g`` None (forward): the f32 accumulator ``sum_i w_i state_i`` in
+    ``weighted_sum_apply``'s order of accumulation. ``g`` given (backward):
+    ``dots`` (N,) f32, ``dots_i = <g, state_i>``, each state contracted to a
+    scalar the moment it is made."""
+    x, frame_lens = _encoder_prelude(params, cfg, wav, wav_lengths)
+    g32 = None if g is None else g.float()
+
+    def consume(i: int, h: torch.Tensor) -> torch.Tensor:
+        s = _process_state(h, norm_type).float()
+        return w[i] * s if g32 is None else torch.sum(g32 * s)
+
+    acc = consume(0, x)
+    dots = [acc]
+    for i, layer in enumerate(params["encoder"]["layers"]):
+        x = encoder_layer_apply(layer, cfg, x, frame_lens, plain=plain)
+        c = consume(i + 1, x)
+        if g is None:
+            acc = acc + c
+        else:
+            dots.append(c)
+    return acc if g is None else torch.stack(dots)
+
+
+class FrozenWeightedSumFn(torch.autograd.Function):
+    """The weighted-sum feature of a frozen encoder (JAX's ``_frozen_wsum``
+    custom VJP). Forward: ``_wsum_pass`` under no_grad; it saves the weight
+    logits, ``wav`` and the lengths, never a hidden state. Backward: the
+    same eval-mode pass again, on the forward's kernel route (the same
+    ``plain`` flag and attention backend), for ``dots``; then the softmax
+    VJP ``d_logits = w * (dots - <w, dots>)``. The encoder and ``wav`` get
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, wav, wav_lengths, params, cfg, norm_type, plain):
+        w = torch.softmax(logits.float(), dim=0)
+        with torch.no_grad():
+            acc = _wsum_pass(cfg, norm_type, params, wav, wav_lengths, w, plain=plain)
+        ctx.save_for_backward(logits, wav, wav_lengths)
+        ctx.params, ctx.cfg, ctx.norm_type, ctx.plain = params, cfg, norm_type, plain
+        ctx.backend = get_attention_backend()
+        # weighted_sum_apply's output dtype: the processed states' (f32 after
+        # method1 / method2, the compute dtype otherwise)
+        return acc.to(wav.dtype if norm_type in (None, "s3prl") else torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, wav, wav_lengths = ctx.saved_tensors
+        w = torch.softmax(logits.float(), dim=0)
+        with torch.no_grad(), attention_backend(ctx.backend):
+            dots = _wsum_pass(ctx.cfg, ctx.norm_type, ctx.params, wav, wav_lengths, w, g=g,
+                              plain=ctx.plain)
+            d_logits = w * (dots - torch.sum(w * dots))
+        return d_logits.to(logits.dtype), None, None, None, None, None, None
+
+
+def hubert_frozen_weighted_sum(
+    ws_params: Params,
+    params: Params,
+    cfg: HubertConfig,
+    wav: torch.Tensor,
+    wav_lengths: torch.Tensor,
+    norm_type: Optional[str] = None,
+    plain: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (the weighted-sum feature (B, T, D), feature lengths) of a FROZEN
+    HuBERT without keeping its N hidden states (``audio_encoder.wsum_remat``).
+
+    ``hubert_apply`` + ``weighted_sum_apply`` keep every state until the sum
+    takes them: for HuBERT-large at B = 256 and 6.4 s that stack is 25 x 256
+    x 319 x 1024 x 2 B = 4.2 GB, and the s3prl mode's LayerNorm and f32 copy
+    of it stay saved for the logits' gradient. Here the states are consumed
+    inside the layer loop, and the gradient of the logits is recomputed
+    (``FrozenWeightedSumFn``): one more frozen forward per train step. Only
+    for a frozen encoder: the recompute assumes a deterministic forward and
+    returns no encoder gradient."""
+    feat = FrozenWeightedSumFn.apply(ws_params["weights"], wav, wav_lengths, params, cfg,
+                                     norm_type, plain)
+    num_frames = conv_output_length(cfg, wav.shape[1])
+    return feat, hubert_feature_lengths(wav_lengths, cfg.downsample_rate, num_frames)
 
 
 def normalize_hidden_states(

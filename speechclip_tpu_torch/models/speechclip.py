@@ -30,10 +30,15 @@ keywords against that table in f32, where a near-tie argmax can flip on a
 bf16-rounded table; and the cascaded branch's bf16 pass through the tower
 casts each weight where it is used (``linear``), as JAX does.
 
+With ``wsum_remat`` (the large configs' memory switch) and a frozen
+encoder, ``forward_audio`` takes the weighted sum through
+``hubert.hubert_frozen_weighted_sum``: no stack of hidden states is kept,
+and the logits' gradient recomputes the encoder in the backward.
+
 The model and ``cast_params`` run on the card unless the caller asks for
 the CPU (``device="cpu"``); without a card they raise. A trainable encoder
-or CLIP tower, and ``wsum_remat``, raise ``NotImplementedError``: they wait
-for the ROADMAP item "Training".
+or CLIP tower raises ``NotImplementedError``: it waits for the ROADMAP item
+"Training".
 """
 
 from __future__ import annotations
@@ -114,6 +119,17 @@ def resolve_asset_path(path: str) -> str:
     return str(REPO_ROOT / path)
 
 
+def _warn_wsum_remat_blockers(config: SpeechCLIPConfig) -> None:
+    """The JAX model's one warning when ``wsum_remat`` is set but the config
+    rules the recompute out: the stack of hidden states stays live. A
+    trainable encoder, JAX's other blocker, raises below until it is ported."""
+    logger.warning(
+        "audio_encoder.wsum_remat is set but will NOT engage: %s — the N-hidden-state stack "
+        "stays live and large batches may run out of memory (see models/hubert.py "
+        "hubert_frozen_weighted_sum)",
+        f"feat_select_idx={config.feat_select_idx!r} (needs 'weighted_sum')")
+
+
 class SpeechCLIPModel:
     """Host-side description of the model; the math lives in the package's
     functions over the params dict."""
@@ -124,11 +140,11 @@ class SpeechCLIPModel:
                 f"audio encoder {config.audio_encoder_type!r}: custom upstreams "
                 "wait for the ROADMAP item 'Variants' (models/upstream.py)"
             )
-        if config.wsum_remat:
-            raise NotImplementedError(
-                "wsum_remat (the frozen weighted-sum autograd.Function, HuBERT-large's "
-                f"memory path) waits for {TRAINING_ITEM}"
-            )
+        # forward_audio takes hubert_frozen_weighted_sum (JAX's conditions)
+        self.wsum_remat_engaged = (config.wsum_remat
+                                   and config.feat_select_idx == WEIGHTED_SUM_MODE)
+        if config.wsum_remat and not self.wsum_remat_engaged:
+            _warn_wsum_remat_blockers(config)
         if (config.reinit_layers or config.unfreeze_layers) and not config.audio_trainable:
             raise ValueError(
                 "reinit_layers/unfreeze_layers require audio_trainable: otherwise the "
@@ -273,11 +289,18 @@ class SpeechCLIPModel:
     ):
         """-> (audio features, feature lengths[, hidden states]) on the
         model's device. int16 PCM is rescaled by 1/32768 in f32 first
-        (exact), then cast to the compute dtype."""
+        (exact), then cast to the compute dtype. With ``wsum_remat``, the
+        weighted sum and no hidden states asked for, the frozen encoder's
+        feature comes from ``hubert.hubert_frozen_weighted_sum`` (JAX's
+        conditions)."""
         wav, wav_len = wav.to(self.device), wav_len.to(self.device)
         if wav.dtype == torch.int16:
             wav = wav.float() * (1.0 / 32768.0)
         wav = wav.to(self.compute_dtype)
+        if self.wsum_remat_engaged and not return_hidden_states:
+            return hubert.hubert_frozen_weighted_sum(
+                params["weighted_sum"], params["audio_encoder"], self.audio_cfg, wav, wav_len,
+                norm_type=self.hidden_norm_type, plain=plain)
         with torch.no_grad():  # the frozen encoder
             hidden_states, feat_len = hubert.hubert_apply(
                 params["audio_encoder"], self.audio_cfg, wav, wav_len, plain=plain

@@ -3,6 +3,7 @@ config/params bridge the other ``test_torch_*`` files share; the rule that
 the entry points run on the card unless asked for the CPU."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ import jax
 from speechclip_tpu.config import (
     bench_variant_config,
     flagship_config,
+    flagship_large_config,
     flagship_tiny_config,
     load_config,
 )
@@ -200,8 +202,13 @@ def shipped_cascaded():
      (lambda: bench_variant_config("base_casc"), port_config.base_cascaded_config),
      (shipped_cascaded, port_config.shipped_cascaded_config),
      (flagship_tiny_config, port_config.tiny_flagship_config),
-     (flagship_config, port_config.flagship_config)],
-    ids=["base", "tiny", "base_casc", "spchclp_c", "tiny_flagship", "flagship"],
+     (flagship_config, port_config.flagship_config),
+     (flagship_large_config, port_config.flagship_large_config)]
+    + [(functools.partial(bench_variant_config, v),
+        functools.partial(port_config.bench_variant_config, v))
+       for v in ("base", "base_par", "large", "large_par", "large_casc")],
+    ids=["base", "tiny", "base_casc", "spchclp_c", "tiny_flagship", "flagship", "flagship_large",
+         "bench base", "bench base_par", "bench large", "bench large_par", "bench large_casc"],
 )
 def test_presets_match_jax_field_by_field(jax_preset, port_preset):
     want = dataclasses.asdict(port_config_from_jax(jax_preset()))
@@ -244,7 +251,7 @@ def test_base_hubert_is_jax_hubert_base():
 
 @pytest.mark.parametrize(
     "field, value",
-    [("wsum_remat", True), ("audio_encoder_type", "s3prl_plus"), ("audio_trainable", True),
+    [("audio_encoder_type", "s3prl_plus"), ("audio_trainable", True),
      ("image_encoder_trainable", True), ("text_encoder_trainable", True)],
 )
 def test_out_of_slice_configs_raise(field, value):

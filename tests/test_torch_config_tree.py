@@ -23,6 +23,7 @@ from speechclip_tpu_torch.config import (
     parse_override_value,
     parse_yaml,
 )
+from speechclip_tpu_torch.models.speechclip import SpeechCLIPModel
 from tests.test_models import tiny_speechclip_config
 from tests.test_torch_config import port_config_from_jax
 
@@ -150,12 +151,41 @@ def test_model_config_equals_port_config_from_jax(which, tmp_path):
 
 @pytest.mark.parametrize("path", LARGE, ids=lambda p: p.split(os.sep)[-2])
 def test_large_configs_raise_by_name(path):
-    with pytest.raises(NotImplementedError, match="hubert_large_ll60k.*Variants"):
-        model_config_from_tree(load_config(path))
+    """The large configs read (``hubert_large_ll60k`` is a named encoder
+    now); an encoder name neither package knows raises, naming it."""
+    assert model_config_from_tree(load_config(path)).audio.encoder_embed_dim == 1024
+    with pytest.raises(KeyError, match="hubert_xlarge"):
+        model_config_from_tree(load_config(path, overrides=["audio_encoder.name=hubert_xlarge"]))
+
+
+@pytest.mark.parametrize("remat", ["false", "true"])
+@pytest.mark.parametrize("path", LARGE, ids=lambda p: p.split(os.sep)[-2] + "-"
+                         + os.path.basename(p)[:-5])
+def test_large_configs_equal_port_config_from_jax(path, remat):
+    """Each large config, ``wsum_remat`` off and on, reads to the JAX
+    model's dimensions: HuBERT-large, ViT-L/14 with 768-wide features, the
+    1024-wide branches, a trainable temperature, the s3prl normalization;
+    the model takes it (the recompute engaged where it is on)."""
+    overrides = [f"audio_encoder.wsum_remat={remat}"]
+    got = model_config_from_tree(load_config(path, overrides=overrides))
+    want = port_config_from_jax(jax_load_config(path, overrides=overrides))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.wsum_remat == (remat == "true")
+    assert (got.audio.encoder_embed_dim, got.audio.encoder_layers, got.audio.encoder_heads,
+            got.audio.encoder_ffn_dim) == (1024, 24, 16, 4096)
+    assert got.audio.layer_norm_first and got.audio.extractor_mode == "layer_norm"
+    assert got.clip_vision.width == 1024 and got.clip_vision.patch_size == 14
+    assert got.clip_embed_dim == got.clip_text.output_dim == 768
+    assert got.cl_loss.temperature_trainable
+    assert got.normalize_hiddenstates and got.normalize_type is None  # "s3prl" by default
+    assert got.parallel_branch.d_model == got.cascaded_branch.d_model == 1024
+    model = SpeechCLIPModel(got, device="cpu")
+    assert model.wsum_remat_engaged == (remat == "true")
+    assert model.hidden_norm_type == "s3prl" and model.reduced_vocab is not None
 
 
 @pytest.mark.parametrize("override, item", [
-    ("audio_encoder.wsum_remat=true", "Training, the rest"),
+    ("clip.text_encoder_trainable=true", "Training, the rest"),
     ("audio_encoder.trainable=true", "Training, the rest"),
     ("clip.image_encoder_trainable=true", "Training, the rest"),
     ("audio_encoder.type=s3prl_plus", "Variants")])

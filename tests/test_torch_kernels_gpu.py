@@ -404,6 +404,9 @@ FLASH_F32_SHAPES = [  # (b, h, l, s, dh, lens, causal, packed)
     (2, 1, 90, 90, 520, "random", True, False),      # past 512: 8 rows a block
     (64, 1, 327, 327, 768, "random", False, True),   # the cascaded head, its shape
     (4, 2, 1, 1, 8, None, True, False),
+    (64, 1, 327, 327, 1024, "random", False, True),  # the large cascaded head: K, V in turn
+    (4, 1, 200, 120, 1024, "zero_row", True, False),  # L != S, a lens = 0 row at Dh = 1024
+    (2, 2, 90, 90, 776, "random", False, False),     # just past 768
 ]
 
 
@@ -553,7 +556,7 @@ def test_attention_check_fails_planted_faults(cuda, kernel, fault):
 def test_attention_kernels_raise_on_what_they_do_not_take(cuda):
     """``attention_vmem`` stops at Dh = 128 (the cascaded branch's 768-wide
     head raises there); ``flash_attention`` takes it and raises only on Dh
-    % 8 != 0 (and, in f32, past 768). ``attention_vmem`` runs bf16 only;
+    % 8 != 0 (and, in f32, past 1024). ``attention_vmem`` runs bf16 only;
     ``flash_attention`` bf16 or f32, never mixed."""
     from speechclip_tpu_torch.kernels.attention_vmem import attention_vmem
     from speechclip_tpu_torch.kernels.flash_attention import flash_attention
@@ -569,8 +572,8 @@ def test_attention_kernels_raise_on_what_they_do_not_take(cuda):
     for bad in ((q.half(), k.half(), v.half()), (q.float(), k, v)):
         with pytest.raises(TypeError, match="bf16 or f32"):
             flash_attention(*bad, lens)
-    wide = torch.zeros(1, 1, 16, 776, device=cuda)
-    with pytest.raises(ValueError, match="up to 768"):
+    wide = torch.zeros(1, 1, 16, 1032, device=cuda)
+    with pytest.raises(ValueError, match="up to 1024"):
         flash_attention(wide, wide, wide)
 
 
