@@ -127,19 +127,47 @@ line each (a failed check exits non-zero before the last line):
     ``spchclp_p.yaml`` through the CLI and ``spchclp_c.yaml`` with
     ``audio_encoder.wsum_remat=true`` through ``Trainer``, each checked as
     phase 18 checks (the eval buckets past T = 460 run ``attention_vmem``
-    at D = 1024), each with a resumed fit.
+    at D = 1024), each with a resumed fit;
+22. the trainable encoder and towers (``flagship_config()`` with the
+    trainable switches, seeded random weights, 6.4 s utterances): (a) the
+    full fine-tune (``audio_trainable``, HuBERT's dropouts at 0, as
+    ``audio_encoder.custom`` sets them) at B = 64, one train-mode forward
+    and backward on the kernel path against the plain path at phase 16's
+    limits, with the gradient cosines of the conv front end, ``pos_conv``
+    and each HuBERT layer, then a counted step: 13 ``mha_layer_block`` + 13
+    ``ffn_block`` launches and 13 + 13 recomputes; (b) ``unfreeze_layers``
+    [10, 11]: only those layers (and the branches, projections and weighted
+    sum) hold a gradient and move in a step, 3 + 3 recomputes; and
+    ``reinit_layers`` [11]: ``load_pretrained`` changes layer 11 alone, a
+    step moves it and the top LayerNorm alone; (c) ms per step (median and
+    range of 3 steps by CUDA events after 2 warm-ups) and peak GiB at the
+    largest of B = 256 / 128 / 64 that fits: the full fine-tune at dropout
+    0 on the kernel and the plain path (and the kernel path again at the
+    plain path's batch), at HuBERT's dropout 0.1 with ``remat`` off and
+    on, and ``unfreeze_layers`` with the image cache;
+    (d) the trainable ViT-B/32 tower under "auto" and "pallas" (12 more
+    ``flash_attention`` recomputes) and the trainable text tower under
+    "pallas", each against the plain path; the trainer's image cache and
+    an RN50 config refuse a trainable image tower; (e) the large partial
+    fine-tune (``large_par``, ``unfreeze_layers`` [22, 23], ``remat`` on,
+    dropout 0, the image cache, B = 128): 24 + 2 + 1 ``mha_layer_block``
+    launches (the two layers again under ``remat``), 2 + 1 recomputes, ms
+    per step and peak GiB.
 
 Rates (utt/s, images/s, sequences/s) come from CUDA events around as many
 back-to-back calls as fill about 1 s.
 
 Phase 2 also holds each kernel's backward (the four with a JAX
-``custom_vjp``: ``mha_layer_block`` and ``ffn_block`` at the HuBERT layer,
+``custom_vjp``: ``mha_layer_block`` at the HuBERT layer and at
+HuBERT-large's "pre" layer, ``ffn_block`` at the HuBERT layer,
 ``attention_vmem`` at a 17 s shape, ``flash_attention`` at the cascaded
-head and at the text tower's causal K + 2 rows in bf16 and f32): the
-gradients through the kernel's autograd.Function must equal the plain
-version's own autograd gradients bit for bit (the backward is the plain
-recompute), and the backward is timed (CUDA events, then torch.profiler)
-beside one SDPA forward + backward on the same inputs.
+head, at the text tower's causal K + 2 rows in bf16 and f32, at ViT-B/32's
+layer and at the text tower's f32 causal layer): the gradients through the
+kernel's autograd.Function must equal the plain version's own autograd
+gradients bit for bit (the backward is the plain recompute), and the
+backward is timed (CUDA events, then torch.profiler) beside one SDPA
+forward + backward on the same inputs (for the layer rows, on the layer's
+attention core alone).
 
 Phase 2 also gives each kernel's bound (the larger of its FLOPs over 989
 TFLOP/s and its bytes over 3.35 TB/s, counted from that row's shapes and
@@ -179,7 +207,10 @@ image-feature cache, and split into the frozen HuBERT forward, the frozen
 image tower and the rest), and the large paths (``phase_profile_large``:
 phase 19's encode at B = 256, profiled and split into HuBERT-large's front
 end, its layers, the s3prl weighted sum and the rest; phase 20's B = 256
-image-cache step with ``wsum_remat`` off and on); it prints no result line.
+image-cache step with ``wsum_remat`` off and on), and phase 22's full
+fine-tune (``phase_profile_trainable``: one profiled step, and the step
+split into HuBERT's forward, the plain recomputes, ``pos_conv``'s backward
+and the rest); it prints no result line.
 """
 
 from __future__ import annotations
@@ -297,13 +328,18 @@ TOPK = 10
 # Phase 2's backward rows: each kernel with a gradient (the JAX custom_vjp's
 # counterpart) at one shape of the train path, label -> spec; the attention
 # specs as ATTENTION_SHAPES', with a dtype
-BACKWARD_LAYER_SHAPE = HUBERT_SHAPE
+BACKWARD_LAYER_SHAPES = {"hubert": dict(HUBERT_SHAPE, mode="post"),
+                         "hubert-large": LARGE_LAYER_SHAPES["hubert-large"]}
 BACKWARD_ATTENTION_SHAPES = {
     "attention_vmem": {"hubert 17s": ((16, 12, 849, 64, True, False, True), "bfloat16")},
     "flash_attention": {
         "cascaded 768": ((64, 1, 327, 768, True, False, True), "bfloat16"),
         "text tower K+2": ((64, 8, 10, 64, False, True, True), "bfloat16"),
         "text tower K+2 f32": ((64, 8, 10, 64, False, True, True), "float32"),
+        # the trainable towers (phase 22): ViT-B/32's layer, the text
+        # tower's f32 causal layer as forward_text runs it
+        "vit-b/32": ((256, 12, 50, 64, False, False, True), "bfloat16"),
+        "text tower f32": ((256, 8, 77, 64, False, True, True), "float32"),
     },
 }
 # The large models (phases 19-21): bench_variant_config("large_par") and
@@ -741,7 +777,8 @@ def _backward_row(name, label, kern, plain, args, diff, g, results, backward, li
 
 
 def _backward_rows(gen, results):
-    """Phase 2's backward rows (BACKWARD_LAYER_SHAPE, BACKWARD_ATTENTION_SHAPES)."""
+    """Phase 2's backward rows (BACKWARD_LAYER_SHAPES, BACKWARD_ATTENTION_SHAPES); the
+    layer rows beside SDPA forward + backward on their attention core alone."""
     import torch
     import torch.nn.functional as F
 
@@ -752,18 +789,27 @@ def _backward_rows(gen, results):
     from speechclip_tpu_torch.kernels._attention_common import key_mask
 
     backward = []
-    shape = BACKWARD_LAYER_SHAPE
-    x, lens, m, f = _layer_inputs(shape, gen)
-    row = (f"hubert B={shape['b']} T={shape['t']} H={shape['heads']} "
-           f"Dh={shape['d'] // shape['heads']} post")
-    g = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
     req = lambda t: t.detach().clone().requires_grad_(True)
-    mha_args = [req(x)] + [req(m[k]) for k in ("w_in", "b_in", "w_out", "b_out", "ln_g", "ln_b")]
-    _backward_row("mha_layer_block", row, mb.mha_layer_block, mb.mha_layer_block_plain,
-                  mha_args + [lens, shape["heads"], "post", 1e-5], range(7), g, results, backward)
-    ffn_args = [req(x)] + [req(f[k]) for k in ("w1", "b1", "w2", "b2", "ln_g", "ln_b")]
-    _backward_row("ffn_block", row, fb.ffn_block, fb.ffn_block_plain,
-                  ffn_args + ["post", 1e-5], range(7), g, results, backward)
+    for name, shape in BACKWARD_LAYER_SHAPES.items():
+        x, lens, m, f = _layer_inputs(shape, gen)
+        h, mode = shape["heads"], shape["mode"]
+        row = f"{name} B={shape['b']} T={shape['t']} H={h} Dh={shape['d'] // h} {mode}"
+        g = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+        mha_args = [req(x)] + [req(m[k])
+                               for k in ("w_in", "b_in", "w_out", "b_out", "ln_g", "ln_b")]
+        # beside it, SDPA forward + backward on the layer's attention core alone
+        q, k, v, _ = _attention_inputs(shape["b"], h, shape["t"], shape["d"] // h, False, True,
+                                       gen)
+        q, k, v = (req(t) for t in (q, k, v))
+        mask = key_mask(lens, False, shape["t"], shape["t"], q.device)
+        core = (lambda q=q, k=k, v=v, mask=mask: torch.autograd.grad(
+            F.scaled_dot_product_attention(q, k, v, attn_mask=mask), (q, k, v), q))
+        _backward_row("mha_layer_block", row, mb.mha_layer_block, mb.mha_layer_block_plain,
+                      mha_args + [lens, h, mode, 1e-5], range(7), g, results, backward, core)
+        if name == "hubert":  # the large layer's FFN fails ffn_eligible: torch's FFN
+            ffn_args = [req(x)] + [req(f[k]) for k in ("w1", "b1", "w2", "b2", "ln_g", "ln_b")]
+            _backward_row("ffn_block", row, fb.ffn_block, fb.ffn_block_plain,
+                          ffn_args + [mode, 1e-5], range(7), g, results, backward)
     kernels = {"attention_vmem": (av.attention_vmem, av.attention_vmem_plain),
                "flash_attention": (fa.flash_attention, fa.flash_attention_plain)}
     for name, shapes in BACKWARD_ATTENTION_SHAPES.items():
@@ -1448,6 +1494,72 @@ def phase_profile_train(smi):
         + f", the rest (branches forward + backward, loss, clip, Adam) {rest:.3f} ms")
 
 
+TRAINABLE_PROFILE_BATCH = 128
+
+
+def phase_profile_trainable(smi):
+    """Where the trainable step's time goes: phase 22's full fine-tune at
+    HuBERT dropout 0 on the kernel path ("auto", B =
+    TRAINABLE_PROFILE_BATCH): one profiled step, then the step split by
+    CUDA events into HuBERT's forward (train mode, keeping its graph), the
+    plain recomputes of its 13 ``mha_layer_block`` and 13 ``ffn_block``
+    calls (each kernel's backward at the HuBERT layer's shape, times 13),
+    ``pos_conv``'s backward (its forward and backward less its forward) and
+    the rest (the branches, the rest of HuBERT's backward, the loss, clip
+    and Adam)."""
+    import torch
+
+    from speechclip_tpu_torch.kernels import ffn_block as fb
+    from speechclip_tpu_torch.kernels import mha_block as mb
+    from speechclip_tpu_torch.models.hubert import pos_conv_apply
+
+    b = TRAINABLE_PROFILE_BATCH
+    model = _trainable_model(audio_trainable=True)
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    batch = _train_batch(b, gen)
+    state, _, step = _train_state(model)
+    holder = [state]
+    del state
+
+    def one():
+        holder[0], _ = step(holder[0], batch)
+
+    _profile_step(f"trainable step B={b} (full fine-tune, dropout 0, backend auto)", one, 1, smi)
+    params, cfg = holder[0].params, model.audio_cfg
+    shape = dict(HUBERT_SHAPE, b=b)
+    x, lens, m, f = _layer_inputs(shape, gen)
+    req = lambda t: t.detach().clone().requires_grad_(True)
+    g = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+    mha_in = [req(x)] + [req(m[k]) for k in ("w_in", "b_in", "w_out", "b_out", "ln_g", "ln_b")]
+    ffn_in = [req(x)] + [req(f[k]) for k in ("w1", "b1", "w2", "b2", "ln_g", "ln_b")]
+    mha_out = mb.mha_layer_block(*mha_in, lens, shape["heads"], "post", 1e-5)
+    ffn_out = fb.ffn_block(*ffn_in, "post", 1e-5)
+    pos = params["audio_encoder"]["encoder"]["pos_conv"]
+    xp = req(x)
+    parts = {
+        "step": one,
+        "HuBERT forward (train mode, with its graph)": lambda: model.forward_audio(
+            params, batch["wav"], batch["wav_len"], train=True, generator=holder[0].generator),
+        "13 mha_layer_block recomputes": lambda: torch.autograd.grad(
+            mha_out, mha_in, g, retain_graph=True),
+        "13 ffn_block recomputes": lambda: torch.autograd.grad(
+            ffn_out, ffn_in, g, retain_graph=True),
+        "pos_conv forward": lambda: pos_conv_apply(pos, cfg, x),
+        "pos_conv forward + backward": lambda: torch.autograd.grad(
+            pos_conv_apply(pos, cfg, xp), [xp, pos["w"], pos["b"]], g),
+    }
+    ms = {name: 1e3 / _rate(fn, 1) for name, fn in parts.items()}
+    layers = cfg.encoder_layers + 1
+    for name in ("13 mha_layer_block recomputes", "13 ffn_block recomputes"):
+        ms[name] *= layers
+    ms["pos_conv backward"] = ms.pop("pos_conv forward + backward") - ms.pop("pos_conv forward")
+    rest = ms["step"] - sum(v for k, v in ms.items() if k != "step")
+    say(f"profile trainable step split at B={b} on {smi} ({RATE_NOTE}): " + ", ".join(
+        f"{name} {v:.3f} ms" for name, v in ms.items())
+        + f", the rest (the rest of HuBERT's backward, the branches, loss, clip, Adam) "
+        f"{rest:.3f} ms")
+
+
 def phase_profile_large(smi):
     """Where the large paths' time goes: the large encode + retrieve step of
     phase 19 at B = 256 (``_profile_step``) and its split by CUDA events
@@ -2079,13 +2191,13 @@ def _train_batch(b: int, gen):
             "id": torch.arange(b, device="cuda") % (b // 5)}
 
 
-def _train_state(model, plain=False):
+def _train_state(model, plain=False, seed=0):
     """A train state from the model's seeded init (the same params every
     call), its optimizer and scheduler, and the train step."""
     from speechclip_tpu_torch.training.optim import build_optimizer
     from speechclip_tpu_torch.training.train_step import create_train_state, make_train_step
 
-    state = create_train_state(model, seed=0)
+    state = create_train_state(model, seed=seed)
     optimizer, scheduler = build_optimizer(model.config, state.params,
                                            model.trainable_mask(state.params))
     step = make_train_step(model, optimizer, scheduler, model.config.accumulate_grad_batches,
@@ -3221,6 +3333,407 @@ def phase_large_train(smi):
     return out
 
 
+# phase 22: the trainable encoder and towers (flagship_config() at full
+# HuBERT-base width, seeded random weights, 6.4 s utterances)
+TRAINABLE_BATCH = 64  # (a), (b), (d): one forward and backward, kernel vs plain
+TRAINABLE_TIMED_BATCHES = (256, 128, 64)  # (c): the largest that fits
+TRAINABLE_TIMED_STEPS = 2  # (c), (e): steps timed a configuration, after TRAIN_WARMUP_STEPS
+TRAINABLE_UNFREEZE = (10, 11)
+TRAINABLE_REINIT = (11,)
+LARGE_UNFREEZE = (22, 23)
+LARGE_TRAINABLE_BATCH = 128
+
+
+def _trainable_model(hubert_dropout: float = 0.0, remat: bool = False, base=None,
+                     **switches):
+    """``base`` (``flagship_config()``) on the card with the trainable
+    ``switches``, HuBERT's dropout and attention dropout at
+    ``hubert_dropout`` (JAX's ``audio_encoder.custom`` fields), its
+    ``remat``, and both branches' dropout at 0."""
+    from speechclip_tpu_torch import SpeechCLIPModel, flagship_config
+
+    cfg = base or flagship_config()
+    cfg = dataclasses.replace(
+        cfg, audio=dataclasses.replace(cfg.audio, conv_batch_chunk=64, dropout=hubert_dropout,
+                                       attention_dropout=hubert_dropout, remat=remat),
+        parallel_branch=dataclasses.replace(cfg.parallel_branch, dropout=0.0),
+        cascaded_branch=dataclasses.replace(cfg.cascaded_branch, dropout=0.0), **switches)
+    return SpeechCLIPModel(cfg)
+
+
+def _leaf_paths(tree, prefix=""):
+    """(dotted path, leaf) over the leaves of a params tree in the order the
+    optimizer holds them (insertion order, None leaves left out)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_paths(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_paths(v, f"{prefix}{i}.")
+    elif tree is not None:
+        yield prefix[:-1], tree
+
+
+def _trainable_paths(model, state):
+    from speechclip_tpu_torch.training.optim import tree_leaves
+
+    flags = list(tree_leaves(model.trainable_mask(state.params)))
+    return [path for (path, _), keep in zip(_leaf_paths(state.params), flags) if keep]
+
+
+def _group(path: str) -> str:
+    """The part of the model a leaf belongs to, for the gradient cosines."""
+    parts = path.split(".")
+    if parts[0] == "audio_encoder":
+        if parts[1] == "encoder" and parts[2] == "layers":
+            return f"hubert layer {parts[3]}"
+        if parts[1] == "encoder":
+            return f"hubert {parts[2]}"
+        return "hubert conv front end"
+    if parts[0] == "clip":
+        return f"clip {parts[1]}"
+    return "branches, projections, weighted sum"
+
+
+def _group_cosines(paths, grads, p_grads):
+    """{group: cosine of the group's gradients, concatenated, kernel path
+    against plain}."""
+    import torch
+
+    acc = {}
+    for path, a, b in zip(paths, grads, p_grads):
+        ab, aa, bb = acc.setdefault(_group(path), [0.0, 0.0, 0.0])
+        a, b = a.double().flatten(), b.double().flatten()
+        acc[_group(path)] = [ab + float(a @ b), aa + float(a @ a), bb + float(b @ b)]
+    return {g: ab / max(math.sqrt(aa * bb), 1e-300) for g, (ab, aa, bb) in acc.items()}
+
+
+def _trainable_agreement(label, model, batch, backend, expect, expect_recomputes, groups):
+    """``phase_train_agreement``'s checks on a trainable configuration: one
+    train-mode forward and backward on the kernel path and on the all-plain
+    path from the same params, held to each other at phase 16's limits
+    (the kernel path's keyword ids imposed on the plain VQ); the gradient
+    cosine of each part of the model named in ``groups`` (each held to
+    TRAIN_MIN_GRAD_COSINE); then one counted step through
+    ``make_train_step``. -> (launches, recomputes, {group: cosine})."""
+    import torch
+
+    from speechclip_tpu_torch.ops.attention import attention_backend
+
+    with attention_backend(backend):
+        state, optimizer, step = _train_state(model)
+        got = _train_grads(model, state, optimizer, batch, plain=False)
+        p_state, p_optimizer, _ = _train_state(model, plain=True)
+        natural = _train_grads(model, p_state, p_optimizer, batch, plain=True)
+        with imposed_keyword_ids(got[2]):
+            imposed = _train_grads(model, p_state, p_optimizer, batch, plain=True)
+        pre_vq = _train_pre_vq(model, state, batch)
+        say(f"phase 22 {label} (backend {backend}): B={batch['wav'].shape[0]} x {WAV_SAMPLES} "
+            f"samples, 224 x 224 images")
+        _check_train_agreement(label, got, natural, imposed, pre_vq)
+        cos = _group_cosines(_trainable_paths(model, state), got[3], imposed[3])
+        say(f"  {label}: gradient cosine kernel vs plain by part: "
+            + ", ".join(f"{g} {c:.6f}" for g, c in cos.items()))
+        missing = [g for g in groups if g not in cos]
+        low = {g: c for g, c in cos.items() if g in groups and c < TRAIN_MIN_GRAD_COSINE}
+        if missing or low:
+            fail(f"{label}: parts without a gradient {missing}, below "
+                 f"{TRAIN_MIN_GRAD_COSINE}: {low}")
+        del got, natural, imposed, pre_vq, p_state, p_optimizer
+        state, metrics, launches, recomputes = _counted_step(step, state, batch)
+    say(f"  {label} step through make_train_step: train_loss "
+        f"{float(metrics['train_loss']):.6f}, grad_norm {float(metrics['grad_norm']):.6f}; "
+        f"launches {launches} (expect {expect}), backward recomputes {recomputes} (expect "
+        f"{expect_recomputes})")
+    _expect_launches(f"phase 22 {label}", launches, **expect)
+    _expect_recomputes(f"phase 22 {label}", recomputes, **expect_recomputes)
+    if not math.isfinite(float(metrics["train_loss"])):
+        fail(f"{label}: a non-finite loss")
+    return launches, recomputes, cos
+
+
+def _snapshot(tree):
+    return {path: leaf.detach().clone() for path, leaf in _leaf_paths(tree)}
+
+
+def _moved(before, tree):
+    """The paths of the leaves of ``tree`` that differ from ``before``."""
+    import torch
+
+    return {path for path, leaf in _leaf_paths(tree) if not torch.equal(before[path], leaf)}
+
+
+def _selected_layers(batch, counts):
+    """(b): ``unfreeze_layers`` [10, 11], then ``reinit_layers`` [11]: which
+    encoder leaves take a gradient and move in one step, and its launches
+    and recomputes (the selected layers and the branch layer)."""
+    import torch
+
+    from speechclip_tpu_torch.ops.attention import attention_backend
+
+    out = {}
+    with attention_backend("auto"):
+        model = _trainable_model(audio_trainable=True, unfreeze_layers=TRAINABLE_UNFREEZE)
+        state, optimizer, step = _train_state(model)
+        paths = _trainable_paths(model, state)
+        grads = _train_grads(model, state, optimizer, batch, plain=False)[3]
+        held = {_group(p) for p, g in zip(paths, grads) if bool(g.abs().max() > 0)}
+        before = _snapshot(state.params)
+        state, _, launches, recomputes = _counted_step(step, state, batch)
+        moved = _moved(before, state.params)
+        encoder_moved = {_group(p) for p in moved if p.startswith("audio_encoder")}
+        want = {f"hubert layer {i}" for i in TRAINABLE_UNFREEZE}
+        say(f"phase 22 unfreeze_layers {list(TRAINABLE_UNFREEZE)} (backend auto, B="
+            f"{batch['wav'].shape[0]}): parts with a gradient {sorted(held)}; encoder parts "
+            f"moved by one step {sorted(encoder_moved)}; launches {launches}, backward "
+            f"recomputes {recomputes} (expect {counts})")
+        if held != want | {"branches, projections, weighted sum"} or encoder_moved != want:
+            fail("unfreeze_layers: other encoder leaves hold a gradient or moved")
+        _expect_launches("phase 22 unfreeze", launches, mha_layer_block=13, ffn_block=13)
+        _expect_recomputes("phase 22 unfreeze", recomputes, **counts)
+        out["unfreeze"] = dict(launches=launches, recomputes=recomputes,
+                               moved=sorted(encoder_moved))
+        del model, state, optimizer, step, grads, before
+        torch.cuda.empty_cache()
+
+        # seed 1: the reinit draws the port's seed-0 HuBERT init, which a
+        # seed-0 model init would already hold
+        model = _trainable_model(audio_trainable=True, reinit_layers=TRAINABLE_REINIT)
+        state, _, step = _train_state(model, seed=1)
+        before = _snapshot(state.params)
+        state = dataclasses.replace(state, params=model.load_pretrained(state.params))
+        reinit = {_group(p) for p in _moved(before, state.params)}
+        loaded = _snapshot(state.params)
+        state, _, launches, recomputes = _counted_step(step, state, batch)
+        stepped = {_group(p) for p in _moved(loaded, state.params) if p.startswith("audio")}
+        want = {f"hubert layer {i}" for i in TRAINABLE_REINIT}
+        say(f"phase 22 reinit_layers {list(TRAINABLE_REINIT)}: load_pretrained changed "
+            f"{sorted(reinit)}; one step moved the encoder parts {sorted(stepped)}; launches "
+            f"{launches}, recomputes {recomputes}")
+        if reinit != want or stepped != want | {"hubert layer_norm"}:
+            fail("reinit_layers: other leaves changed")
+        out["reinit"] = dict(changed=sorted(reinit), moved=sorted(stepped))
+        del model, state, step, before, loaded
+        torch.cuda.empty_cache()
+    return out
+
+
+def _timed_steps(label, model, plain, make_data, batches=TRAINABLE_TIMED_BATCHES):
+    """ms per step (``_step_ms``: TRAINABLE_TIMED_STEPS after
+    TRAIN_WARMUP_STEPS, each from its own train state) and peak GiB at the
+    first of ``batches`` that fits; every step's loss finite.
+    ``make_data(b, params)`` gives the batch of ``b`` for the state's
+    params."""
+    import gc
+
+    import torch
+
+    for b in batches:
+        state = step = holder = data = one = None
+        try:
+            state, _, step = _train_state(model, plain=plain)
+            data = make_data(b, state.params)
+            holder, losses = [state], []
+            state = None
+
+            def one(holder=holder, losses=losses, step=step, data=data):
+                holder[0], metrics = step(holder[0], data)
+                losses.append(metrics["train_loss"])
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = _step_ms(one, steps=TRAINABLE_TIMED_STEPS)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            finite = bool(torch.isfinite(torch.stack(losses)).all())
+            run = dict(batch=b, ms=statistics.median(times), range=[min(times), max(times)],
+                       peak_gib=peak, steps=times)
+            say(f"phase 22 timed {label}: B={b}, {run['ms']:.3f} ms [{min(times):.3f}, "
+                f"{max(times):.3f}] (median [min, max] of {TRAINABLE_TIMED_STEPS} steps by CUDA "
+                f"events after {TRAIN_WARMUP_STEPS} warm-ups), peak {peak:.3f} GiB, losses "
+                f"{[round(float(x), 4) for x in losses]}, finite {finite}")
+            if not finite:
+                fail(f"phase 22 timed {label}: a non-finite loss")
+            return run
+        except torch.cuda.OutOfMemoryError:
+            say(f"phase 22 timed {label}: B={b} does not fit; halving")
+        finally:
+            del state, step, holder, data, one
+            gc.collect()
+            torch.cuda.empty_cache()
+    fail(f"phase 22 timed {label}: no batch of {batches} fits")
+
+
+def _towers(batch, phase16_pallas):
+    """(d): the trainable ViT-B/32 tower under "auto" and "pallas", the
+    trainable text tower under "pallas", each against the plain path; the
+    trainer's image cache and the RN50 tower refuse a trainable image
+    tower."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from speechclip_tpu_torch import SpeechCLIPModel, flagship_config
+    from speechclip_tpu_torch.config import NAMED_CLIP_CONFIGS, load_config
+    from speechclip_tpu_torch.training.trainer import Trainer
+
+    out = {}
+    flagship = flagship_config()
+    image_layers, text_layers = flagship.clip_vision.layers, flagship.clip_text.layers
+    runs = {
+        "image tower auto": ("auto", dict(image_encoder_trainable=True),
+                             dict(mha_layer_block=13, ffn_block=13),
+                             dict(mha_layer_block=1, ffn_block=1)),
+        "image tower pallas": ("pallas", dict(image_encoder_trainable=True),
+                               dict(flash_attention=phase16_pallas),
+                               dict(flash_attention=image_layers + 2 + text_layers)),
+        "text tower pallas": ("pallas", dict(text_encoder_trainable=True),
+                              dict(flash_attention=phase16_pallas),
+                              dict(flash_attention=2 + text_layers)),
+    }
+    for label, (backend, switches, expect, expect_recomputes) in runs.items():
+        model = _trainable_model(**switches)
+        group = "clip visual" if "image" in label else "clip text"
+        launches, recomputes, cos = _trainable_agreement(
+            f"trainable {label}", model, batch, backend, expect, expect_recomputes, [group])
+        out[label] = dict(launches=launches, recomputes=recomputes, cosine=cos[group])
+        del model
+        torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    tree = load_config("configs/base/spchclp_p.yaml", overrides=[
+        "trainer.cache_image_features=true", "clip.image_encoder_trainable=true",
+        "trainer.logger=none"])
+    trainer = Trainer(tree, workdir=os.path.join(tmp, "run"))
+    try:
+        trainer._cache_image_features()
+        fail("the image-feature cache took a trainable image tower")
+    except ValueError as e:
+        say(f"phase 22 the trainer's image-feature cache with a trainable image tower raises: {e}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del trainer
+    rn50 = NAMED_CLIP_CONFIGS["RN50"]
+    try:
+        SpeechCLIPModel(dataclasses.replace(flagship, clip_vision=rn50.vision,
+                                            clip_text=rn50.text, image_encoder_trainable=True))
+        fail("the RN50 tower took image_encoder_trainable")
+    except NotImplementedError as e:
+        say(f"phase 22 an RN50 config with image_encoder_trainable raises: {e}")
+    return out
+
+
+def _cached_batch(model, params, b, gen):
+    """A train batch of ``b`` with the image tower's features at ``params``
+    in place of the images (the trainer's image-feature cache)."""
+    batch = _train_batch(b, gen)
+    cached = {k: v for k, v in batch.items() if k != "image"}
+    cached["image_feat_frozen"] = model.encode_image_tower(params, batch["image"]).float()
+    return cached
+
+
+def _large_partial(smi):
+    """(e): ``bench_variant_config("large_par")`` with ``unfreeze_layers``
+    [22, 23], ``remat`` on and every dropout at 0 (the fused path), B = 128
+    with the image-feature cache: launches and recomputes of one step (the
+    two layers' forward again under ``remat``, their and the branch layer's
+    plain recompute), ms per step and peak GiB."""
+    import torch
+
+    from speechclip_tpu_torch import bench_variant_config
+    from speechclip_tpu_torch.ops.attention import attention_backend
+
+    model = _trainable_model(remat=True, base=bench_variant_config("large_par"),
+                             audio_trainable=True, unfreeze_layers=LARGE_UNFREEZE)
+    layers = model.audio_cfg.encoder_layers
+    with attention_backend("auto"):
+        state, _, step = _train_state(model)
+        data = _cached_batch(model, state.params, LARGE_TRAINABLE_BATCH,
+                             torch.Generator(device="cuda").manual_seed(44))
+        _, _, launches, recomputes = _counted_step(step, state, data)
+        del state, step
+        torch.cuda.empty_cache()
+        n = len(LARGE_UNFREEZE)
+        expect = dict(mha_layer_block=layers + n + 1)
+        say(f"phase 22 large partial fine-tune (large_par, unfreeze_layers "
+            f"{list(LARGE_UNFREEZE)}, remat on, dropout 0, image cache, B="
+            f"{LARGE_TRAINABLE_BATCH}): launches {launches} (expect {expect}: {layers} layers, "
+            f"the {n} unfrozen again under remat, the branch), recomputes {recomputes}")
+        _expect_launches("phase 22 large partial", launches, **expect)
+        _expect_recomputes("phase 22 large partial", recomputes, mha_layer_block=n + 1)
+        run = _timed_steps("large partial fine-tune", model, False, lambda b, params: data,
+                           (LARGE_TRAINABLE_BATCH,))
+    del model, data
+    torch.cuda.empty_cache()
+    return dict(run, launches=launches, recomputes=recomputes)
+
+
+def phase_trainable(smi, phase16_pallas):
+    """Phase 22, the trainable encoder and towers: (a) the full fine-tune
+    at HuBERT dropout 0 on the kernel path against the plain path (phase
+    16's limits, gradient cosines of the conv front end, ``pos_conv`` and
+    each HuBERT layer; 13 + 13 launches and recomputes); (b) ``unfreeze_layers``
+    and ``reinit_layers``; (c) ms per step and peak GiB of the full
+    fine-tune (kernel and plain path), of it at HuBERT's dropout 0.1 with
+    ``remat`` off and on, and of ``unfreeze_layers`` with the image cache;
+    the kernel path again at the plain path's batch where that is smaller;
+    (d) the trainable towers; (e) the large partial fine-tune. -> the
+    summary's ``trainable`` object."""
+    import torch
+
+    out = {"device": smi}
+    t0 = time.perf_counter()
+    batch = _train_batch(TRAINABLE_BATCH, torch.Generator(device="cuda").manual_seed(40))
+    model = _trainable_model(audio_trainable=True)
+    layers = model.audio_cfg.encoder_layers
+    groups = ["hubert conv front end", "hubert pos_conv"] + [
+        f"hubert layer {i}" for i in range(layers)]
+    launches, recomputes, cos = _trainable_agreement(
+        "full fine-tune", model, batch, "auto",
+        dict(mha_layer_block=layers + 1, ffn_block=layers + 1),
+        dict(mha_layer_block=layers + 1, ffn_block=layers + 1), groups)
+    out["full"] = dict(launches=launches, recomputes=recomputes, cosines=cos)
+    del model
+    torch.cuda.empty_cache()
+
+    out.update(_selected_layers(batch, dict(mha_layer_block=len(TRAINABLE_UNFREEZE) + 1,
+                                            ffn_block=len(TRAINABLE_UNFREEZE) + 1)))
+    out["towers"] = _towers(batch, phase16_pallas)
+    del batch
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    full_batch = lambda b, params: _train_batch(b, gen)
+    timed = {}
+    from speechclip_tpu_torch.ops.attention import attention_backend
+
+    with attention_backend("auto"):
+        model = _trainable_model(audio_trainable=True)
+        kernel = timed["full fine-tune dropout 0, kernel path"] = _timed_steps(
+            "full fine-tune dropout 0, kernel path", model, False, full_batch)
+        plain = timed["full fine-tune dropout 0, plain path"] = _timed_steps(
+            "full fine-tune dropout 0, plain path", model, True, full_batch)
+        if plain["batch"] < kernel["batch"]:  # the two paths at one batch, in this run
+            label = f"full fine-tune dropout 0, kernel path at B={plain['batch']}"
+            timed[label] = _timed_steps(label, model, False, full_batch, (plain["batch"],))
+        for remat in (False, True):
+            label = f"full fine-tune dropout 0.1, remat {'on' if remat else 'off'}"
+            model = _trainable_model(hubert_dropout=0.1, remat=remat, audio_trainable=True)
+            timed[label] = _timed_steps(label, model, False, full_batch)
+        model = _trainable_model(audio_trainable=True, unfreeze_layers=TRAINABLE_UNFREEZE)
+        label = f"unfreeze_layers {list(TRAINABLE_UNFREEZE)}, image cache"
+        timed[label] = _timed_steps(label, model, False,
+                                    lambda b, params: _cached_batch(model, params, b, gen))
+        del model
+    torch.cuda.empty_cache()
+    out["timed"] = timed
+    out["large partial"] = _large_partial(smi)
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"phase 22 trainable encoder and towers: wall {out['wall_s']:.1f} s on {smi}")
+    return out
+
+
 # kernel -> (source, the TPU kernel it replaces, the phase-2 row whose
 # times and bound it reports, the path whose launches it reports)
 REPLACES = {
@@ -3279,6 +3792,8 @@ def main(argv) -> int:
         del model, params
         torch.cuda.empty_cache()
         phase_profile_train(smi)
+        torch.cuda.empty_cache()
+        phase_profile_trainable(smi)
         torch.cuda.empty_cache()
         phase_profile_large(smi)
         return 0
@@ -3343,6 +3858,14 @@ def main(argv) -> int:
         for key, on in (("spchclp_p", "off"), ("spchclp_c", "on"))}
     large_trainer = phase_trainer(smi, beside, phase=21, configs=LARGE_TRAINER_CONFIGS,
                                   c_overrides=["audio_encoder.wsum_remat=true"], resume_c=True)
+    torch.cuda.empty_cache()
+
+    trainable = phase_trainable(smi, sum(flash.values()))
+    for label, run in [("trainable full", trainable["full"]),
+                       ("trainable unfreeze", trainable["unfreeze"]),
+                       ("trainable large partial", trainable["large partial"])] + [
+            (f"trainable {k}", v) for k, v in trainable["towers"].items()]:
+        launches[label], recomputes[label] = run["launches"], run["recomputes"]
 
     kernels = []
     for name, (source, replaces, row, path) in REPLACES.items():
@@ -3373,7 +3896,8 @@ def main(argv) -> int:
     say(f"chip_smoke wall {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels, "train": train, "trainer": trainer,
                       "large": {"encode_utt_per_s": large_rates, "train": large_train,
-                                "trainer": large_trainer}}))
+                                "trainer": large_trainer},
+                      "trainable": trainable}))
     print(json.dumps({
         "ok": True,
         "device": {

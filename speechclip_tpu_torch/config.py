@@ -305,6 +305,17 @@ def flagship_large_config() -> SpeechCLIPConfig:
                                             dim_feedforward=4096))
 
 
+def _dead_branches_at_default(cfg: SpeechCLIPConfig) -> SpeechCLIPConfig:
+    """``cfg`` with each dead branch (objective weight 0) at its dataclass
+    default, as ``model_config_from_tree`` reads a config that names it."""
+    return dataclasses.replace(
+        cfg,
+        parallel_branch=(cfg.parallel_branch if cfg.parallel_objective_weight > 0
+                         else BranchConfig()),
+        cascaded_branch=(cfg.cascaded_branch if cfg.cascaded_objective_weight > 0
+                         else CascadedBranchConfig()))
+
+
 def bench_variant_config(variant: str) -> SpeechCLIPConfig:
     """``{base,large}[_par|_casc]`` (the JAX ``bench_variant_config``): the
     flagship or the large flagship, with ``_par`` keeping the parallel
@@ -320,7 +331,7 @@ def bench_variant_config(variant: str) -> SpeechCLIPConfig:
         cfg = dataclasses.replace(cfg, cascaded_objective_weight=0.0)
     elif variant.endswith("_casc"):
         cfg = dataclasses.replace(cfg, parallel_objective_weight=0.0)
-    return cfg
+    return _dead_branches_at_default(cfg)
 
 
 def tiny_flagship_config() -> SpeechCLIPConfig:
@@ -345,7 +356,8 @@ def tiny_flagship_config() -> SpeechCLIPConfig:
 
 
 def tiny_config() -> SpeechCLIPConfig:
-    return dataclasses.replace(tiny_flagship_config(), cascaded_objective_weight=0.0)
+    return _dead_branches_at_default(
+        dataclasses.replace(tiny_flagship_config(), cascaded_objective_weight=0.0))
 
 
 # ---------------------------------------------------------------------------
@@ -878,8 +890,8 @@ def load_config(path: Optional[str] = None, overrides: Iterable[str] = (),
 # ConfigTree -> SpeechCLIPConfig
 # ---------------------------------------------------------------------------
 
-VARIANTS_ITEM = "the ROADMAP item 'Variants' (Queue 1 item 3)"
-TRAINING_REST_ITEM = "the ROADMAP item 'Training, the rest' (Queue 1 item 2)"
+VARIANTS_ITEM = "the ROADMAP item 'Variants' (Queue 1 item 8)"
+DDP_ITEM = "the ROADMAP item 'DDP' (Queue 1 item 7)"
 
 
 def _dims(node) -> Optional[Tuple[int, ...]]:
@@ -900,10 +912,7 @@ def _audio_config(ae) -> HubertConfig:
         kwargs = dict(custom.to_dict())
         if "conv_layers" in kwargs:
             kwargs["conv_layers"] = tuple(tuple(layer) for layer in kwargs["conv_layers"])
-        unknown = set(kwargs) - {f.name for f in dataclasses.fields(HubertConfig)}
-        if unknown - {"dropout", "attention_dropout", "activation_dropout", "layerdrop", "remat"}:
-            raise NotImplementedError(f"audio_encoder.custom fields {sorted(unknown)}")
-        audio = HubertConfig(**{k: v for k, v in kwargs.items() if k not in unknown})
+        audio = HubertConfig(**kwargs)
     elif ae.name in NAMED_HUBERT_CONFIGS:
         audio = NAMED_HUBERT_CONFIGS[ae.name]
     else:
@@ -911,6 +920,9 @@ def _audio_config(ae) -> HubertConfig:
     chunk = ae.get("conv_batch_chunk")
     if chunk is not None:
         audio = dataclasses.replace(audio, conv_batch_chunk=int(chunk))
+    remat = ae.get("remat")
+    if remat is not None:
+        audio = dataclasses.replace(audio, remat=bool(remat))
     return audio
 
 
@@ -970,22 +982,29 @@ def _loss_config(cl) -> ContrastiveLossConfig:
         base_temperature=args.get("base_temperature", 0.07))
 
 
+def _parallel_branch_config(pb) -> BranchConfig:
+    ta = pb.transformer_args
+    return BranchConfig(
+        n_layers=ta.n_layers, d_model=ta.d_model, nhead=ta.nhead,
+        dim_feedforward=ta.dim_feedforward, activation=ta.activation,
+        layer_norm_eps=ta.layer_norm_eps, norm_first=ta.norm_first,
+        need_projection=pb.get("need_projection", True), dropout=ta.get("dropout", 0.0))
+
+
 def model_config_from_tree(tree: ConfigTree) -> SpeechCLIPConfig:
     """The port's ``SpeechCLIPConfig`` for a run's config tree, read as the
-    JAX ``SpeechCLIPModel`` and ``build_optimizer`` read it. What the port
-    lacks raises ``NotImplementedError`` naming its ROADMAP item: other
-    upstreams, a trainable encoder or CLIP tower."""
+    JAX ``SpeechCLIPModel`` and ``build_optimizer`` read it: a missing
+    objective weight is 0.0, and a branch's section is read only when the
+    branch is live (weight > 0); a dead branch keeps the dataclass default,
+    which nothing reads. What the port lacks
+    raises ``NotImplementedError`` naming its ROADMAP item: the other
+    upstreams."""
     ae, ms, clip = tree.audio_encoder, tree.model_settings, tree.clip
-    if ae.get("trainable", False):
-        raise NotImplementedError(
-            f"a trainable audio encoder (audio_encoder.trainable, reinit/unfreeze) waits for "
-            f"{TRAINING_REST_ITEM}")
-    if clip.get("image_encoder_trainable", False) or clip.get("text_encoder_trainable", False):
-        raise NotImplementedError(f"trainable CLIP towers wait for {TRAINING_REST_ITEM}")
     clip_cfg = _clip_config(clip)
-    ta = ms.parallel_branch.transformer_args
     select = ae.feat_select_idx
     opt, sched = ae.optim, ae.scheduler
+    p_weight = ms.get("parallel_objective_weight", 0.0)
+    c_weight = ms.get("cascaded_objective_weight", 0.0)
     return SpeechCLIPConfig(
         audio=_audio_config(ae),
         audio_encoder_type=ae.type,
@@ -993,16 +1012,13 @@ def model_config_from_tree(tree: ConfigTree) -> SpeechCLIPConfig:
         normalize_hiddenstates=bool(ae.get("normalize_hiddenstates", False)),
         normalize_type=ae.get("normalize_type"),
         wsum_remat=bool(ae.get("wsum_remat", False)),
-        parallel_objective_weight=ms.parallel_objective_weight,
-        cascaded_objective_weight=ms.cascaded_objective_weight,
-        parallel_branch=BranchConfig(
-            n_layers=ta.n_layers, d_model=ta.d_model, nhead=ta.nhead,
-            dim_feedforward=ta.dim_feedforward, activation=ta.activation,
-            layer_norm_eps=ta.layer_norm_eps, norm_first=ta.norm_first,
-            need_projection=ms.parallel_branch.get("need_projection", True),
-            dropout=ta.get("dropout", 0.0)),
+        parallel_objective_weight=p_weight,
+        cascaded_objective_weight=c_weight,
+        parallel_branch=(_parallel_branch_config(ms.parallel_branch) if p_weight > 0
+                         else BranchConfig()),
         parallel_branch_projection=_dims(ms.get("parallel_branch_projection")),
-        cascaded_branch=_cascaded_branch_config(ms.cascaded_branch),
+        cascaded_branch=(_cascaded_branch_config(ms.cascaded_branch) if c_weight > 0
+                         else CascadedBranchConfig()),
         cascaded_branch_projection=_dims(ms.get("cascaded_branch_projection")),
         clip_text=clip_cfg.text,
         clip_vision=clip_cfg.vision,
@@ -1013,6 +1029,11 @@ def model_config_from_tree(tree: ConfigTree) -> SpeechCLIPConfig:
         parallel_branch_projection_dropout=_proj_dropout(ms.get("parallel_branch_projection")),
         cascaded_branch_projection_dropout=_proj_dropout(ms.get("cascaded_branch_projection")),
         image_encoder_projection_dropout=_proj_dropout(ms.get("image_encoder_projection")),
+        audio_trainable=bool(ae.get("trainable", False)),
+        reinit_layers=tuple(ae.get("reinit_layers", []) or []),
+        unfreeze_layers=tuple(ae.get("unfreeze_layers", []) or []),
+        image_encoder_trainable=bool(clip.get("image_encoder_trainable", False)),
+        text_encoder_trainable=bool(clip.get("text_encoder_trainable", False)),
         cl_loss=_loss_config(tree.cl_loss),
         optim=OptimizerConfig(
             name=opt.name, lr=float(opt.args.lr),

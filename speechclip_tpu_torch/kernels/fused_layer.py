@@ -7,7 +7,8 @@ Both layer flavors of the model have the same algebra: fairseq
 TransformerSentenceEncoderLayer (HuBERT) and torch nn.TransformerEncoderLayer
 (the parallel branch), post-norm or pre-norm, GELU FFN, with no dropout
 active (eval mode, or training at dropout 0, where the parallel branch's
-layer carries a gradient through the kernels' autograd.Functions; the
+layer and a trainable HuBERT's layers, "post" at base width and "pre" on
+HuBERT-large, carry a gradient through the kernels' autograd.Functions; the
 callers keep a layer with active dropout off this path, as JAX does).
 
 The gate list is the JAX package's: bf16 activations, the "auto" attention

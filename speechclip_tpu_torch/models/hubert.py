@@ -1,4 +1,4 @@
-"""HuBERT speech encoder, eval mode (port of speechclip_tpu/models/hubert.py).
+"""HuBERT speech encoder (port of speechclip_tpu/models/hubert.py).
 
   wav (B, L)
     -> 7 strided 1-D convolutions, 320x downsampling           [conv frontend]
@@ -12,8 +12,19 @@
 The convolutions are stock torch (cuDNN on the card), as the JAX package
 leaves them to XLA. An encoder layer runs through
 ``kernels.fused_layer.fused_encoder_layer`` where its gates admit the
-shapes (T <= 782 at base width in bf16), else as the unfused layer with
-``ops.attention.multi_head_attention`` (``attention_vmem`` up to T = 934).
+shapes (T <= 782 at base width in bf16) and no dropout is active, else as
+the unfused layer with ``ops.attention.multi_head_attention``
+(``attention_vmem`` up to T = 934).
+
+Train mode (a trainable encoder, ``hubert_apply(..., train=True,
+generator=...)``): dropout on the encoder input, and in each unfused layer
+on the attention weights, after the attention, after the FFN's GELU and
+after fc2; ``layerdrop`` keeps a layer's input in place of its output with
+probability ``layerdrop``; ``remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``). At every dropout rate 0 the layers stay on
+the fused kernels, whose backward is the plain recompute. Each layer draws
+its dropout masks from a generator of its own, seeded from a per-layer seed
+drawn up front (JAX splits ``layer_rngs``), so a recompute redraws them.
 
 Presets: ``HUBERT_BASE`` (post-norm, GroupNorm extractor) and
 ``HUBERT_LARGE`` (hubert_large_ll60k: 1024 wide, 24 pre-norm layers of 16
@@ -37,10 +48,11 @@ from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.fused_layer import fused_encoder_layer
 from ..ops.attention import attention_backend, get_attention_backend, multi_head_attention
-from ..ops.basic import Params, gelu, layer_norm, layer_norm_init, linear, normal
+from ..ops.basic import Params, dropout, gelu, layer_norm, layer_norm_init, linear, normal
 from ..ops.masking import (
     conv_frame_valid_lengths,
     hubert_feature_lengths,
@@ -51,8 +63,9 @@ from ..ops.masking import (
 
 @dataclasses.dataclass(frozen=True)
 class HubertConfig:
-    """The JAX package's HubertConfig minus its training-only fields
-    (dropout rates, layerdrop, remat): this port runs eval mode only."""
+    """The JAX package's HubertConfig, field for field. The dropout rates,
+    ``layerdrop`` and ``remat`` act in train mode only (a trainable
+    encoder)."""
 
     # conv frontend: (channels, kernel, stride) per layer; 320x total
     conv_layers: Tuple[Tuple[int, int, int], ...] = (
@@ -74,7 +87,14 @@ class HubertConfig:
     pos_conv_kernel: int = 128
     pos_conv_groups: int = 16
     normalize_waveform: bool = False
+    dropout: float = 0.1
+    attention_dropout: float = 0.1
+    activation_dropout: float = 0.0
+    layerdrop: float = 0.0
     downsample_rate: int = 320
+    # recompute each encoder layer in the backward instead of keeping its
+    # activations (train mode only)
+    remat: bool = False
     # batch chunk of the conv frontend (0 = whole batch): bounds the live
     # conv0 intermediate (B, 512, ~L/5); exact, every frontend op is per-sample
     conv_batch_chunk: int = 0
@@ -222,46 +242,86 @@ def pos_conv_apply(params: Params, cfg: HubertConfig, x: torch.Tensor) -> torch.
     return gelu(y.transpose(1, 2))
 
 
+def _no_dropout(cfg: HubertConfig) -> bool:
+    return cfg.dropout == 0.0 and cfg.attention_dropout == 0.0 and cfg.activation_dropout == 0.0
+
+
 def encoder_layer_apply(
     params: Params,
     cfg: HubertConfig,
     x: torch.Tensor,
     frame_lens: Optional[torch.Tensor],
     plain: bool = False,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """fairseq TransformerSentenceEncoderLayer, eval mode (post- or pre-norm):
-    the fused layer where its gates admit the shapes, else the unfused layer
-    of the JAX package (hubert.py ``encoder_layer_apply``)."""
-    fused = fused_encoder_layer(
-        x,
-        frame_lens,
-        heads=cfg.encoder_heads,
-        mode="pre" if cfg.layer_norm_first else "post",
-        eps=1e-5,
-        attn=params["self_attn"],
-        fc1=params["fc1"],
-        fc2=params["fc2"],
-        ln1=params["self_attn_layer_norm"],
-        ln2=params["final_layer_norm"],
-        plain=plain,
-    )
-    if fused is not None:
-        return fused
+    """fairseq TransformerSentenceEncoderLayer (post- or pre-norm): the
+    fused layer where its gates admit the shapes and no dropout is active
+    (eval, or train at every rate 0), else the unfused layer of the JAX
+    package (hubert.py ``encoder_layer_apply``), whose train mode drops the
+    attention weights, the attention output, the GELU output and fc2's
+    output, drawing from ``generator``."""
+    if not train or _no_dropout(cfg):
+        fused = fused_encoder_layer(
+            x,
+            frame_lens,
+            heads=cfg.encoder_heads,
+            mode="pre" if cfg.layer_norm_first else "post",
+            eps=1e-5,
+            attn=params["self_attn"],
+            fc1=params["fc1"],
+            fc2=params["fc2"],
+            ln1=params["self_attn_layer_norm"],
+            ln2=params["final_layer_norm"],
+            plain=plain,
+        )
+        if fused is not None:
+            return fused
 
     def attn(h):
-        return multi_head_attention(
+        out = multi_head_attention(
             params["self_attn"], h, h, h, num_heads=cfg.encoder_heads,
-            key_valid_lens=frame_lens, plain=plain,
+            key_valid_lens=frame_lens, dropout_rate=cfg.attention_dropout, train=train,
+            generator=generator, plain=plain,
         )[0]
+        return dropout(out, cfg.dropout, train, generator)
 
     def ffn(h):
-        return linear(params["fc2"], gelu(linear(params["fc1"], h)))
+        h = dropout(gelu(linear(params["fc1"], h)), cfg.activation_dropout, train, generator)
+        return dropout(linear(params["fc2"], h), cfg.dropout, train, generator)
 
     if cfg.layer_norm_first:
         x = x + attn(layer_norm(params["self_attn_layer_norm"], x))
         return x + ffn(layer_norm(params["final_layer_norm"], x))
     x = layer_norm(params["self_attn_layer_norm"], x + attn(x))
     return layer_norm(params["final_layer_norm"], x + ffn(x))
+
+
+def _seeded_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
+    return None if seed is None else torch.Generator(device=device).manual_seed(seed)
+
+
+def _train_layer(params: Params, cfg: HubertConfig, x: torch.Tensor,
+                 frame_lens: Optional[torch.Tensor], plain: bool, seed: Optional[int]):
+    """One train-mode layer whose dropout draws from a generator seeded with
+    ``seed`` here, inside the call: under ``torch.utils.checkpoint`` the
+    recompute builds it again and draws the same masks (the checkpoint
+    restores the default generators' states, not an explicit one's)."""
+    return encoder_layer_apply(params, cfg, x, frame_lens, plain=plain, train=True,
+                               generator=_seeded_generator(seed, x.device))
+
+
+def layerdrop_select(keep: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The layer's output ``y`` where ``keep``, else its input ``x``: JAX's
+    ``jnp.where(keep, y, x)``, value and gradient."""
+    return torch.where(keep, y, x)
+
+
+def _layer_seeds(generator: torch.Generator, n: int) -> List[int]:
+    """``n`` seeds drawn from ``generator`` (two per layer: its dropout, its
+    layerdrop), read back to the host (one wait on the card a step)."""
+    return torch.randint(0, 2**62, (n,), generator=generator,
+                         device=generator.device).tolist()
 
 
 def _encoder_prelude(
@@ -298,16 +358,40 @@ def hubert_apply(
     wav: torch.Tensor,  # (B, L) zero-padded, compute dtype
     wav_lengths: torch.Tensor,  # (B,) int
     plain: bool = False,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
     """-> (hidden states: input + one per layer, each (B, T, D);
     feature lengths round(len / downsample_rate) clamped to T).
 
     The layers mask keys with the conv-frame valid lengths; the feature
-    lengths are what the branch masks with (plus its CLS)."""
+    lengths are what the branch masks with (plus its CLS). ``train``: the
+    encoder's dropout, layerdrop and ``remat`` (JAX's order: the input's
+    dropout drawn from ``generator`` first, then two seeds a layer); hidden
+    state 0 is the dropped input, as in JAX."""
     x, frame_lens = _encoder_prelude(params, cfg, wav, wav_lengths)
+    x = dropout(x, cfg.dropout, train, generator)
     hidden_states = [x]
-    for layer in params["encoder"]["layers"]:
-        x = encoder_layer_apply(layer, cfg, x, frame_lens, plain=plain)
+    layers = params["encoder"]["layers"]
+    draws = train and (not _no_dropout(cfg) or cfg.layerdrop > 0)
+    if draws and generator is None:
+        raise ValueError("hubert_apply needs a generator when train=True and dropout or "
+                         "layerdrop is > 0")
+    seeds = _layer_seeds(generator, 2 * len(layers)) if draws else [None] * (2 * len(layers))
+    for i, layer in enumerate(layers):
+        if not train:
+            y = encoder_layer_apply(layer, cfg, x, frame_lens, plain=plain)
+        elif cfg.remat:
+            y = checkpoint(_train_layer, layer, cfg, x, frame_lens, plain, seeds[2 * i],
+                           use_reentrant=False)
+        else:
+            y = _train_layer(layer, cfg, x, frame_lens, plain, seeds[2 * i])
+        if train and cfg.layerdrop > 0:
+            g = _seeded_generator(seeds[2 * i + 1], x.device)
+            keep = torch.rand((), generator=g, device=x.device) < 1.0 - cfg.layerdrop
+            x = layerdrop_select(keep, y, x)
+        else:
+            x = y
         hidden_states.append(x)
     feat_lens = hubert_feature_lengths(wav_lengths, cfg.downsample_rate, x.shape[1])
     return tuple(hidden_states), feat_lens

@@ -9,11 +9,20 @@ features of both sides, eval or train mode), ``compute_loss`` and
 files). A gallery feature is ``l2_normalize(forward_image(...)
 .float())``, as the JAX model's ``forward`` makes it.
 
-HuBERT and the CLIP towers are frozen: their forwards run under
-``torch.no_grad()`` (the port's form of JAX's ``stop_gradient`` on the
-frozen outputs), so they take the kernels' forward-only launches and keep
-no graph. The cascaded branch's pass through the frozen text tower does
-carry a gradient, to the keywords, not to the tower's weights.
+HuBERT and the CLIP towers are frozen unless the config trains them
+(``audio_trainable``, with ``reinit_layers`` / ``unfreeze_layers`` for a
+partial fine-tune; ``image_encoder_trainable``; ``text_encoder_trainable``).
+A frozen encoder or image tower runs under ``torch.no_grad()`` (the port's
+form of JAX's ``stop_gradient`` on the frozen outputs), so it takes the
+kernels' forward-only launches and keeps no graph. A trainable one keeps
+its graph: the kernels' autograd.Functions carry its gradient, and a
+trainable encoder runs in train mode (its dropout, layerdrop and
+``remat``) when the model does. Under a partial fine-tune only the
+selected layers' leaves require grad, so the layers below them record no
+graph. The cascaded branch's pass through the text tower carries a
+gradient to the keywords, and to the tower's weights where it trains. The
+RN image towers refuse ``image_encoder_trainable`` (their BatchNorm runs on
+running statistics), as in JAX.
 
 Parameters are a plain nested dict with the JAX package's keys
 (``audio_encoder``, ``weighted_sum``, ``parallel_branch``,
@@ -33,16 +42,16 @@ casts each weight where it is used (``linear``), as JAX does.
 With ``wsum_remat`` (the large configs' memory switch) and a frozen
 encoder, ``forward_audio`` takes the weighted sum through
 ``hubert.hubert_frozen_weighted_sum``: no stack of hidden states is kept,
-and the logits' gradient recomputes the encoder in the backward.
+and the logits' gradient recomputes the encoder in the backward. With a
+trainable encoder it does not engage, and the model warns once, as JAX's.
 
 The model and ``cast_params`` run on the card unless the caller asks for
-the CPU (``device="cpu"``); without a card they raise. A trainable encoder
-or CLIP tower raises ``NotImplementedError``: it waits for the ROADMAP item
-"Training".
+the CPU (``device="cpu"``); without a card they raise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import os
@@ -51,7 +60,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..config import SpeechCLIPConfig
+from ..config import CLIPResNetVisionConfig, SpeechCLIPConfig
 from ..data.image import device_clip_preprocess
 from ..ops.basic import Params, l2_normalize
 from ..ops import retrieval
@@ -68,7 +77,6 @@ from . import branches, clip as clip_mod, hubert
 
 WEIGHTED_SUM_MODE = "weighted_sum"
 LOSS_TYPES = ("MaskedContrastiveLoss", "SupConLoss")
-TRAINING_ITEM = "the ROADMAP item 'Training'"
 REPO_ROOT = Path(__file__).resolve().parents[2]
 logger = logging.getLogger(__name__)
 
@@ -121,13 +129,50 @@ def resolve_asset_path(path: str) -> str:
 
 def _warn_wsum_remat_blockers(config: SpeechCLIPConfig) -> None:
     """The JAX model's one warning when ``wsum_remat`` is set but the config
-    rules the recompute out: the stack of hidden states stays live. A
-    trainable encoder, JAX's other blocker, raises below until it is ported."""
+    rules the recompute out: the stack of hidden states stays live."""
+    blockers = []
+    if config.feat_select_idx != WEIGHTED_SUM_MODE:
+        blockers.append(f"feat_select_idx={config.feat_select_idx!r} (needs 'weighted_sum')")
+    if config.audio_trainable:
+        blockers.append("audio_encoder.trainable=true (the backward recompute assumes a "
+                        "frozen, deterministic encoder)")
     logger.warning(
         "audio_encoder.wsum_remat is set but will NOT engage: %s — the N-hidden-state stack "
         "stays live and large batches may run out of memory (see models/hubert.py "
-        "hubert_frozen_weighted_sum)",
-        f"feat_select_idx={config.feat_select_idx!r} (needs 'weighted_sum')")
+        "hubert_frozen_weighted_sum)", "; ".join(blockers))
+
+
+def _grad_unless(frozen: bool):
+    """``torch.no_grad()`` for a frozen tower, else no change."""
+    return torch.no_grad() if frozen else contextlib.nullcontext()
+
+
+def _same(tree, value):
+    """A tree of ``value`` over the leaves of ``tree`` (None leaves kept)."""
+    if isinstance(tree, dict):
+        return {k: _same(v, value) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_same(v, value) for v in tree]
+    return None if tree is None else value
+
+
+def _swap_in(old, new, new_cast):
+    """``old`` with ``new``'s values: a trainable leaf of ``old`` (an f32
+    master the optimizer holds, ``requires_grad``) takes ``new``'s f32
+    values in place; any other leaf is replaced by ``new_cast``'s. Keys keep
+    ``old``'s order (the optimizer's leaf order)."""
+    if isinstance(new, dict):
+        old = old or {}
+        keys = [k for k in old if k in new] + [k for k in new if k not in old]
+        return {k: _swap_in(old.get(k), new[k], new_cast[k]) for k in keys}
+    if isinstance(new, (list, tuple)):
+        olds = old if old is not None else [None] * len(new)
+        return type(new)(_swap_in(o, n, c) for o, n, c in zip(olds, new, new_cast))
+    if torch.is_tensor(old) and old.requires_grad and new is not None:
+        with torch.no_grad():
+            old.copy_(new)
+        return old
+    return new_cast
 
 
 class SpeechCLIPModel:
@@ -141,7 +186,7 @@ class SpeechCLIPModel:
                 "wait for the ROADMAP item 'Variants' (models/upstream.py)"
             )
         # forward_audio takes hubert_frozen_weighted_sum (JAX's conditions)
-        self.wsum_remat_engaged = (config.wsum_remat
+        self.wsum_remat_engaged = (config.wsum_remat and not config.audio_trainable
                                    and config.feat_select_idx == WEIGHTED_SUM_MODE)
         if config.wsum_remat and not self.wsum_remat_engaged:
             _warn_wsum_remat_blockers(config)
@@ -150,12 +195,10 @@ class SpeechCLIPModel:
                 "reinit_layers/unfreeze_layers require audio_trainable: otherwise the "
                 "selected layers would stay frozen"
             )
-        if config.audio_trainable:
+        if isinstance(config.clip_vision, CLIPResNetVisionConfig) and config.image_encoder_trainable:
             raise NotImplementedError(
-                f"a trainable audio encoder (reinit/unfreeze) waits for {TRAINING_ITEM}")
-        if config.image_encoder_trainable or config.text_encoder_trainable:
-            raise NotImplementedError(
-                f"trainable CLIP towers wait for {TRAINING_ITEM}; both stay frozen")
+                "image_encoder_trainable is not supported for the RN* CLIP towers "
+                "(inference-mode BatchNorm); use a ViT tower or freeze the image encoder")
         if config.cl_loss.type not in LOSS_TYPES:
             raise NotImplementedError(f"cl_loss type {config.cl_loss.type}")
         self.use_parallel = config.parallel_objective_weight > 0
@@ -242,27 +285,45 @@ class SpeechCLIPModel:
         return params, state
 
     def load_pretrained(self, params: Params) -> Params:
-        """``params`` with the frozen towers swapped for the configured
-        weight files (``audio_pretrained_path``: a fairseq or HF HuBERT;
+        """``params`` with the towers swapped for the configured weight
+        files (``audio_pretrained_path``: a fairseq or HF HuBERT;
         ``clip_pretrained_path``: an OpenAI or HF CLIP, cut to the reduced
         vocabulary where one is configured), converted by
         ``convert.from_torch`` and cast as ``cast_params`` casts, on the
-        model's device. A configured file that is missing logs a warning
-        and leaves the random tower, as the JAX model does. The other
-        leaves (the trainable ones the optimizer holds) are kept as they
-        are."""
+        model's device; then ``reinit_layers`` re-initialized (JAX's
+        ``load_pretrained``: the layers of a fresh seed-0 HuBERT init, here
+        the port's own). A configured file that is missing logs a warning
+        and leaves the random tower, as the JAX model does. A trainable
+        leaf (an f32 master the optimizer holds) takes the new values in
+        place; the other leaves the optimizer holds are kept as they are."""
         params = dict(params)
+
+        def swap(key, new):
+            params[key] = _swap_in(params.get(key), new,
+                                   cast_params(new, self.compute_dtype, self.device))
+
         ae_path = self.config.audio_pretrained_path
         if ae_path:
             if os.path.exists(ae_path):
                 from ..convert.from_torch import load_hubert_checkpoint
 
-                params["audio_encoder"] = cast_params(
-                    load_hubert_checkpoint(ae_path, self.audio_cfg), self.compute_dtype,
-                    self.device)
+                swap("audio_encoder", load_hubert_checkpoint(ae_path, self.audio_cfg))
                 logger.info("loaded HuBERT weights from %s", ae_path)
             else:
                 logger.warning("HuBERT checkpoint %s not found; random init", ae_path)
+        reinit = self.config.reinit_layers
+        if reinit:
+            fresh = hubert.hubert_init(torch.Generator(device=self.device).manual_seed(0),
+                                       self.audio_cfg)["encoder"]["layers"]
+            ae = dict(params["audio_encoder"])
+            ae["encoder"] = dict(ae["encoder"])
+            layers = list(ae["encoder"]["layers"])
+            for i in reinit:
+                layers[i] = _swap_in(layers[i], fresh[i],
+                                     cast_params(fresh[i], self.compute_dtype, self.device))
+            ae["encoder"]["layers"] = layers
+            params["audio_encoder"] = ae
+            logger.info("reinitialized HuBERT encoder layers %s", list(reinit))
         clip_path = self.config.clip_pretrained_path
         if clip_path:
             if os.path.exists(clip_path):
@@ -273,7 +334,7 @@ class SpeechCLIPModel:
                     clip_path, CLIPConfig(vision=self.vision_cfg, text=self.clip_cfg))
                 if self.reduced_vocab is not None:
                     clip_params = clip_mod.reduce_token_embedding(clip_params, self.reduced_vocab)
-                params["clip"] = cast_params(clip_params, self.compute_dtype, self.device)
+                swap("clip", clip_params)
                 logger.info("loaded CLIP weights from %s", clip_path)
             else:
                 logger.warning("CLIP checkpoint %s not found; random init", clip_path)
@@ -286,13 +347,17 @@ class SpeechCLIPModel:
         wav_len: torch.Tensor,  # (B,) int
         plain: bool = False,
         return_hidden_states: bool = False,
+        generator: Optional[torch.Generator] = None,
+        train: bool = False,
     ):
         """-> (audio features, feature lengths[, hidden states]) on the
         model's device. int16 PCM is rescaled by 1/32768 in f32 first
         (exact), then cast to the compute dtype. With ``wsum_remat``, the
         weighted sum and no hidden states asked for, the frozen encoder's
         feature comes from ``hubert.hubert_frozen_weighted_sum`` (JAX's
-        conditions)."""
+        conditions). A frozen encoder runs under ``torch.no_grad()``; a
+        trainable one keeps its graph and, with ``train``, runs in train
+        mode, drawing its dropout from ``generator``."""
         wav, wav_len = wav.to(self.device), wav_len.to(self.device)
         if wav.dtype == torch.int16:
             wav = wav.float() * (1.0 / 32768.0)
@@ -301,9 +366,11 @@ class SpeechCLIPModel:
             return hubert.hubert_frozen_weighted_sum(
                 params["weighted_sum"], params["audio_encoder"], self.audio_cfg, wav, wav_len,
                 norm_type=self.hidden_norm_type, plain=plain)
-        with torch.no_grad():  # the frozen encoder
+        trainable = self.config.audio_trainable
+        with _grad_unless(frozen=not trainable):
             hidden_states, feat_len = hubert.hubert_apply(
-                params["audio_encoder"], self.audio_cfg, wav, wav_len, plain=plain
+                params["audio_encoder"], self.audio_cfg, wav, wav_len, plain=plain,
+                train=train and trainable, generator=generator,
             )
         if self.hidden_norm_type in ("method1", "method2"):
             hidden_states = hubert.normalize_hidden_states(
@@ -365,16 +432,18 @@ class SpeechCLIPModel:
 
     def encode_image_tower(self, params: Params, images: torch.Tensor,
                            plain: bool = False) -> torch.Tensor:
-        """The frozen CLIP image tower alone, on the model's device, under
-        ``torch.no_grad()``: (B, H, W, 3) uint8 images take
-        ``device_clip_preprocess`` first; then the compute dtype and
-        ``clip.encode_image`` -> (B, output_dim). The trainer's image-feature
-        cache (``forward``'s ``image_feat_frozen``) holds its output."""
+        """The CLIP image tower alone, on the model's device, under
+        ``torch.no_grad()`` unless it is trainable: (B, H, W, 3) uint8
+        images take ``device_clip_preprocess`` first; then the compute dtype
+        and ``clip.encode_image`` -> (B, output_dim). The trainer's
+        image-feature cache (``forward``'s ``image_feat_frozen``) holds the
+        frozen tower's output."""
         images = images.to(self.device)
         with torch.no_grad():
             if images.dtype == torch.uint8:
                 images = device_clip_preprocess(images, self.vision_cfg.image_size)
             images = images.to(self.compute_dtype)
+        with _grad_unless(frozen=not self.config.image_encoder_trainable):
             return clip_mod.encode_image(params["clip"], self.vision_cfg, images, plain)
 
     def project_image_feat(self, params: Params, feat: torch.Tensor,
@@ -426,7 +495,7 @@ class SpeechCLIPModel:
         updated, and ``num_updates`` drives a scheduled VQ temperature.
         Features come out L2-normalized in f32."""
         audio_feat, audio_len = self.forward_audio(params, batch["wav"], batch["wav_len"],
-                                                   plain=plain)
+                                                   plain=plain, generator=generator, train=train)
         if "image_feat_frozen" in batch:
             frozen = batch["image_feat_frozen"].to(self.device, self.compute_dtype)
             image_feat = self.project_image_feat(params, frozen, generator, train)
@@ -520,37 +589,39 @@ class SpeechCLIPModel:
         return losses
 
     def trainable_mask(self, params: Params) -> Params:
-        """A tree of bools over ``params``, True where a leaf trains: the
-        branches, the projections, the weighted sum and a trainable
-        criterion temperature; not the encoder, the CLIP towers or CLIP's
-        ``logit_scale`` (the JAX model's ``trainable_mask`` with every tower
-        frozen, the only configuration the port constructs). Selected
-        encoder layers without a trainable encoder raise, as there."""
+        """A tree of bools over ``params``, True where a leaf trains (the
+        JAX model's ``trainable_mask``): the branches, the projections, the
+        weighted sum and a trainable criterion temperature; the encoder
+        where ``audio_trainable`` (under ``reinit_layers`` /
+        ``unfreeze_layers`` only the selected layers, and the top
+        ``encoder.layer_norm`` of a post-norm model under reinit); the image
+        and text towers by their flags; never CLIP's ``logit_scale``.
+        Selected layers without a trainable encoder, or both lists at once,
+        raise."""
         cfg = self.config
         if cfg.reinit_layers and cfg.unfreeze_layers:
             raise ValueError("reinit_layers and unfreeze_layers are exclusive")
-        if (cfg.reinit_layers or cfg.unfreeze_layers) and not cfg.audio_trainable:
+        selected = cfg.reinit_layers or cfg.unfreeze_layers
+        if selected and not cfg.audio_trainable:
             raise ValueError("reinit_layers/unfreeze_layers require audio_trainable")
-
-        def same(tree, value):
-            if isinstance(tree, dict):
-                return {k: same(v, value) for k, v in tree.items()}
-            if isinstance(tree, (list, tuple)):
-                return [same(v, value) for v in tree]
-            return None if tree is None else value
 
         mask: Params = {}
         for key, sub in params.items():
             if key == "audio_encoder":
-                mask[key] = same(sub, cfg.audio_trainable)
-            elif key == "clip":
-                mask[key] = {"visual": same(sub["visual"], cfg.image_encoder_trainable),
-                             "text": same(sub["text"], cfg.text_encoder_trainable),
-                             "logit_scale": False}
+                mask[key] = _same(sub, cfg.audio_trainable and not selected)
+                encoder = mask[key]["encoder"]
+                for i in selected:
+                    encoder["layers"][i] = _same(sub["encoder"]["layers"][i], True)
+                if cfg.reinit_layers and not self.audio_cfg.layer_norm_first:
+                    encoder["layer_norm"] = _same(sub["encoder"]["layer_norm"], True)
+            elif key == "clip":  # in the subtree's own key order, as the leaves are walked
+                trains = {"visual": cfg.image_encoder_trainable,
+                          "text": cfg.text_encoder_trainable, "logit_scale": False}
+                mask[key] = {k: _same(v, trains[k]) for k, v in sub.items()}
             elif key == "criterion":
-                mask[key] = same(sub, cfg.cl_loss.temperature_trainable)
+                mask[key] = _same(sub, cfg.cl_loss.temperature_trainable)
             else:
-                mask[key] = same(sub, True)
+                mask[key] = _same(sub, True)
         return mask
 
     def extract_hidden_states(self, params: Params, wav: torch.Tensor,

@@ -17,14 +17,13 @@ import random
 import numpy as np
 import torch
 
-from ..config import load_config, parse_override_value
+from ..config import DDP_ITEM, load_config, parse_override_value
 from ..training.checkpoint import load_config_from_checkpoint
 from ..training.logging import set_logging
 from ..training.trainer import TOKENIZER_ITEM, Trainer
 from .base_task import BaseTask
 
 logger = logging.getLogger(__name__)
-DDP_ITEM = "the DDP step of the ROADMAP item 'Training, the rest'"
 
 
 def _seed_everything(seed: int) -> None:

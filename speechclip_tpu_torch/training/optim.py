@@ -5,9 +5,11 @@ reference's recipe), or AdamW, over the trainable leaves only; the LR
 schedule as a ``LambdaLR`` stepped once per optimizer update; the
 global-norm clip of ``trainer.gradient_clip_val`` in optax's form.
 
-Frozen leaves (the encoder and the CLIP towers) are not handed to the
+Frozen leaves (the encoder and the CLIP towers unless the config trains
+them, the layers outside ``unfreeze_layers``) are not handed to the
 optimizer, so they get no moments, as the JAX package's ``set_to_zero``
-branch keeps none. Gradient accumulation (optax ``MultiSteps``: the mean of
+branch keeps none; a trainable tower's leaves are f32 masters with
+moments like the branches'. Gradient accumulation (optax ``MultiSteps``: the mean of
 k micro-batch gradients, then one clip, one Adam step and one schedule
 step) is done by ``train_step.make_train_step``.
 """

@@ -11,12 +11,16 @@ backward, the global-norm clip, Adam and the LR schedule, on one device.
     state, metrics = step(state, batch)
 
 The train state keeps the trainable leaves f32 (the master weights Adam
-updates, in place) and the frozen ones in the compute dtype as
-``cast_params`` casts them; the kw-BN running statistics; the micro-batch
-count; and the ``torch.Generator`` the dropout masks and the Gumbel noise
-are drawn from. Data-parallel training (with the loss's feature all-gather)
-waits for the ROADMAP item "Training, the rest" (DDP). ``device_prefetch``
-stages host batches on the card ahead of the step that takes them.
+updates, in place: the branches, and the encoder's or a CLIP tower's where
+the config trains them) and the frozen ones in the compute dtype as
+``cast_params`` casts them, without ``requires_grad``: a frozen leaf takes
+no gradient (JAX's ``stop_gradient`` on the frozen leaves), so
+``grad_norm`` and the clip see the trainable leaves alone, as JAX's do.
+It also keeps the kw-BN running statistics; the micro-batch count; and the
+``torch.Generator`` the dropout masks and the Gumbel noise are drawn from.
+Data-parallel training (with the loss's feature all-gather) waits for the
+ROADMAP item "DDP". ``device_prefetch`` stages host batches on the card
+ahead of the step that takes them.
 """
 
 from __future__ import annotations

@@ -31,7 +31,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import ConfigTree, TRAINING_REST_ITEM, model_config_from_tree
+from ..config import DDP_ITEM, ConfigTree, model_config_from_tree
 from ..data.datasets import build_dataset
 from ..data.loader import BucketedLoader
 from ..models.speechclip import SpeechCLIPModel
@@ -93,7 +93,7 @@ class Trainer:
         if int(config.get_path("trainer.model_parallel", 1) or 1) > 1:
             raise NotImplementedError(
                 f"trainer.model_parallel > 1: the port trains on one card; DDP waits for "
-                f"{TRAINING_REST_ITEM}")
+                f"{DDP_ITEM}")
         self.config = config
         self.workdir = workdir or config.get_path("trainer.default_root_dir", "exp/run")
         os.makedirs(self.workdir, exist_ok=True)
@@ -167,7 +167,12 @@ class Trainer:
         return bool(self.config.get_path("data.dataset.on_device_preprocess", False))
 
     def _cache_image_features(self) -> bool:
-        return bool(self.config.get_path("trainer.cache_image_features", False))
+        # the frozen image tower run once per fit; a trainable tower would
+        # leave the cache stale, so it refuses, as the JAX trainer does
+        enabled = bool(self.config.get_path("trainer.cache_image_features", False))
+        if enabled and self.config.get_path("clip.image_encoder_trainable", False):
+            raise ValueError("trainer.cache_image_features requires a frozen image tower")
+        return enabled
 
     def build_eval_loader(self, split: str = "dev") -> BucketedLoader:
         data_cfg = self.config.data

@@ -3,8 +3,10 @@ the monitor policy keeps the same directories and writes the same
 ``ckpt_index.json`` as the JAX package's ``CheckpointManager`` on one metric
 sequence; a save and restore of a train state (params, kw-BN statistics,
 Adam's moments, the scheduler, the step, the generator, an accumulation in
-progress) is bitwise; a slim checkpoint holds no frozen leaf; a save cut
-short before its rename leaves the previous ``last`` whole."""
+progress) is bitwise; a slim checkpoint holds no frozen leaf, and under a
+partial fine-tune (``unfreeze_layers``) holds the unfrozen encoder layers
+and restores them bitwise; a save cut short before its rename leaves the
+previous ``last`` whole."""
 
 import dataclasses
 import os
@@ -41,8 +43,9 @@ HISTORY = [
 ]
 
 
-def _tiny_state(seed=0, accum=1):
-    cfg = dataclasses.replace(tiny_flagship_config(), precision=32, accumulate_grad_batches=accum)
+def _tiny_state(seed=0, accum=1, **switches):
+    cfg = dataclasses.replace(tiny_flagship_config(), precision=32, accumulate_grad_batches=accum,
+                              **switches)
     model = SpeechCLIPModel(cfg, device="cpu")
     state = create_train_state(model, seed=seed)
     mask = model.trainable_mask(state.params)
@@ -173,6 +176,38 @@ def test_slim_checkpoint_holds_no_frozen_leaf(tmp_path):
     fresh = dataclasses.replace(fresh, params=model.load_pretrained(fresh.params))
     restored = CheckpointManager(str(tmp_path / "slim"), slim_mask=mask).restore(
         str(tmp_path / "slim" / "last"), fresh, f_opt, f_sched)
+    _assert_same(restored.params, state.params)
+
+
+def test_slim_checkpoint_of_a_partial_fine_tune_restores_bitwise(tmp_path):
+    """``unfreeze_layers: [1]``: the slim checkpoint holds encoder layer 1
+    (its f32 masters, moved by two steps) and no other encoder leaf;
+    restored into a fresh state whose frozen leaves come from
+    ``load_pretrained``, every leaf, Adam's moments and the next step equal
+    the uninterrupted run's."""
+    switches = dict(audio_trainable=True, unfreeze_layers=(1,))
+    model, state, optimizer, scheduler, step = _tiny_state(**switches)
+    for i in range(2):
+        state, _ = step(state, _batch(i))
+    mask = model.trainable_mask(state.params)
+    mgr = CheckpointManager(str(tmp_path), slim_mask=mask)
+    mgr.save(state, 2, {}, None, optimizer, scheduler)
+    saved = torch.load(tmp_path / "last" / STATE_FILE, weights_only=True)["params"]
+    layers = saved["audio_encoder"]["encoder"]["layers"]
+    assert all(leaf is not None and leaf.dtype == torch.float32 for leaf in tree_leaves(layers[1]))
+    assert list(tree_leaves(layers[0])) == []
+    assert list(tree_leaves({k: v for k, v in saved["audio_encoder"].items()
+                             if k != "encoder"})) == []
+    # the frozen leaves come from load_pretrained (no files: the seeded init)
+    _, fresh, f_opt, f_sched, f_step = _tiny_state(**switches)
+    fresh = dataclasses.replace(fresh, params=model.load_pretrained(fresh.params))
+    restored = CheckpointManager(str(tmp_path), slim_mask=mask).restore(
+        str(tmp_path / "last"), fresh, f_opt, f_sched)
+    _assert_same(restored.params, state.params)
+    _assert_same_optimizer(f_opt, optimizer)
+    state, m = step(state, _batch(2))
+    restored, rm = f_step(restored, _batch(2))
+    assert float(m["train_loss"]) == float(rm["train_loss"])
     _assert_same(restored.params, state.params)
 
 

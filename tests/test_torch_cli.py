@@ -82,3 +82,27 @@ def test_a_reference_lightning_checkpoint_raises(flag, tmp_path):
 def test_more_than_one_card_raises():
     with pytest.raises(NotImplementedError, match="DDP"):
         run_task.main([TASK, "--train", "--devices", "4", "--config", "unused.yaml"])
+
+
+def test_the_trainable_switches_come_in_as_overrides(cli_setup):  # noqa: F811
+    """``audio_encoder.trainable`` with ``unfreeze_layers`` and slim
+    checkpoints, all from the command line: the run trains layer 1 of the
+    encoder, its checkpoint holds that layer, and ``config.yaml`` keeps the
+    switches."""
+    import torch
+
+    from speechclip_tpu_torch.config import load_config
+
+    cfg_path, exp = cli_setup
+    save = exp / "port_unfreeze"
+    result = run_port_cli(TASK, "--config", str(cfg_path), "--train", "--platform", "cpu",
+                          "--save_path", str(save), "--override", "data.dataset.image_size=32",
+                          "trainer.max_steps=1", "audio_encoder.trainable=true",
+                          "audio_encoder.unfreeze_layers=[1]", "trainer.checkpoint_frozen=false")
+    assert result.returncode == 0, result.stderr[-3000:]
+    assert "FORBIDDEN []" in result.stdout
+    tree = load_config(str(save / "ckpts" / "config.yaml"))
+    assert tree.audio_encoder.trainable and tree.audio_encoder.unfreeze_layers == [1]
+    saved = torch.load(save / "ckpts" / "last" / "state.pt", weights_only=True)["params"]
+    layers = saved["audio_encoder"]["encoder"]["layers"]
+    assert layers[1]["fc1"]["w"] is not None and layers[0]["fc1"]["w"] is None

@@ -32,7 +32,7 @@ from speechclip_tpu_torch.models.speechclip import REPO_ROOT, SpeechCLIPModel, c
 torch.set_num_threads(2)
 
 PORT_HUBERT_FIELDS = {f.name for f in dataclasses.fields(HubertConfig)}
-# eval-only port: the JAX HubertConfig fields it leaves out
+# the JAX HubertConfig fields the port acts on in train mode only
 TRAINING_ONLY_FIELDS = {
     "dropout", "attention_dropout", "activation_dropout", "layerdrop", "remat"
 }
@@ -129,15 +129,36 @@ def vision_config_from_jax(vision):
     return cls(**dataclasses.asdict(vision))
 
 
+def parallel_config_from_jax(pb) -> port_config.BranchConfig:
+    """The port's parallel-branch config for JAX's
+    ``model_settings.parallel_branch``."""
+    ta = pb.transformer_args
+    return port_config.BranchConfig(
+        n_layers=ta.n_layers,
+        d_model=ta.d_model,
+        nhead=ta.nhead,
+        dim_feedforward=ta.dim_feedforward,
+        activation=ta.activation,
+        layer_norm_eps=ta.layer_norm_eps,
+        norm_first=ta.norm_first,
+        need_projection=pb.get("need_projection", True),
+        dropout=ta.get("dropout", 0.0),
+    )
+
+
 def port_config_from_jax(cfg) -> port_config.SpeechCLIPConfig:
-    """The port's config for a JAX ConfigNode: both branches' settings, the
-    CLIP towers, the image projection and the reduced vocabulary."""
+    """The port's config for a JAX ConfigNode: the branches' settings (JAX
+    reads a branch's section only when its objective weight, 0.0 when
+    missing, is > 0; a dead branch keeps the port's dataclass default),
+    the CLIP towers, the image projection and the
+    reduced vocabulary."""
     jm = JaxModel(cfg)
     ae, ms = cfg.audio_encoder, cfg.model_settings
-    ta = ms.parallel_branch.transformer_args
     select = ae.feat_select_idx
     proj = ms.get("parallel_branch_projection")
     text = dataclasses.asdict(jm.clip_cfg.text)
+    p_weight = ms.get("parallel_objective_weight", 0.0)
+    c_weight = ms.get("cascaded_objective_weight", 0.0)
     return port_config.SpeechCLIPConfig(
         audio=HubertConfig(**{
             k: v for k, v in dataclasses.asdict(jm.audio_cfg).items()
@@ -148,21 +169,13 @@ def port_config_from_jax(cfg) -> port_config.SpeechCLIPConfig:
         normalize_hiddenstates=bool(ae.get("normalize_hiddenstates", False)),
         normalize_type=ae.get("normalize_type"),
         wsum_remat=bool(ae.get("wsum_remat", False)),
-        parallel_objective_weight=ms.parallel_objective_weight,
-        cascaded_objective_weight=ms.cascaded_objective_weight,
-        parallel_branch=port_config.BranchConfig(
-            n_layers=ta.n_layers,
-            d_model=ta.d_model,
-            nhead=ta.nhead,
-            dim_feedforward=ta.dim_feedforward,
-            activation=ta.activation,
-            layer_norm_eps=ta.layer_norm_eps,
-            norm_first=ta.norm_first,
-            need_projection=ms.parallel_branch.get("need_projection", True),
-            dropout=ta.get("dropout", 0.0),
-        ),
+        parallel_objective_weight=p_weight,
+        cascaded_objective_weight=c_weight,
+        parallel_branch=(parallel_config_from_jax(ms.parallel_branch) if p_weight > 0
+                         else port_config.BranchConfig()),
         parallel_branch_projection=None if proj is None else tuple(proj.dimensions),
-        cascaded_branch=cascaded_config_from_jax(ms.cascaded_branch),
+        cascaded_branch=(cascaded_config_from_jax(ms.cascaded_branch) if c_weight > 0
+                         else port_config.CascadedBranchConfig()),
         cascaded_branch_projection=_dims(ms.get("cascaded_branch_projection")),
         clip_text=port_config.CLIPTextConfig(**text),
         clip_vision=vision_config_from_jax(jm.clip_cfg.vision),
@@ -240,24 +253,37 @@ def test_shipped_cascaded_vocabulary_is_the_flickr_table():
 
 
 def test_base_hubert_is_jax_hubert_base():
+    """Field for field, the training fields (JAX's defaults) included."""
     from speechclip_tpu_torch.models.hubert import HUBERT_BASE
 
     jax_fields = dataclasses.asdict(jax_hubert.HUBERT_BASE)
-    assert set(jax_fields) - PORT_HUBERT_FIELDS == TRAINING_ONLY_FIELDS
-    assert dataclasses.asdict(HUBERT_BASE) == {
-        k: v for k, v in jax_fields.items() if k in PORT_HUBERT_FIELDS
-    }
+    assert set(jax_fields) == PORT_HUBERT_FIELDS and TRAINING_ONLY_FIELDS <= PORT_HUBERT_FIELDS
+    assert dataclasses.asdict(HUBERT_BASE) == jax_fields
 
 
-@pytest.mark.parametrize(
-    "field, value",
-    [("audio_encoder_type", "s3prl_plus"), ("audio_trainable", True),
-     ("image_encoder_trainable", True), ("text_encoder_trainable", True)],
-)
+@pytest.mark.parametrize("field, value", [("audio_encoder_type", "s3prl_plus")])
 def test_out_of_slice_configs_raise(field, value):
     cfg = dataclasses.replace(port_config.tiny_config(), **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SpeechCLIPModel(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field", ["audio_trainable", "image_encoder_trainable",
+                                   "text_encoder_trainable"])
+def test_trainable_switches_build_and_train_their_tower(field):
+    """Each trainable switch builds (no raise) and marks its tower's leaves
+    trainable, and only those among the towers."""
+    cfg = dataclasses.replace(port_config.tiny_config(), **{field: True})
+    model = SpeechCLIPModel(cfg, device="cpu")
+    params, _ = model.init(0)
+    mask = model.trainable_mask(params)
+    leaves = lambda t: [v for v in jax.tree.leaves(t) if v is not None]
+    tower = {"audio_trainable": mask["audio_encoder"],
+             "image_encoder_trainable": mask["clip"]["visual"],
+             "text_encoder_trainable": mask["clip"]["text"]}
+    for name, sub in tower.items():
+        assert set(leaves(sub)) == {name == field}, name
+    assert mask["clip"]["logit_scale"] is False
 
 
 @pytest.mark.parametrize("field", ["reinit_layers", "unfreeze_layers"])

@@ -16,6 +16,8 @@ import yaml
 
 from speechclip_tpu.config import ConfigNode, load_config as jax_load_config
 from speechclip_tpu_torch.config import (
+    BranchConfig,
+    CascadedBranchConfig,
     ConfigTree,
     YamlSubsetError,
     load_config,
@@ -164,7 +166,7 @@ def test_large_configs_raise_by_name(path):
 def test_large_configs_equal_port_config_from_jax(path, remat):
     """Each large config, ``wsum_remat`` off and on, reads to the JAX
     model's dimensions: HuBERT-large, ViT-L/14 with 768-wide features, the
-    1024-wide branches, a trainable temperature, the s3prl normalization;
+    1024-wide live branch, a trainable temperature, the s3prl normalization;
     the model takes it (the recompute engaged where it is on)."""
     overrides = [f"audio_encoder.wsum_remat={remat}"]
     got = model_config_from_tree(load_config(path, overrides=overrides))
@@ -178,17 +180,14 @@ def test_large_configs_equal_port_config_from_jax(path, remat):
     assert got.clip_embed_dim == got.clip_text.output_dim == 768
     assert got.cl_loss.temperature_trainable
     assert got.normalize_hiddenstates and got.normalize_type is None  # "s3prl" by default
-    assert got.parallel_branch.d_model == got.cascaded_branch.d_model == 1024
+    live = got.parallel_branch if got.parallel_objective_weight > 0 else got.cascaded_branch
+    assert live.d_model == 1024
     model = SpeechCLIPModel(got, device="cpu")
     assert model.wsum_remat_engaged == (remat == "true")
     assert model.hidden_norm_type == "s3prl" and model.reduced_vocab is not None
 
 
-@pytest.mark.parametrize("override, item", [
-    ("clip.text_encoder_trainable=true", "Training, the rest"),
-    ("audio_encoder.trainable=true", "Training, the rest"),
-    ("clip.image_encoder_trainable=true", "Training, the rest"),
-    ("audio_encoder.type=s3prl_plus", "Variants")])
+@pytest.mark.parametrize("override, item", [("audio_encoder.type=s3prl_plus", "Variants")])
 def test_what_the_port_lacks_raises_naming_its_item(override, item):
     with pytest.raises(NotImplementedError, match=item):
         model_config_from_tree(load_config(BASE[1], overrides=[override]))
@@ -205,3 +204,102 @@ def test_config_tree_pickles_and_merges_like_config_node():
         t.merge_({"trainer": {"max_steps": 2, "new": [1]}, "x": 1})
         t.set_path("model_settings.cascaded_branch.keyword.number", 4)
     assert _same(tree.to_dict(), node.to_dict())
+
+
+TRAINABLE_OVERRIDES = {
+    "text": ["clip.text_encoder_trainable=true"],
+    "encoder": ["audio_encoder.trainable=true"],
+    "image": ["clip.image_encoder_trainable=true"],
+    "reinit": ["audio_encoder.trainable=true", "audio_encoder.reinit_layers=[10, 11]"],
+    "unfreeze": ["audio_encoder.trainable=true", "audio_encoder.unfreeze_layers=[10]"],
+    "remat": ["audio_encoder.trainable=true", "audio_encoder.remat=true"],
+}
+
+
+@pytest.mark.parametrize("which", sorted(TRAINABLE_OVERRIDES))
+@pytest.mark.parametrize("path", BASE, ids=lambda p: os.path.basename(p)[:-5])
+def test_trainable_switches_equal_port_config_from_jax(path, which):
+    """Each trainable switch reads to the JAX model's settings (the
+    encoder's ``remat`` into its HubertConfig) and the port's model takes
+    it; its trainable mask equals JAX's, leaf by leaf, on the JAX init."""
+    import jax
+
+    from speechclip_tpu.models.speechclip import SpeechCLIPModel as JaxModel
+
+    overrides = TRAINABLE_OVERRIDES[which]
+    node = jax_load_config(path, overrides=overrides)
+    got = model_config_from_tree(load_config(path, overrides=overrides))
+    assert dataclasses.asdict(got) == dataclasses.asdict(port_config_from_jax(node))
+    assert got.audio.remat == (which == "remat")
+    model = SpeechCLIPModel(got, device="cpu")
+    jm = JaxModel(node)
+    shapes = jax.eval_shape(jm.init, jax.random.key(0))[0]
+    want = jax.tree_util.tree_flatten_with_path(jm.trainable_mask(shapes))[0]
+    from speechclip_tpu_torch.convert.from_jax import speechclip_params_from_jax
+    import numpy as np
+
+    zeros = speechclip_params_from_jax(jax.tree.map(lambda a: np.zeros(a.shape, np.float32),
+                                                    shapes))
+    mine = jax.tree_util.tree_flatten_with_path(model.trainable_mask(zeros))[0]
+    assert [(jax.tree_util.keystr(k), bool(v)) for k, v in mine] == [
+        (jax.tree_util.keystr(k), bool(v)) for k, v in want]
+
+
+def _trimmed(tmp_path, path, drop, keep_weight=False, section=None):
+    """A copy of a shipped config on ``tmp_path`` without ``model_settings``'
+    ``{drop}_branch`` section (or with ``section`` in its place) and without
+    its objective weight (kept at 0.0 with ``keep_weight``)."""
+    tree = load_config(path).to_dict()
+    ms = tree["model_settings"]
+    del ms[f"{drop}_branch"]
+    if section is not None:
+        ms[f"{drop}_branch"] = section
+    if keep_weight:
+        ms[f"{drop}_objective_weight"] = 0.0
+    else:
+        del ms[f"{drop}_objective_weight"]
+    out = tmp_path / os.path.basename(path)
+    out.write_text(ConfigTree(tree).to_yaml())
+    return str(out)
+
+
+@pytest.mark.parametrize("config, drop, keep_weight, section", [
+    ("spchclp_p", "cascaded", False, None), ("spchclp_p", "cascaded", True, None),
+    ("spchclp_c", "parallel", False, None),
+    ("spchclp_p", "cascaded", True, {"transformer_type": "MultiheadAttentionAndNorm"}),
+    ("spchclp_c", "parallel", True, {"need_projection": False})],
+    ids=["p without cascaded", "p with cascaded weight 0", "c without parallel",
+         "p with a partial dead cascaded section", "c with a partial dead parallel section"])
+def test_a_config_without_the_dead_branch_reads_as_jax(tmp_path, config, drop, keep_weight,
+                                                       section):
+    """JAX defaults a missing objective weight to 0.0 and reads a branch's
+    section only when its weight is > 0: the trimmed configs, and those whose
+    dead section is partial, build in both packages, to the same config and
+    a model with the same live branches, vocabulary and special ids; the
+    dead branch keeps the port's dataclass default."""
+    from speechclip_tpu.models.speechclip import SpeechCLIPModel as JaxModel
+
+    path = _trimmed(tmp_path, next(c for c in BASE if os.path.basename(c).startswith(config)),
+                    drop, keep_weight, section)
+    node = jax_load_config(path)
+    got = model_config_from_tree(load_config(path))
+    assert dataclasses.asdict(got) == dataclasses.asdict(port_config_from_jax(node))
+    default = {"parallel": BranchConfig(), "cascaded": CascadedBranchConfig()}[drop]
+    assert getattr(got, f"{drop}_branch") == default
+    jm, model = JaxModel(node), SpeechCLIPModel(got, device="cpu")
+    assert (model.use_parallel, model.use_cascaded) == (jm.use_parallel, jm.use_cascaded)
+    assert (model.use_parallel, model.use_cascaded) == (drop == "cascaded", drop == "parallel")
+    assert (model.sot_id, model.eot_id) == (jm.sot_id, jm.eot_id)
+    assert (model.reduced_vocab is None) == (jm.reduced_vocab is None)
+
+
+@pytest.mark.parametrize("field, value", [
+    ("dropout", 0.0), ("attention_dropout", 0.0), ("activation_dropout", 0.1),
+    ("layerdrop", 0.05), ("remat", True)])
+def test_custom_training_fields_reach_the_hubert_config(field, value):
+    """``audio_encoder.custom``'s training fields reach the port's
+    HubertConfig as they reach JAX's (they were dropped once)."""
+    overrides = [f"audio_encoder.custom.{field}={str(value).lower()}"]
+    got = model_config_from_tree(load_config(BASE[1], overrides=overrides))
+    assert getattr(got.audio, field) == value
+    assert got == port_config_from_jax(jax_load_config(BASE[1], overrides=overrides))

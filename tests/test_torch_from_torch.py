@@ -271,11 +271,15 @@ def test_load_pretrained_loads_configured_files(tmp_path, caplog):
     params, _ = model.init(0)
     params = cast_params(params, model.compute_dtype, "cpu")
     loaded = model.load_pretrained(params)
+    # leaf by leaf, by path: the swapped towers keep the target's key order
+    by_path = lambda t: {jax.tree_util.keystr(k): v
+                         for k, v in jax.tree_util.tree_flatten_with_path(t)[0]}
     for key, tower in (("audio_encoder", ae), ("clip", clip)):
-        want = list(tree_leaves(cast_params(tower, torch.bfloat16, "cpu")))
-        got = list(tree_leaves(loaded[key]))
-        assert len(got) == len(want)
-        assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want)), key
+        want = by_path(cast_params(tower, torch.bfloat16, "cpu"))
+        got = by_path(loaded[key])
+        assert len(list(tree_leaves(loaded[key]))) == len(want) and set(got) == set(want), key
+        assert all(got[k].dtype == w.dtype and torch.equal(got[k], w)
+                   for k, w in want.items()), key
     assert loaded["parallel_branch"] is params["parallel_branch"]
 
     missing = dataclasses.replace(cfg, audio_pretrained_path=str(tmp_path / "none.pt"),
