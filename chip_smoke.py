@@ -152,7 +152,29 @@ line each (a failed check exits non-zero before the last line):
     fine-tune (``large_par``, ``unfreeze_layers`` [22, 23], ``remat`` on,
     dropout 0, the image cache, B = 128): 24 + 2 + 1 ``mha_layer_block``
     launches (the two layers again under ``remat``), 2 + 1 recomputes, ms
-    per step and peak GiB.
+    per step and peak GiB;
+23. serving (``speechclip_tpu_torch/serving.py``): the seeded
+    ``flagship_config()`` train state written as a slim run checkpoint
+    (``config.yaml`` beside it), served through
+    ``EncoderService.from_checkpoint`` at bench.py's b32 serving point
+    (buckets of 102400 and 272000 samples, a fixed batch of 32, bf16-cast
+    weights, int16 wav, 60 ms coalescing, ``warmup()`` first):
+    ``drive_requests`` of 256 requests at concurrency 64 over bench.py's 8
+    wavs of 3.2-6.4 s (one untimed half drive, then 3 timed: the best utt/s,
+    the range, p50 / p99 latency), then 32 requests of 12-17 s; each
+    drive's launches against the gates' count per batch (13
+    ``mha_layer_block`` + 13 ``ffn_block`` on the 6.4 s bucket, 13
+    ``attention_vmem`` on the 17 s one; the cascaded head's route at each
+    T from ``ops/attention.py``'s table) times the batches run, no plain
+    kernel version on a CUDA tensor; 8 served answers per bucket against
+    ``encode_speech(plain=True)`` on the batch they were padded into
+    (parallel feature per-row cosine 0.999, keyword ids 0.9, the cascaded
+    feature on the rows whose ids all agree); one batch's encoder call
+    timed alone and back to back; and the HTTP front on a thread
+    (``/encode_speech`` npy float32 and int16, ``/gallery/add`` JPEG where
+    PIL works, ``/retrieve?k=5``, ``/encode_text``, ``/gallery/save`` and
+    ``/gallery/load``, ``GET /healthz``, each held to the direct call; a
+    malformed payload answers 400).
 
 Rates (utt/s, images/s, sequences/s) come from CUDA events around as many
 back-to-back calls as fill about 1 s.
@@ -186,8 +208,8 @@ Before each path runs, every kernel's launch count is set to 0; it is read
 right after, so the counts in the summary are that path's own.
 
 The last lines are a JSON summary of the kernels (with their backward
-rows and recompute counts), of the timed train step and of the trainer
-and, last,
+rows and recompute counts), of the timed train step, of the trainer and of
+serving and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 
@@ -2666,12 +2688,7 @@ def _instrumented_trainer(rec):
     validation's collected features and recalls, and any call of a plain
     kernel version on a CUDA tensor (the kernels' wrappers never fall back;
     the train path keeps its recomputes at 0)."""
-    import torch
-
     import speechclip_tpu_torch.training.trainer as trainer_mod
-    from speechclip_tpu_torch.kernels import (attention_vmem, conv_frontend, flash_attention,
-                                              fused_layer)
-    from speechclip_tpu_torch.ops import attention as attention_mod
 
     counters = _counters()
     snap = lambda: {n: f.launches for n, f in counters.items()}
@@ -2719,6 +2736,28 @@ def _instrumented_trainer(rec):
         rec["validations"].append((collected, out))
         return out
 
+    patch(trainer_mod, "make_train_step", counted_train)
+    patch(trainer_mod, "make_eval_step", counted_eval)
+    patch(trainer_mod, "retrieval_metrics", recorded_metrics)
+    patch(trainer_mod.Trainer, "build_image_feature_cache", counted_cache)
+    try:
+        with _plain_guard(rec):
+            yield
+    finally:
+        for module, name, old in reversed(patches):
+            setattr(module, name, old)
+
+
+@contextlib.contextmanager
+def _plain_guard(rec):
+    """While open, record in ``rec["plain_on_cuda"]`` every call of a
+    kernel's plain version on a CUDA tensor (the wrappers never fall back)."""
+    import torch
+
+    from speechclip_tpu_torch.kernels import (attention_vmem, conv_frontend, flash_attention,
+                                              fused_layer)
+    from speechclip_tpu_torch.ops import attention as attention_mod
+
     def guard(name, fn):
         def plain(*args, **kwargs):
             if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
@@ -2726,16 +2765,14 @@ def _instrumented_trainer(rec):
             return fn(*args, **kwargs)
         return plain
 
-    patch(trainer_mod, "make_train_step", counted_train)
-    patch(trainer_mod, "make_eval_step", counted_eval)
-    patch(trainer_mod, "retrieval_metrics", recorded_metrics)
-    patch(trainer_mod.Trainer, "build_image_feature_cache", counted_cache)
+    patches = []
     for module, name in ((fused_layer, "mha_layer_block_plain"), (fused_layer, "ffn_block_plain"),
                          (attention_mod, "mha_layer_block_plain"),
                          (attention_vmem, "attention_vmem_plain"),
                          (flash_attention, "flash_attention_plain"),
                          (conv_frontend, "fused_conv_chain_plain")):
-        patch(module, name, guard(name, getattr(module, name)))
+        patches.append((module, name, getattr(module, name)))
+        setattr(module, name, guard(name, getattr(module, name)))
     try:
         yield
     finally:
@@ -3736,6 +3773,443 @@ def phase_trainable(smi, phase16_pallas):
 
 # kernel -> (source, the TPU kernel it replaces, the phase-2 row whose
 # times and bound it reports, the path whose launches it reports)
+SERVING_BUCKETS = (102400, 272000)  # 6.4 s (bench.py's serving bucket) and 17 s
+SERVING_BATCH = 32  # bench.py serving_throughput: a fixed device batch of 32,
+SERVING_WAIT_MS = 60.0  # 60 ms coalescing, bf16 weights, int16 wav on the wire
+SERVING_REQUESTS, SERVING_CONCURRENCY = 256, 64
+SERVING_DRIVES = 3  # timed drives, after one untimed drive of half the requests
+SERVING_LONG = (32, 12.0, 17.0)  # the 17 s drive: requests, their shortest and longest s
+SERVING_CHECKED = 8  # served answers per bucket held to the plain path
+# the JAX package's flagship_config() as a run's config tree (both branches,
+# full CLIP vocabulary, random towers), with bench.py's conv chunk for B = 32
+FLAGSHIP_TREE = {
+    "model_settings": {
+        "cascaded_objective_weight": 1.0, "parallel_objective_weight": 1.0,
+        "parallel_branch": {
+            "transformer_type": "TransformerEncoder",
+            "transformer_args": {"n_layers": 1, "d_model": 768, "nhead": 8,
+                                 "dim_feedforward": 3072, "dropout": 0.1, "activation": "gelu",
+                                 "layer_norm_eps": 1e-5, "batch_first": True,
+                                 "norm_first": False},
+            "need_projection": True},
+        "cascaded_branch": {
+            "type": "KW_CascadedBranch", "transformer_type": "MultiheadAttentionAndNorm",
+            "transformer_args": {"n_layers": 1, "d_model": 768, "nhead": 1,
+                                 "dim_feedforward": 3072, "dropout": 0.1},
+            "keyword": {"number": 8, "batchnorms": {"type": "eachKw", "std_scale": 1.0,
+                                                    "learnable": True, "parallel": True}},
+            "vq": {"type": "SimpleVectorQuantizer",
+                   "args": {"temp": "fixed=0.1", "time_first": True, "use_gumbel": False,
+                            "hard": True}}}},
+    "cl_loss": {"type": "MaskedContrastiveLoss",
+                "args": {"temperature": 0.07, "temperature_trainable": False}},
+    "retrieval": {"audio_feat_src": "parallel", "recall_at": [1, 5, 10]},
+    "clip": {"name": "ViT-B/32", "image_encoder_trainable": False,
+             "text_encoder_trainable": False},
+    "audio_encoder": {
+        "type": "FairseqHubert", "name": "hubert", "pretrained": False, "trainable": False,
+        "feat_select_idx": "weighted_sum", "layer_drop": 0.0, "max_audio_len": 102400,
+        "normalize_hiddenstates": False, "conv_batch_chunk": SERVING_BATCH,
+        "optim": {"name": "Adam", "args": {"lr": 1e-4, "weight_decay": 1e-6}},
+        "scheduler": {"name": "linear_warmup_decay", "warmup": 5000, "max_step": 50000,
+                      "final_lr": 1e-8}},
+    "trainer": {"precision": 16, "gradient_clip_val": 4, "checkpoint_frozen": False},
+}
+
+
+def _serving_checkpoint(root):
+    """The seeded flagship train state written as a slim run checkpoint
+    (``<root>/ckpts/last``, ``config.yaml`` beside it); -> its path."""
+    import os
+
+    import torch
+
+    from speechclip_tpu_torch import flagship_config
+    from speechclip_tpu_torch.config import ConfigTree, model_config_from_tree
+    from speechclip_tpu_torch.models.speechclip import SpeechCLIPModel
+    from speechclip_tpu_torch.training.checkpoint import CheckpointManager
+    from speechclip_tpu_torch.training.train_step import create_train_state
+
+    tree = ConfigTree(FLAGSHIP_TREE)
+    cfg = model_config_from_tree(tree)
+    flagship = flagship_config()
+    want = dataclasses.replace(flagship, audio=dataclasses.replace(
+        flagship.audio, conv_batch_chunk=SERVING_BATCH))
+    if cfg != want:
+        fail("phase 23: the serving config tree does not read as flagship_config()")
+    model = SpeechCLIPModel(cfg)
+    state = create_train_state(model, seed=0)
+    mgr = CheckpointManager(os.path.join(root, "ckpts"),
+                            slim_mask=model.trainable_mask(state.params))
+    mgr.save(state, 0, {}, tree)
+    del model, state
+    torch.cuda.empty_cache()
+    return os.path.join(root, "ckpts", "last")
+
+
+def _served_vs_plain(label, service, bucket, wavs, expect):
+    """Serve ``wavs`` (distinct lengths) as concurrent requests through the
+    bucket's batcher, recording each dispatched batch; then hold every
+    served answer to ``encode_speech(plain=True)`` of the batch it was
+    padded into, on the service's own (cast) params: the parallel feature's
+    cosine, the keyword ids (from each answer's VQ'd keywords), the
+    cascaded feature on the rows whose ids all agree; and the launches of
+    each batch against ``expect``."""
+    import threading
+
+    import torch
+
+    from speechclip_tpu_torch.models import branches
+
+    enc = bucket["exported"]
+    model = enc._model
+    params, state = enc._captures
+    table = params["clip"]["text"]["token_embedding"]
+    call, dispatched = enc.call, []
+
+    def record(*args, device=None):
+        before = {n: f.launches for n, f in _counters().items()}
+        out = call(*args, device=device)
+        torch.cuda.synchronize()
+        dispatched.append((args, {n: f.launches - before[n] for n, f in _counters().items()}))
+        return out
+
+    answers = [None] * len(wavs)
+
+    def client(i):
+        answers[i] = service.encode_speech(wavs[i])
+
+    enc.call = record
+    try:
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(wavs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        enc.call = call
+    if any(a is None for a in answers):
+        fail(f"phase 23 {label}: a request got no answer")
+    rows = {}
+    for d, ((wav_arr, wav_len), launches) in enumerate(dispatched):
+        if {n: k for n, k in launches.items() if k} != expect:
+            fail(f"phase 23 {label}: a batch launched {launches}, expected {expect}")
+        for r, n in enumerate(wav_len.tolist()):
+            rows.setdefault(n, (d, r))
+    plain = []
+    with torch.inference_mode():
+        for wav_arr, wav_len in (args for args, _ in dispatched):
+            out = model.encode_speech(params, state, torch.from_numpy(wav_arr).cuda(),
+                                      torch.from_numpy(wav_len).cuda(), plain=True)
+            plain.append({k: out[k].float() for k in ("parallel_audio_feat",
+                                                      "cascaded_audio_feat", "keywords")})
+    ids = lambda kw: branches.cosine_scores(kw, table).argmax(-1)
+    par, cas, agree, full_rows = [], [], 0, 0
+    for wav, ans in zip(wavs, answers):
+        d, r = rows[min(len(wav), bucket["wav_samples"])]
+        ref = {k: v[r] for k, v in plain[d].items()}
+        got = {k: torch.from_numpy(ans[k]).cuda() for k in ref}
+        cos = lambda k: float(torch.nn.functional.cosine_similarity(got[k], ref[k], dim=0))
+        par.append(cos("parallel_audio_feat"))
+        same = ids(got["keywords"][None]) == ids(ref["keywords"][None])
+        agree += int(same.sum())
+        if bool(same.all()):
+            full_rows += 1
+            cas.append(cos("cascaded_audio_feat"))
+    k = model.keyword_num
+    share = agree / (k * len(wavs))
+    check = {"batches": len(dispatched), "parallel_min_cosine": min(par),
+             "keyword_id_share": share, "rows_all_ids": full_rows,
+             "cascaded_min_cosine": min(cas) if cas else None}
+    say(f"phase 23 {label}: {len(wavs)} concurrent requests -> {len(dispatched)} batch(es) of "
+        f"{SERVING_BATCH} (launches per batch {expect}); served vs plain on the same padded "
+        f"rows and cast params: parallel min cosine {min(par):.6f} (tol {MIN_COSINE}), keyword "
+        f"ids agreeing {share:.4f} of {k * len(wavs)} (tol {MIN_KEYWORD_AGREEMENT}), cascaded "
+        f"min cosine {check['cascaded_min_cosine']} on the {full_rows} rows whose ids all "
+        f"agree (tol {MIN_COSINE})")
+    if min(par) < MIN_COSINE or share < MIN_KEYWORD_AGREEMENT or (cas and min(cas) < MIN_COSINE):
+        fail(f"phase 23 {label}: served answers disagree with the plain path")
+    return check
+
+
+def _http_checks(service, smi_root):
+    """Every endpoint of ``make_http_server`` on a thread, each answer held
+    to the direct call; a malformed payload must answer 400, and nothing
+    may answer 500."""
+    import http.client
+    import io
+    import os
+    import threading
+
+    import numpy as np
+
+    from speechclip_tpu_torch.serving import make_http_server
+
+    server = make_http_server(service, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    addr = server.server_address
+    statuses = {}
+
+    def post(path, body=b"", method="POST", expect=200):
+        conn = http.client.HTTPConnection(*addr, timeout=120)
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        out = json.loads(resp.read())
+        conn.close()
+        statuses.setdefault(f"{method} {path.split('?')[0]}", []).append(resp.status)
+        if resp.status != expect:
+            fail(f"phase 23 http: {method} {path} answered {resp.status} ({out}), "
+                 f"expected {expect}")
+        return out
+
+    def npy(arr):
+        buf = io.BytesIO()
+        np.save(buf, arr)
+        return buf.getvalue()
+
+    def cos(a, b):
+        a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
+        return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+    worst = 1.0
+    try:
+        rng = np.random.default_rng(23)
+        wav = (rng.standard_normal(80000) * 0.1).astype(np.float32)
+        pcm = (wav * 32767).astype(np.int16)
+        for payload in (wav, pcm):
+            got = post("/encode_speech", npy(payload))["features"]
+            want = service.encode_speech(payload)
+            for key in ("parallel_audio_feat", "cascaded_audio_feat"):
+                worst = min(worst, cos(got[key], want[key]))
+        images = [rng.integers(0, 256, (256, 320, 3), dtype=np.uint8) for _ in range(4)]
+        try:
+            from PIL import Image
+
+            def image_payload(img):
+                buf = io.BytesIO()
+                Image.fromarray(img).save(buf, format="JPEG", quality=95)
+                return buf.getvalue()
+            image_form = "JPEG"
+        except ImportError:
+            image_payload, image_form = npy, "npy uint8"
+        for i, img in enumerate(images):
+            payload = image_payload(img)
+            post(f"/gallery/add?id=img{i}", payload)
+            direct = service.encode_image(payload if image_form == "JPEG" else img)
+            worst = min(worst, cos(service._gallery_feats[-1], direct))
+        hits = post("/retrieve?k=5", npy(wav))["results"]
+        want_hits = service.retrieve(wav, k=5)
+        if [h["id"] for h in hits] != [h["id"] for h in want_hits] or len(hits) != 4:
+            fail(f"phase 23 http: /retrieve {hits} against the direct call's {want_hits}")
+        model = service._exported["encode_text"]._model
+        ids = [model.sot_id, 5, 6, 7, model.eot_id]
+        got = post("/encode_text", json.dumps({"token_ids": ids,
+                                               "eot_position": 4}).encode())["features"]
+        worst = min(worst, cos(got["text_feat"], service.encode_text(np.asarray(ids), 4)))
+        service.gallery_path = os.path.join(smi_root, "gallery.npz")
+        if post("/gallery/save")["saved"] != 4 or post("/gallery/load")["loaded"] != 4:
+            fail("phase 23 http: the gallery did not save and load its 4 rows")
+        if [h["id"] for h in post("/retrieve?k=5", npy(wav))["results"]] != [
+                h["id"] for h in want_hits]:
+            fail("phase 23 http: retrieval changed across a gallery save and load")
+        health = post("/healthz", method="GET")
+        if health["status"] != "ok" or health["gallery_size"] != 4:
+            fail(f"phase 23 http: /healthz {health}")
+        post("/encode_speech", b"not an npy", expect=400)
+    finally:
+        server.shutdown()
+        server.server_close()
+    if worst < MIN_COSINE:
+        fail(f"phase 23 http: an answer disagrees with the direct call (cosine {worst})")
+    return {"statuses": statuses, "image_form": image_form, "min_cosine_vs_direct": worst}
+
+
+@contextlib.contextmanager
+def _worker_split(service, bucket, rec):
+    """While open, record each of ``bucket``'s dispatches on the worker
+    thread: its start (host clock), rows, the whole dispatch's ms (packing
+    the int16 rows, padding, the encoder call) and the encoder call's host
+    ms (the H2D copy and the launches; the card runs on)."""
+    dispatch, enc = service._speech_dispatch, bucket["exported"]
+    call = enc.call
+
+    def timed_call(*args, device=None):
+        t0 = time.perf_counter()
+        out = call(*args, device=device)
+        rec["call_ms"].append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def timed_dispatch(wavs, b, device=None):
+        t0 = time.perf_counter()
+        out = dispatch(wavs, b, device)
+        if b is bucket:
+            rec["start"].append(t0)
+            rec["rows"].append(len(wavs))
+            rec["dispatch_ms"].append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    service._speech_dispatch, enc.call = timed_dispatch, timed_call
+    try:
+        yield
+    finally:
+        del service._speech_dispatch
+        enc.call = call
+
+
+def _split_summary(rec):
+    """Medians of a batch's worker cycle (one dispatch's start to the next,
+    within a drive), its dispatch, packing and encoder call, and rows."""
+    import numpy as np
+
+    cycles = [b - a for a, b in zip(rec["start"], rec["start"][1:]) if b - a < 1.0]
+    med = lambda xs: float(np.median(xs)) if xs else None
+    return {"cycle_ms": med([1e3 * c for c in cycles]), "dispatch_ms": med(rec["dispatch_ms"]),
+            "pack_ms": med([d - c for d, c in zip(rec["dispatch_ms"], rec["call_ms"])]),
+            "call_host_ms": med(rec["call_ms"]), "rows": med(rec["rows"]),
+            "batches": len(rec["rows"])}
+
+
+def phase_serving(smi):
+    """Phase 23: serve the seeded flagship checkpoint at bench.py's b32
+    serving point through ``EncoderService.from_checkpoint``: utt/s and
+    latency on the 6.4 s bucket, a 17 s drive, the served answers against
+    the plain path, launches per batch, no plain version on the card, the
+    HTTP front."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from speechclip_tpu_torch.models.hubert import conv_output_length
+    from speechclip_tpu_torch.ops.attention import attention_route
+    from speechclip_tpu_torch.serving import EncoderService, drive_requests
+
+    t_phase = time.perf_counter()
+    rec = {"plain_on_cuda": []}
+    with tempfile.TemporaryDirectory() as root:
+        ckpt = _serving_checkpoint(root)
+        t0 = time.perf_counter()
+        service = EncoderService.from_checkpoint(
+            ckpt, wav_buckets=SERVING_BUCKETS, batch=SERVING_BATCH, dtype="bf16",
+            compact_wav=True, fixed_batch=True, max_wait_ms=SERVING_WAIT_MS)
+        restore_s = time.perf_counter() - t0
+        try:
+            t0 = time.perf_counter()
+            service.warmup()
+            torch.cuda.synchronize()
+            warmup_s = time.perf_counter() - t0
+            model = service._speech_buckets[0]["exported"]._model
+            short, long = service._speech_buckets
+            expect = {b["wav_samples"]: _expected_launches(model, SERVING_BATCH,
+                                                           b["wav_samples"], False)
+                      for b in (short, long)}
+            heads = {}  # the cascaded head's attention route from the route table
+            for b in (short, long):
+                t = conv_output_length(model.audio_cfg, b["wav_samples"])
+                cb = model.config.cascaded_branch
+                heads[t] = attention_route(SERVING_BATCH, cb.keyword_number + t,
+                                           cb.keyword_number + t, cb.d_model, cb.nhead, 2)
+            rng = np.random.default_rng(0)  # bench.py's pool: 8 wavs of 3.2-6.4 s
+            pool = [rng.standard_normal(n).astype(np.float32)
+                    for n in np.linspace(WAV_SAMPLES // 2, WAV_SAMPLES, 8).astype(int)]
+            n_long, lo, hi = SERVING_LONG
+            long_wavs = [rng.standard_normal(n).astype(np.float32) * 0.1
+                         for n in np.linspace(lo * TRAINER_SR, hi * TRAINER_SR, n_long).astype(int)]
+            counters = _counters()
+            with _plain_guard(rec):
+                drive_requests(service, pool, SERVING_REQUESTS // 2, SERVING_CONCURRENCY)
+                batches0 = short["batcher"].batches_run
+                _reset(counters)
+                rates, latencies = [], []
+                split = {"start": [], "rows": [], "dispatch_ms": [], "call_ms": []}
+                with _worker_split(service, short, split):
+                    for _ in range(SERVING_DRIVES):
+                        elapsed, lat = drive_requests(service, pool, SERVING_REQUESTS,
+                                                      SERVING_CONCURRENCY)
+                        rates.append(SERVING_REQUESTS / elapsed)
+                        latencies += lat
+                torch.cuda.synchronize()
+                split = _split_summary(split)
+                short_launches = {n: f.launches for n, f in counters.items()}
+                short_batches = short["batcher"].batches_run - batches0
+                batches0 = long["batcher"].batches_run
+                _reset(counters)
+                elapsed, long_lat = drive_requests(service, long_wavs, n_long, n_long)
+                torch.cuda.synchronize()
+                long_launches = {n: f.launches for n, f in counters.items()}
+                long_batches = long["batcher"].batches_run - batches0
+                http = _http_checks(service, root)
+            for launches, batches, bucket in ((short_launches, short_batches, short),
+                                              (long_launches, long_batches, long)):
+                want = {n: k * batches for n, k in expect[bucket["wav_samples"]].items()}
+                _expect_launches(f"phase 23 {bucket['wav_samples']}-sample bucket", launches,
+                                 **want)
+            if rec["plain_on_cuda"]:
+                fail(f"phase 23: plain kernel versions ran on CUDA tensors: "
+                     f"{sorted(set(rec['plain_on_cuda']))}")
+            checks = {
+                "6.4s": _served_vs_plain("6.4 s bucket", service, short, pool,
+                                         expect[short["wav_samples"]]),
+                "17s": _served_vs_plain("17 s bucket", service, long, long_wavs[-SERVING_CHECKED:],
+                                        expect[long["wav_samples"]]),
+            }
+            # one full batch of the pool through the bucket's encoder call
+            # (H2D of the int16 rows + the forward), as the worker makes it:
+            # alone (host launch path included) and 4 back to back (the card)
+            wav_arr = np.zeros((SERVING_BATCH, WAV_SAMPLES), np.int16)
+            wav_len = np.empty((SERVING_BATCH,), np.int32)
+            for i in range(SERVING_BATCH):
+                w = pool[i % len(pool)]
+                wav_arr[i, : len(w)] = np.clip(np.round(w * 32768.0), -32768, 32767)
+                wav_len[i] = len(w)
+            with torch.inference_mode():
+                batch_ms = {calls: cuda_time_ms(lambda: short["exported"].call(wav_arr, wav_len),
+                                                reps=5, warmup=1, calls=calls)
+                            for calls in (1, 4)}
+        finally:
+            service.close()
+    served_ms = 1e3 * SERVING_REQUESTS / max(rates) / (short_batches / SERVING_DRIVES)
+    lat_ms = np.asarray(latencies) * 1e3
+    out = {
+        "config": "flagship_config() (both branches), seeded random weights, slim run checkpoint",
+        "buckets": list(SERVING_BUCKETS), "batch": SERVING_BATCH, "fixed_batch": True,
+        "dtype": "bf16", "compact_wav": True, "max_wait_ms": SERVING_WAIT_MS,
+        "requests": SERVING_REQUESTS, "concurrency": SERVING_CONCURRENCY,
+        "utt_per_s": max(rates), "utt_per_s_range": [min(rates), max(rates)],
+        "p50_ms": float(np.percentile(lat_ms, 50)), "p99_ms": float(np.percentile(lat_ms, 99)),
+        "batches": short_batches, "launches": short_launches,
+        "long_utt_per_s": n_long / elapsed, "long_batches": long_batches,
+        "long_launches": long_launches,
+        "long_p50_ms": float(np.percentile(np.asarray(long_lat) * 1e3, 50)),
+        "cascaded_head_route": {str(t): r for t, r in heads.items()},
+        "worker": split, "batch_ms_served": served_ms, "batch_ms_alone": batch_ms[1],
+        "batch_ms_back_to_back": batch_ms[4],
+        "restore_s": restore_s, "warmup_s": warmup_s, "checks": checks, "http": http,
+        "card": smi,
+    }
+    say(f"phase 23 serving (flagship_config(), slim checkpoint via EncoderService.from_checkpoint, "
+        f"buckets {SERVING_BUCKETS}, fixed batch {SERVING_BATCH}, bf16 weights, int16 wav, "
+        f"{SERVING_WAIT_MS:g} ms coalescing) on {smi}: {SERVING_REQUESTS} requests at "
+        f"concurrency {SERVING_CONCURRENCY} over 8 wavs of 3.2-6.4 s: best "
+        f"{out['utt_per_s']:.2f} utt/s of {SERVING_DRIVES} drives [{min(rates):.2f}, "
+        f"{max(rates):.2f}] after an untimed half drive, latency p50 {out['p50_ms']:.1f} ms "
+        f"p99 {out['p99_ms']:.1f} ms, {short_batches} batches, launches {short_launches}; "
+        f"17 s: {n_long} requests of {lo:g}-{hi:g} s -> {long_batches} batch(es), "
+        f"{out['long_utt_per_s']:.2f} utt/s, launches {long_launches}; a 6.4 s batch: "
+        f"{served_ms:.3f} ms of served wall at the best drive, its encoder call {batch_ms[1]:.3f} "
+        f"ms alone and {batch_ms[4]:.3f} ms back to back (CUDA events); the worker's median "
+        f"batch (host clock, {split['batches']} batches of median {split['rows']:g} rows): a "
+        f"cycle of {split['cycle_ms']:.3f} ms, its dispatch {split['dispatch_ms']:.3f} (packing "
+        f"{split['pack_ms']:.3f}, the encoder call's host side {split['call_host_ms']:.3f}); "
+        f"the cascaded head (K + T "
+        f"rows, one head) routes at T = {', '.join(f'{t}: {r}' for t, r in heads.items())} "
+        f"(sdpa: sdpa_plain, no kernel); restore "
+        f"{restore_s:.1f} s, warmup {warmup_s:.1f} s; http {http['statuses']} "
+        f"({http['image_form']} images); no plain kernel on a CUDA tensor; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out, {"serving 6.4s": short_launches, "serving 17s": long_launches}
+
+
 REPLACES = {
     "mha_layer_block": ("speechclip_tpu_torch/csrc/gemm_epilogue.cu + "
                         "speechclip_tpu_torch/csrc/attention_vmem.cu",
@@ -3867,6 +4341,10 @@ def main(argv) -> int:
             (f"trainable {k}", v) for k, v in trainable["towers"].items()]:
         launches[label], recomputes[label] = run["launches"], run["recomputes"]
 
+    torch.cuda.empty_cache()
+    serving, serving_launches = phase_serving(smi)
+    launches.update(serving_launches)
+
     kernels = []
     for name, (source, replaces, row, path) in REPLACES.items():
         label, timed = next((label, r) for label, r in kern[name].items() if label.startswith(row))
@@ -3897,7 +4375,7 @@ def main(argv) -> int:
     print(json.dumps({"kernels": kernels, "train": train, "trainer": trainer,
                       "large": {"encode_utt_per_s": large_rates, "train": large_train,
                                 "trainer": large_trainer},
-                      "trainable": trainable}))
+                      "trainable": trainable, "serving": serving}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -892,6 +892,7 @@ def load_config(path: Optional[str] = None, overrides: Iterable[str] = (),
 
 VARIANTS_ITEM = "the ROADMAP item 'Variants' (Queue 1 item 8)"
 DDP_ITEM = "the ROADMAP item 'DDP' (Queue 1 item 7)"
+EXPORT_ITEM = "the ROADMAP item 'export' (Queue 1 item 6)"
 
 
 def _dims(node) -> Optional[Tuple[int, ...]]:
@@ -1002,7 +1003,9 @@ def model_config_from_tree(tree: ConfigTree) -> SpeechCLIPConfig:
     ae, ms, clip = tree.audio_encoder, tree.model_settings, tree.clip
     clip_cfg = _clip_config(clip)
     select = ae.feat_select_idx
-    opt, sched = ae.optim, ae.scheduler
+    # an inference config (a reference checkpoint's) may carry no optimizer
+    # or scheduler: the model does not read them, and the defaults stand in
+    opt, sched = ae.get("optim"), ae.get("scheduler") or {}
     p_weight = ms.get("parallel_objective_weight", 0.0)
     c_weight = ms.get("cascaded_objective_weight", 0.0)
     return SpeechCLIPConfig(
@@ -1035,7 +1038,7 @@ def model_config_from_tree(tree: ConfigTree) -> SpeechCLIPConfig:
         image_encoder_trainable=bool(clip.get("image_encoder_trainable", False)),
         text_encoder_trainable=bool(clip.get("text_encoder_trainable", False)),
         cl_loss=_loss_config(tree.cl_loss),
-        optim=OptimizerConfig(
+        optim=OptimizerConfig() if opt is None else OptimizerConfig(
             name=opt.name, lr=float(opt.args.lr),
             weight_decay=float(opt.args.get("weight_decay", 0.0)),
             betas=tuple(opt.args.get("betas", [0.9, 0.999])),

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import List, Optional, Tuple
 
@@ -26,6 +27,7 @@ BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 GENCODE = "arch=compute_90a,code=sm_90a"
 
 _LIB: Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()  # threads of one process (a server's batchers) load it once
 _BUILD_LOG = ""
 
 
@@ -155,9 +157,11 @@ def load() -> ctypes.CDLL:
     """The loaded kernel library, building it first if needed."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        _declare(lib)
-        _LIB = lib
+        with _LIB_LOCK:
+            if _LIB is None:
+                lib = ctypes.CDLL(str(build()))
+                _declare(lib)
+                _LIB = lib
     return _LIB
 
 

@@ -120,11 +120,24 @@ def cast_params(params, dtype: torch.dtype, device="cuda"):
 
 
 def resolve_asset_path(path: str) -> str:
-    """A config's asset path as given, else relative to the repository root
-    (the shipped vocabulary tables live under ``assets/``)."""
-    if os.path.exists(path) or os.path.isabs(path):
+    """A config's asset path as given where it exists, else relative to the
+    repository root (the shipped vocabulary tables live under ``assets/``),
+    else, for a reference-layout table (``.../{flickr,coco}_stat/<name>.npy``,
+    the path a released checkpoint's pickled config carries), the vendored
+    copy ``assets/<corpus>_stat/<name>.npy``; a path none of these finds
+    comes back as given."""
+    import re
+
+    if os.path.exists(path):
         return path
-    return str(REPO_ROOT / path)
+    if not os.path.isabs(path) and (REPO_ROOT / path).exists():
+        return str(REPO_ROOT / path)
+    m = re.search(r"(flickr|coco)_stat/([\w.]+\.npy)$", path)
+    if m:
+        vendored = REPO_ROOT / "assets" / f"{m.group(1)}_stat" / m.group(2)
+        if vendored.exists():
+            return str(vendored)
+    return path
 
 
 def _warn_wsum_remat_blockers(config: SpeechCLIPConfig) -> None:

@@ -5,8 +5,12 @@ for ``--resume``, with the CLI's settings applied again), then
 ``Trainer.fit`` (``--train``) or ``Trainer.validate`` on the dev split
 (``--eval``) or the test split (``--test``) from ``--ckpt`` / ``--resume``.
 
-Checkpoints are the port's own run directories. A reference Lightning
-``.ckpt`` raises: its converter waits for ``convert/reference_ckpt.py``.
+Checkpoints are the port's own run directories or a reference Lightning
+``.ckpt`` (``--ckpt`` / ``--resume``), converted by
+``convert/reference_ckpt.py``: its pickled config, with an explicit
+``--config`` merged over it, builds the run; ``--train`` warm-starts from
+its weights (a fresh optimizer: Lightning's optimizer state is not
+carried), ``--eval`` / ``--test`` validate them.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from ..config import DDP_ITEM, load_config, parse_override_value
+from ..convert.reference_ckpt import load_reference_checkpoint
 from ..training.checkpoint import load_config_from_checkpoint
 from ..training.logging import set_logging
 from ..training.trainer import TOKENIZER_ITEM, Trainer
@@ -40,15 +45,17 @@ class TrainKWClip_GeneralTransformer(BaseTask):
         if args.devices is not None and args.devices > 1:
             raise NotImplementedError(f"--devices {args.devices}: {DDP_ITEM}")
         ckpt_arg = args.resume or args.ckpt
-        if ckpt_arg and ckpt_arg.endswith(".ckpt"):
-            raise NotImplementedError(
-                f"{ckpt_arg}: a reference Lightning checkpoint needs convert/reference_ckpt.py, "
-                "which waits for the ROADMAP item 'Surfaces' (Queue 1 item 4)")
         set_logging(args.log_level)
         _seed_everything(args.seed)
         device = "cpu" if args.platform == "cpu" else "cuda"
 
-        if args.resume:
+        reference_state = None
+        if ckpt_arg and ckpt_arg.endswith(".ckpt"):
+            params, model_state, config = load_reference_checkpoint(ckpt_arg)
+            reference_state = (params, model_state)
+            if args.config:  # an explicit YAML wins over the pickled config
+                config.merge_(load_config(args.config, overrides=args.override))
+        elif args.resume:
             config = load_config_from_checkpoint(args.resume)
         else:
             if not args.config:
@@ -69,11 +76,17 @@ class TrainKWClip_GeneralTransformer(BaseTask):
         self.config = config
 
         if args.train:
+            if reference_state is not None:
+                params, model_state = reference_state
+                return trainer.fit(initial_params=params, initial_model_state=model_state)
             return trainer.fit(resume=args.resume)
         if args.eval or args.test:
-            state = trainer.create_state()
-            if ckpt_arg:
-                state = trainer.restore(ckpt_arg, state)
+            if reference_state is not None:
+                state = trainer.create_state(*reference_state)
+            else:
+                state = trainer.create_state()
+                if ckpt_arg:
+                    state = trainer.restore(ckpt_arg, state)
             # --test evaluates the test split, --eval the dev/val split
             split = "test" if args.test else "dev"
             metrics = trainer.validate(state, split=split)

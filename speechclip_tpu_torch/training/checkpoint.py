@@ -215,6 +215,10 @@ class CheckpointManager:
             target, model_state=_move(payload["model_state"], device), step=payload["step"],
             generator=generator, acc_grads=None if acc is None else _move(acc, device))
 
+    def restore_last(self, target, optimizer=None, scheduler=None):
+        """``restore`` of the run's ``last`` checkpoint."""
+        return self.restore(os.path.join(self.root_dir, "last"), target, optimizer, scheduler)
+
     def best_path(self, monitor: str) -> Optional[str]:
         entries = self._index.get(monitor, [])
         if not entries:
@@ -234,6 +238,27 @@ def load_config_from_checkpoint(ckpt_dir: str) -> ConfigTree:
         if os.path.exists(cand):
             return load_config(cand)
     raise FileNotFoundError(f"no config.yaml found near {ckpt_dir}")
+
+
+def load_any_checkpoint(ckpt_path: str, device="cuda"):
+    """(model, params, model_state) from a reference Lightning ``.ckpt``
+    (converted by ``convert/reference_ckpt.py``, the params placed as a
+    train state places them) or from a run checkpoint of the port
+    (``restore_inference_state`` with the ``config.yaml`` beside it): the
+    restore path of the serving runtime. The JAX package's switch of PRNG
+    implementation (``trainer.fast_rng``) has no counterpart: the port has
+    one generator implementation, so there is nothing to configure first."""
+    if str(ckpt_path).endswith(".ckpt"):
+        from ..config import model_config_from_tree
+        from ..convert.reference_ckpt import load_reference_checkpoint
+        from ..models.speechclip import SpeechCLIPModel
+        from .train_step import create_train_state
+
+        params, model_state, config = load_reference_checkpoint(ckpt_path)
+        model = SpeechCLIPModel(model_config_from_tree(config), device=device)
+        state = create_train_state(model, params=params, model_state=model_state)
+        return model, state.params, state.model_state
+    return restore_inference_state(load_config_from_checkpoint(ckpt_path), ckpt_path, device)
 
 
 def restore_inference_state(config: ConfigTree, ckpt_path: str, device="cuda"):

@@ -51,7 +51,7 @@ from .train_step import (
 )
 
 logger = logging.getLogger(__name__)
-TOKENIZER_ITEM = "the ROADMAP item 'Surfaces' (models/tokenizer.py)"
+TOKENIZER_ITEM = "the ROADMAP item 'The tokenizer and its users' (Queue 1 item 3)"
 
 
 def _inject_cached_image_feats(batch: Dict[str, np.ndarray], cache: np.ndarray,

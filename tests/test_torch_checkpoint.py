@@ -24,6 +24,7 @@ from speechclip_tpu_torch.training import checkpoint as ckpt_mod
 from speechclip_tpu_torch.training.checkpoint import (
     STATE_FILE,
     CheckpointManager,
+    load_any_checkpoint,
     load_config_from_checkpoint,
     restore_inference_state,
 )
@@ -140,6 +141,26 @@ def test_save_restore_round_trip_is_bitwise(tmp_path, accum):
     restored, rm = f_step(restored, _batch(3))
     assert float(m["train_loss"]) == float(rm["train_loss"])
     _assert_same(restored.params, state.params)
+
+
+def test_restore_last_is_the_restore_of_last(tmp_path):
+    """``restore_last`` (the JAX manager's) restores ``<root>/last``: after
+    steps 1 and 2 saved, the state of step 2, optimizer and scheduler with
+    it, as ``restore`` of that directory gives it."""
+    model, state, optimizer, scheduler, step = _tiny_state()
+    mgr = CheckpointManager(str(tmp_path), save_at_steps=[1])
+    for i in (1, 2):
+        state, _ = step(state, _batch(i))
+        mgr.save(state, i, {"val_loss": float(i)}, ConfigTree({"a": 1}), optimizer, scheduler)
+    _, fresh, f_opt, f_sched, _ = _tiny_state(seed=9)
+    restored = CheckpointManager(str(tmp_path)).restore_last(fresh, f_opt, f_sched)
+    assert restored.step == 2
+    _assert_same(restored.params, state.params)
+    _assert_same_optimizer(f_opt, optimizer)
+    assert f_sched.state_dict() == scheduler.state_dict()
+    _, other, _, _, _ = _tiny_state(seed=9)
+    _assert_same(CheckpointManager(str(tmp_path)).restore(str(tmp_path / "last"), other).params,
+                 restored.params)
 
 
 def _mask_pairs(mask, saved):
@@ -259,5 +280,10 @@ def test_config_and_inference_state_come_back_from_the_run_dir(tmp_path):
     assert load_config_from_checkpoint(str(tmp_path / "ckpts" / "last")) == tree
     _, params, model_state = restore_inference_state(tree, str(path), device="cpu")
     _assert_same(params, state.params)
+    # load_any_checkpoint takes a run checkpoint with the config.yaml near it
+    any_model, any_params, any_state = load_any_checkpoint(str(path), device="cpu")
+    assert any_model.config == model.config
+    _assert_same(any_params, params)
+    _assert_same(any_state, model_state)
     with pytest.raises(FileNotFoundError, match="config.yaml"):
         load_config_from_checkpoint(str(tmp_path / "nowhere" / "a" / "b"))

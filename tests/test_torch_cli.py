@@ -2,7 +2,8 @@
 on ``tests/test_cli.py``'s synthetic corpus and config, in subprocesses that
 never import jax: ``--train --platform cpu``, then ``--test --ckpt`` on the
 test split and ``--eval --resume`` on the dev split; the task-first usage
-error; a reference ``.ckpt`` raises naming its converter."""
+error; a reference Lightning ``.ckpt`` evaluated and warm-started from, against
+the JAX package's CLI in this process."""
 
 import json
 import os
@@ -73,10 +74,93 @@ def test_flags_before_the_task_is_a_usage_error():
     assert "AttributeError" not in result.stderr
 
 
-@pytest.mark.parametrize("flag", ["--ckpt", "--resume"])
-def test_a_reference_lightning_checkpoint_raises(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="convert/reference_ckpt.py"):
-        run_task.main([TASK, "--test", flag, str(tmp_path / "model.ckpt"), "--platform", "cpu"])
+# dropout 0 on both sides, so the two fits draw no masks (the limits of
+# tests/torch_trainer_common.py)
+COMPARABLE = ["data.dataset.image_size=32",
+              "model_settings.parallel_branch.transformer_args.dropout=0.0",
+              "model_settings.cascaded_branch.transformer_args.dropout=0.0"]
+
+
+@pytest.fixture(scope="module")
+def reference_ckpt(cli_setup):  # noqa: F811
+    """A synthetic reference Lightning ``.ckpt`` (tests/test_reference_ckpt.py's
+    state-dict names) whose pickled config is the CLI corpus's config."""
+    import torch
+    import yaml
+
+    from speechclip_tpu.config import ConfigNode
+    from tests.test_reference_ckpt import build_reference_ckpt
+
+    cfg_path, exp = cli_setup
+    ckpt, _ = build_reference_ckpt(ConfigNode(yaml.safe_load(cfg_path.read_text())))
+    path = exp / "epoch=3-step=120.ckpt"
+    torch.save(ckpt, str(path))
+    return str(path)
+
+
+def run_jax_cli(*args):
+    """The JAX package's task in this process (its CLI's runner): returns
+    what ``run`` returns."""
+    import argparse
+
+    from speechclip_tpu.tasks.train_kwclip import TrainKWClip_GeneralTransformer as JaxTask
+
+    runner = JaxTask()
+    parser = argparse.ArgumentParser()
+    parser.add_argument("task")
+    runner.add_args(parser)
+    runner.args = parser.parse_args([TASK, *args])
+    return runner.run()
+
+
+def test_test_split_of_a_reference_checkpoint_matches_jax(cli_setup, reference_ckpt):  # noqa: F811
+    """``--test --ckpt <file>.ckpt``: the pickled config builds the run and
+    the converted weights are validated on the test split; val_loss within
+    1e-5 relative of JAX's CLI, the recalls equal."""
+    import numpy as np
+
+    _, exp = cli_setup
+    got = run_task.main([TASK, "--test", "--ckpt", reference_ckpt, "--platform", "cpu",
+                         "--save_path", str(exp / "port_ref_test"), "--devices", "1",
+                         "--override", *COMPARABLE]).result
+    want = run_jax_cli("--test", "--ckpt", reference_ckpt, "--devices", "1",
+                       "--save_path", str(exp / "jax_ref_test"), "--override", *COMPARABLE)
+    recalls = {k: v for k, v in want.items() if "recall" in k}
+    assert len(recalls) == 11 and {k: got[k] for k in recalls} == recalls
+    np.testing.assert_allclose(got["val_loss"], want["val_loss"], rtol=1e-5)
+
+
+def test_train_warm_starts_from_a_reference_checkpoint_as_jax(cli_setup, reference_ckpt):  # noqa: F811
+    """``--train --ckpt <file>.ckpt --config <yaml>``: the YAML merged over
+    the pickled config, two steps from the converted weights with a fresh
+    optimizer; each step's losses and both validations' val_loss within
+    1e-5 relative of JAX's CLI, the lr and recalls equal, ``grad_norm``
+    within 1e-4 relative (the synthetic checkpoint's weights are unit
+    normals, not an init's scale, so the gradients' rounding is larger than
+    in tests/torch_trainer_common.py's fits: 1.0e-5 here)."""
+    import numpy as np
+
+    from tests.torch_trainer_common import read_metrics
+
+    cfg_path, exp = cli_setup
+    common = ["--train", "--ckpt", reference_ckpt, "--config", str(cfg_path), "--devices", "1",
+              "--override", "trainer.max_steps=2", *COMPARABLE]
+    state = run_task.main([TASK, *common, "--platform", "cpu",
+                           "--save_path", str(exp / "port_ref_train")]).result
+    run_jax_cli(*common, "--save_path", str(exp / "jax_ref_train"))
+    assert state.step == 2
+    got, want = read_metrics(exp / "port_ref_train"), read_metrics(exp / "jax_ref_train")
+    assert [r["step"] for r in got["train"]] == [r["step"] for r in want["train"]] == [1, 2]
+    for g, w in zip(got["train"], want["train"]):
+        for key in ("train_loss", "train_p_cl_loss", "train_c_cl_loss"):
+            np.testing.assert_allclose(g[key], w[key], rtol=1e-5, err_msg=(g["step"], key))
+        np.testing.assert_allclose(g["grad_norm"], w["grad_norm"], rtol=1e-4)
+        assert g["lr"] == w["lr"]
+    assert len(got["val"]) == len(want["val"]) == 2
+    for g, w in zip(got["val"], want["val"]):
+        np.testing.assert_allclose(g["val_loss"], w["val_loss"], rtol=1e-5)
+        recalls = {k: v for k, v in w.items() if "recall" in k}
+        assert len(recalls) == 11 and {k: g[k] for k in recalls} == recalls
 
 
 def test_more_than_one_card_raises():
