@@ -105,7 +105,12 @@ line each (a failed check exits non-zero before the last line):
     ``make_train_step`` bitwise, step 3's checkpoint restored bitwise, a
     resumed fit to step 6; the trainer's ms/step from its
     ``steps_per_sec``, the loop's host share, the cache, validation and
-    save times;
+    save times; the cascaded run with the CLIP tokenizer (over a synthetic
+    merges file with CLIP's 49 408-id layout, ``SPEECHCLIP_BPE_PATH``:
+    CLIP's own file is not in the repository), ``tokenizeText`` and the
+    keyword diagnostics at each validation: ``detokenizeText/`` files,
+    ``kw_hit_rate/kw_0..7`` in the validation lines, the hit rates equal to
+    a float64 recompute, their host seconds;
 19. the large models' encode + retrieve (``bench_variant_config("large_par")``:
     HuBERT-large's 24 pre-norm layers of 16 heads, the s3prl per-state
     LayerNorm, the 1024-wide parallel branch, 768-wide features; seeded
@@ -174,7 +179,25 @@ line each (a failed check exits non-zero before the last line):
     (``/encode_speech`` npy float32 and int16, ``/gallery/add`` JPEG where
     PIL works, ``/retrieve?k=5``, ``/encode_text``, ``/gallery/save`` and
     ``/gallery/load``, ``GET /healthz``, each held to the direct call; a
-    malformed payload answers 400).
+    malformed payload answers 400);
+24. the text side: the CLIP tokenizer over the synthetic merges file
+    (256 seeded captions tokenized on the host, ms), ``ClipWrapper`` over
+    ViT-B/32 from a seeded init: ``prep_text`` -> ``encode_text`` under
+    "pallas" (12 f32 ``flash_attention``) against the plain path at phase
+    12's f32 limits, with the full table and with the reduced Flickr one
+    (8112 rows, SOT and EOT remapped); ``get_scores`` against
+    ``encode_image`` and ``encode_text`` in float64; ``deTokenize`` of each
+    row to its EOT equal to its caption; sequences/s;
+25. the s3prl upstreams (``audio_encoder.type: s3prl_plus``): APC at its own
+    widths (80 mels, 3 GRU layers of 512) under the parallel branch at
+    d_model 512 (CLS prepended at the upstream's width, no input
+    projection), encode + retrieve at B = 256 x 6.4 s against the plain path
+    (phase 3's cosine limit), the branch layer's launches against the gates
+    (``mha_layer_block`` and ``ffn_block`` once a forward), utt/s, the
+    log-mel, GRU-stack and branch times and cuDNN's GRU beside the step
+    loop (timed only); one train step at B = 64 (finite loss, the frozen
+    upstream unchanged, the branch and weighted sum moved); and
+    ``modified_cpc`` with ``feat_select_idx`` [1]: one forward at B = 64.
 
 Rates (utt/s, images/s, sequences/s) come from CUDA events around as many
 back-to-back calls as fill about 1 s.
@@ -208,8 +231,8 @@ Before each path runs, every kernel's launch count is set to 0; it is read
 right after, so the counts in the summary are that path's own.
 
 The last lines are a JSON summary of the kernels (with their backward
-rows and recompute counts), of the timed train step, of the trainer and of
-serving and, last,
+rows and recompute counts), of the timed train step, of the trainer, of
+serving, of the text side and of the upstreams and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 
@@ -237,15 +260,19 @@ and the rest); it prints no result line.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import functools
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 T_START = time.perf_counter()
@@ -2504,12 +2531,40 @@ TRAINER_IMAGE_SIDE = 224
 TRAINER_OVERRIDES = ["trainer.max_steps=6", "trainer.save_at_steps=[3]",
                      "data.dev_batch_size=16", "trainer.log_every_n_steps=1"]
 TRAINER_SEED = 7122
+# the cascaded runs: the tokenizer's text and the keyword diagnostics at every validation
+DIAGNOSTICS_OVERRIDES = ["data.dataset.tokenizeText=true", "log_setting.log_detokenize_results=true",
+                         "log_setting.log_detokenize_results_every_n_epoch=1"]
 TRAINER_SAVE_STEP = 3
 TRAINER_CONFIGS = {"spchclp_p": "configs/base/spchclp_p.yaml",
                    "spchclp_c": "configs/base/spchclp_c.yaml"}
 # phase 21: the large Flickr configs, the cascaded one with wsum_remat on
 LARGE_TRAINER_CONFIGS = {"spchclp_p": "configs/large_flickr/spchclp_p.yaml",
                          "spchclp_c": "configs/large_flickr/spchclp_c.yaml"}
+
+
+BPE_MERGES = 48894  # CLIP's: 512 byte symbols + 48 894 merges + SOT + EOT = 49 408 ids
+
+
+def write_synthetic_merges(path: str, seed: int = 0) -> str:
+    """A gzipped BPE merges file with CLIP's id layout, written to ``path``:
+    a header line, then BPE_MERGES distinct merges of two byte symbols (the
+    second word-final or not), in a seeded order. A tokenizer over it has
+    49 408 ids with SOT 49406 and EOT 49407, and every id decodes (each
+    merge's string is distinct). CLIP's own file is not in the repository.
+    -> ``path``."""
+    import gzip
+
+    import numpy as np
+
+    from speechclip_tpu_torch.models.tokenizer import bytes_to_unicode
+
+    symbols = list(bytes_to_unicode().values())
+    pairs = [(a, b + end) for end in ("", "</w>") for a in symbols for b in symbols]
+    order = np.random.default_rng(seed).permutation(len(pairs))[:BPE_MERGES]
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("#version: synthetic\n")
+        f.write("\n".join(" ".join(pairs[i]) for i in order))
+    return path
 
 
 def _seeded_image(name: str):
@@ -2539,18 +2594,23 @@ def _image_decoder():
         return f"no JPEG codec: {type(e).__name__}: {e}"
 
 
-def _write_trainer_corpus(root: str, write_jpegs: bool):
+def _write_trainer_corpus(root: str, write_jpegs: bool, words):
     """A seeded Flickr8k-shaped corpus in FlickrDataset's layout: per split
     its images with TRAINER_CAPTIONS real 16 kHz PCM16 WAVs each, their
     durations uniform in TRAINER_SECONDS (one dev caption exactly 17 s);
-    ``Flickr8k.token.txt``; the split lists (test = dev); the JPEGs where
-    PIL is there. -> {split: [durations]}."""
+    ``Flickr8k.token.txt`` with captions of 4-14 of ``words`` (drawn from
+    their own seed, so the audio does not depend on them); the split lists
+    (test = dev); the JPEGs where PIL is there. -> ({split: [durations]},
+    {image name: [its captions]})."""
     import os
     import wave
 
     import numpy as np
 
     rng = np.random.default_rng(TRAINER_SEED)
+    texts = iter(_seeded_captions(words, TRAINER_CAPTIONS * sum(TRAINER_IMAGES.values()),
+                                  TRAINER_SEED + 1))
+    by_image = {}
     wav_dir = os.path.join(root, "flickr_audio", "wavs")
     os.makedirs(wav_dir)
     os.makedirs(os.path.join(root, "Images"))
@@ -2575,14 +2635,31 @@ def _write_trainer_corpus(root: str, write_jpegs: bool):
                     w.setsampwidth(2)
                     w.setframerate(TRAINER_SR)
                     w.writeframes(pcm.astype("<i2").tobytes())
-                captions.append(f"{name}.jpg#{n}\tcaption {n} of {name} .")
+                text = next(texts)
+                by_image.setdefault(name, []).append(text)
+                captions.append(f"{name}.jpg#{n}\t{text} .")
         with open(os.path.join(root, f"Flickr_8k.{split}Images.txt"), "w") as f:
             f.write("\n".join(f"{name}.jpg" for name in names))
     with open(os.path.join(root, "Flickr_8k.testImages.txt"), "w") as f:
         f.write("\n".join(f"dev{i:04d}.jpg" for i in range(TRAINER_IMAGES["dev"])))
     with open(os.path.join(root, "Flickr8k.token.txt"), "w") as f:
         f.write("\n".join(captions))
-    return durations
+    return durations, by_image
+
+
+def _caption_words(config_path: str):
+    """{word: original id}: the one-id words of the token table that the
+    config at ``config_path`` cuts (``_table_words`` over all its rows),
+    for the trainer corpus's captions: each caption's gold token ids are
+    then its words' ids, known without the program's tokenizer, and every
+    one is a row of the table the keywords are ranked against."""
+    from speechclip_tpu_torch.config import load_config
+    from speechclip_tpu_torch.models.clip import load_reduced_vocab
+    from speechclip_tpu_torch.models.speechclip import resolve_asset_path
+    from speechclip_tpu_torch.models.tokenizer import CLIPTokenizer
+
+    table = load_config(config_path).get_path("clip.reduce_subword_embbedding")
+    return _table_words(CLIPTokenizer(), load_reduced_vocab(resolve_asset_path(table)), None)
 
 
 def _seeded_image_dataset():
@@ -2736,9 +2813,18 @@ def _instrumented_trainer(rec):
         rec["validations"].append((collected, out))
         return out
 
+    diagnostics = trainer_mod.run_keyword_diagnostics
+
+    def recorded_diagnostics(model, collected, emb, tokenizer, output_dir, epoch, kw_cfg=None):
+        out = diagnostics(model, collected, emb, tokenizer, output_dir, epoch, kw_cfg)
+        rec["diagnostics"].append(dict(collected=collected, emb=emb, tokenizer=tokenizer,
+                                       dir=output_dir, epoch=epoch, kw_cfg=kw_cfg, out=out))
+        return out
+
     patch(trainer_mod, "make_train_step", counted_train)
     patch(trainer_mod, "make_eval_step", counted_eval)
     patch(trainer_mod, "retrieval_metrics", recorded_metrics)
+    patch(trainer_mod, "run_keyword_diagnostics", recorded_diagnostics)
     patch(trainer_mod.Trainer, "build_image_feature_cache", counted_cache)
     try:
         with _plain_guard(rec):
@@ -2804,11 +2890,12 @@ def _read_metrics(workdir):
     return train, val
 
 
-def _check_trainer_run(label, trainer, rec, launches, first_step):
+def _check_trainer_run(label, trainer, rec, launches, first_step, corpus):
     """Phase 18's checks of one fit to step 6 from ``first_step`` + 1:
     launches per train step and per eval batch against the gates' counts
     (``attention_vmem`` > 0 on the 17 s bucket), the counted total, the
-    recalls against a float64 recompute, finite losses, the files, and no
+    recalls against a float64 recompute, finite losses, the files, the
+    keyword diagnostics against ``corpus`` (``_check_diagnostics``), and no
     plain kernel on a CUDA tensor. -> the run's summary."""
     import os
     import statistics
@@ -2886,6 +2973,7 @@ def _check_trainer_run(label, trainer, rec, launches, first_step):
             fail(f"trainer {label}: ckpts/{monitor} is empty")
     if load_config(os.path.join(ckpts, "config.yaml")) != trainer.config:
         fail(f"trainer {label}: ckpts/config.yaml does not read back to the run's tree")
+    diagnostics = _check_diagnostics(label, trainer, rec, val, val_steps, corpus)
     ms = [1000.0 / train[s]["steps_per_sec"] for s in steps if s > 1]
     return {
         "steps": steps,
@@ -2905,11 +2993,191 @@ def _check_trainer_run(label, trainer, rec, launches, first_step):
         "image_cache_s": stats["image_cache_s"],
         "validation_s": [v for _, v in stats["validations"]],
         "saves": [{"step": s, "seconds": t, "bytes": n} for s, t, n in stats["saves"]],
+        "diagnostics": diagnostics,
     }
 
 
+def _diagnostics_note(d):
+    if d is None:
+        return "off (no cascaded branch)"
+    return (f"host s {[round(t, 3) for t in d['host_s']]} (epochs {d['epochs']}, top-{d['k']}), "
+            f"kw_i {d['hit_rates']} equal to the float64 recompute, {d['compared']} dumped "
+            f"neighbour lists equal to its top-{d['k']} ({d['ambiguous']} near-tie rows); "
+            f"planted keywords: kw_i {d['planted']['hit_rates']} (at least "
+            f"{d['planted']['floor']}) equal to the recompute")
+
+
+def _corpus_gold_sets(label, corpus, collected):
+    """Each validation row's gold token ids from the corpus the smoke wrote,
+    not from the program's tokenizer: the row's pair id names its image
+    (``Flickr8k_idPairs.json``), its gold text must be one of that image's
+    captions, and a caption's ids are its words' ids. -> [set of ids]."""
+    import json
+    import os
+
+    with open(os.path.join(corpus["root"], "Flickr8k_idPairs.json")) as f:
+        names = json.load(f)["id2Filename"]
+    gold_sets = []
+    for pair, text in zip(collected["id"], collected["gold_text"]):
+        words = " ".join(text.split())
+        if words not in corpus["captions"][names[str(int(pair))]]:
+            fail(f"trainer {label}: gold text {text!r} is none of image "
+                 f"{names[str(int(pair))]}'s captions")
+        gold_sets.append({corpus["word_ids"][w] for w in words.split()})
+    return gold_sets
+
+
+def _recompute_diagnostics(label, model, d, gold_sets, k):
+    """One validation's diagnostics ``d`` (the recorded call: its collected
+    rows, table, output directory, epoch and result) against a float64
+    recompute that shares no code with ``detokenize_keywords``: cosine top-k
+    of the keywords against the table, mapped to original ids, against
+    ``gold_sets``; ``kw_hit_ep*.json``'s hit lists; ``keywords_ep*.json``'s
+    neighbour lists (subwords in order, scores within 1e-4) and gold text. A
+    keyword row with two of its top k + 1 float64 scores within 1e-5 may
+    rank either way in f32: its list is not compared, and each such row may
+    move a hit count by one. -> (hits per keyword, ambiguous rows, compared
+    lists)."""
+    import json
+    import os
+
+    import numpy as np
+
+    lut = model.reduced_vocab.selected_ids if model.reduced_vocab is not None else None
+    kw = d["collected"]["keywords"].astype(np.float64)
+    gold = d["collected"]["gold_text"]
+    n, kw_num, _ = kw.shape
+    emb = d["emb"].detach().cpu().double().numpy()
+    emb /= np.maximum(np.linalg.norm(emb, axis=-1, keepdims=True), 1e-8)
+    kw /= np.maximum(np.linalg.norm(kw, axis=-1, keepdims=True), 1e-8)
+    with open(os.path.join(d["dir"], f"kw_hit_ep{d['epoch']}.json")) as f:
+        hit_lists = json.load(f)
+    with open(os.path.join(d["dir"], f"keywords_ep{d['epoch']}.json")) as f:
+        records = json.load(f)
+    if len(records) != n:
+        fail(f"trainer {label}: keywords_ep{d['epoch']}.json holds {len(records)} of {n} rows")
+    hits = np.zeros(kw_num, np.int64)
+    decoder, wrong, compared, ambiguous = d["tokenizer"].decoder, 0, 0, 0
+    for start in range(0, n, 32):
+        s = kw[start:start + 32] @ emb.T  # (b, K, V)
+        top = np.argsort(-s, axis=-1, kind="stable")[..., :k + 1]
+        vals = np.take_along_axis(s, top, axis=-1)
+        near = (np.diff(-vals, axis=-1) < 1e-5).any(axis=-1)  # (b, K): a near tie in the top k + 1
+        ambiguous += int(near.sum())
+        for x in range(s.shape[0]):
+            rec_x = records[start + x]
+            for ki in range(kw_num):
+                ids = top[x, ki, :k] if lut is None else lut[top[x, ki, :k]]
+                hits[ki] += bool(set(int(i) for i in ids) & gold_sets[start + x])
+                # the dump's neighbours: the same subwords in the same order, their scores
+                rows = rec_x["neighbors"][f"keyword_{ki}"]
+                compared += int(not near[x, ki])
+                if not near[x, ki] and ([t for t, _ in rows] != [decoder[int(i)] for i in ids]
+                                        or max(abs(v - w) for (_, v), w in
+                                               zip(rows, vals[x, ki, :k])) > 1e-4):
+                    wrong += 1
+            if rec_x["gold"] != gold[start + x]:
+                wrong += 1
+    rate = hits / max(n, 1) * 100.0
+    got = np.array([d["out"][f"kw_{i}"] for i in range(kw_num)])
+    slack = ambiguous * 100.0 / max(n, 1)
+    if wrong or np.abs(got - rate).max() > slack or (
+            not ambiguous and [len(h) for h in hit_lists] != hits.tolist()):
+        fail(f"trainer {label}: epoch {d['epoch']} hit rates {got.tolist()}, the float64 "
+             f"recompute {rate.tolist()} ({ambiguous} ambiguous rows); {wrong} dumped "
+             f"neighbour lists differ from it")
+    return hits, ambiguous, compared
+
+
+def _planted_keywords(collected, emb, gold_sets, vocab):
+    """A copy of ``collected`` whose keyword i of row x, for x % (i + 2) ==
+    0, is the table row of one of row x's gold tokens (the (x + i)-th of its
+    sorted ids): its nearest row is that token, so every such row is a hit
+    and kw_i reads at least 100 / (i + 2) %. -> (the copy, planted rows per
+    keyword)."""
+    import numpy as np
+
+    kw = np.array(collected["keywords"], copy=True)
+    table = emb.detach().float().cpu().numpy()
+    planted = np.zeros(kw.shape[1], np.int64)
+    for x, gold in enumerate(gold_sets):
+        ids = sorted(gold)
+        for i in range(kw.shape[1]):
+            if x % (i + 2) == 0:
+                orig = ids[(x + i) % len(ids)]
+                kw[x, i] = table[orig if vocab is None else vocab.original_to_reduced[orig]]
+                planted[i] += 1
+    return {**collected, "keywords": kw}, planted
+
+
+def _check_diagnostics(label, trainer, rec, val, val_steps, corpus):
+    """The keyword diagnostics of a cascaded run with the tokenizer, one per
+    validation: their JSON files, ``kw_hit_rate/kw_i`` in the validation
+    lines, and each call against ``_recompute_diagnostics`` with the gold
+    token sets read from ``corpus`` (``_corpus_gold_sets``). The run's own
+    keywords seldom land on a caption's tokens, so its rates may all read 0;
+    the last validation's rows are also passed to ``run_keyword_diagnostics``
+    with planted keywords (``_planted_keywords``) and held to the recompute
+    and to the planted floor. -> {"host_s": [...], "hit_rates": [...],
+    "ambiguous": n, "planted": {...}}."""
+    import os
+
+    import numpy as np
+
+    from speechclip_tpu_torch.training.evaluation import run_keyword_diagnostics
+
+    model = trainer.model
+    every_n = int(trainer.config.get_path("log_setting.log_detokenize_results_every_n_epoch", 1))
+    on = (trainer.config.get_path("log_setting.log_detokenize_results", True)
+          and model.use_cascaded and trainer.tokenizer is not None)
+    want_n = sum(1 for _ in rec["validations"]) if on and every_n == 1 else None
+    diag = rec["diagnostics"]
+    if not on:
+        if diag:
+            fail(f"trainer {label}: keyword diagnostics ran without the cascaded branch or tokenizer")
+        return None
+    if want_n is not None and len(diag) != want_n:
+        fail(f"trainer {label}: {len(diag)} keyword diagnostics for {want_n} validations")
+    kw_cfg = trainer.config.get_path("model_settings.cascaded_branch.keyword") or {}
+    k = int(kw_cfg.get("detokenized_K_neighbors", 10))
+    if kw_cfg.get("retrieve_method", "cosine") != "cosine":
+        fail(f"trainer {label}: the recompute covers cosine retrieval only")
+    rates, total_ambiguous, total_compared = [], 0, 0
+    for d in diag:
+        gold_sets = _corpus_gold_sets(label, corpus, d["collected"])
+        _, ambiguous, compared = _recompute_diagnostics(label, model, d, gold_sets, k)
+        rates.append([d["out"][f"kw_{i}"] for i in range(model.keyword_num)])
+        total_ambiguous += ambiguous
+        total_compared += compared
+    logged = [[val[s].get(f"kw_hit_rate/kw_{i}") for i in range(model.keyword_num)]
+              for s in val_steps]
+    if logged[-len(rates):] != rates[-len(logged):]:
+        fail(f"trainer {label}: metrics.jsonl kw_hit_rate {logged}, the diagnostics {rates}")
+
+    d = diag[-1]
+    collected, planted = _planted_keywords(d["collected"], d["emb"], gold_sets,
+                                           model.reduced_vocab)
+    p_dir = f"{d['dir']}_planted"
+    out = run_keyword_diagnostics(model, collected, d["emb"], d["tokenizer"], p_dir,
+                                  d["epoch"], d["kw_cfg"])
+    hits, _, _ = _recompute_diagnostics(
+        f"{label} planted", model, {**d, "collected": collected, "dir": p_dir, "out": out},
+        gold_sets, k)
+    n = len(gold_sets)
+    floor = planted * 100.0 / n
+    p_rates = [out[f"kw_{i}"] for i in range(model.keyword_num)]
+    if (hits < planted).any() or min(p_rates) <= 0:
+        fail(f"trainer {label}: planted keywords hit {hits.tolist()} of {n} rows where "
+             f"{planted.tolist()} were planted on a gold token; kw_i {p_rates}")
+    return {"host_s": [t for _, t in trainer.loop_stats.get("diagnostics", [])],
+            "hit_rates": rates, "ambiguous": total_ambiguous, "compared": total_compared, "k": k,
+            "epochs": [d["epoch"] for d in diag],
+            "planted": {"hit_rates": p_rates, "floor": [round(float(f), 3) for f in floor]}}
+
+
 def _new_record():
-    return {"steps": [], "eval": [], "cache": [], "validations": [], "plain_on_cuda": []}
+    return {"steps": [], "eval": [], "cache": [], "validations": [], "plain_on_cuda": [],
+            "diagnostics": []}
 
 
 def _counted_fit(run, rec):
@@ -2934,9 +3202,11 @@ def _cli_fit(argv):
 
 
 def _api_fit(tree, **fit_kwargs):
+    """A Trainer with the CLI's tokenizer (``_build_tokenizer``), fitted."""
+    from speechclip_tpu_torch.tasks.train_kwclip import _build_tokenizer
     from speechclip_tpu_torch.training.trainer import Trainer
 
-    trainer = Trainer(tree)
+    trainer = Trainer(tree, tokenizer=_build_tokenizer())
     return trainer, trainer.fit(**fit_kwargs)
 
 
@@ -3070,7 +3340,7 @@ def phase_trainer(smi, beside, phase=18, configs=TRAINER_CONFIGS, c_overrides=()
         if state.step != 6:
             fail(f"trainer {label}: the resumed fit ended at step {state.step}")
         summary["resume"] = _check_trainer_run(f"{label} resume", resumed, rec, r_launches,
-                                               TRAINER_SAVE_STEP)
+                                               TRAINER_SAVE_STEP, corpus_gold)
         del resumed, state, rec
         clear()
 
@@ -3082,12 +3352,15 @@ def phase_trainer(smi, beside, phase=18, configs=TRAINER_CONFIGS, c_overrides=()
         why = _image_decoder()
         corpus = os.path.join(tmp, "flickr")
         t0 = time.perf_counter()
-        durations = _write_trainer_corpus(corpus, write_jpegs=why is None)
+        words = _caption_words(configs["spchclp_c"])
+        durations, captions = _write_trainer_corpus(corpus, write_jpegs=why is None, words=words)
+        corpus_gold = {"root": corpus, "captions": captions, "word_ids": words}
         decode = "PIL" if why is None else f"substituted ({why})"
         say(f"phase {phase} trainer: corpus of {len(durations['train'])} train pairs "
             f"({min(durations['train']):.2f}-{max(durations['train']):.2f} s) and "
             f"{len(durations['dev'])} dev pairs ({min(durations['dev']):.2f}-"
-            f"{max(durations['dev']):.2f} s) written in {time.perf_counter() - t0:.1f} s; image "
+            f"{max(durations['dev']):.2f} s), captions of {len(words)} one-id table words, "
+            f"written in {time.perf_counter() - t0:.1f} s; image "
             f"decode: {decode}; WAV decode: {'native' if native.available() else 'python'}")
         out = {"image_decode": decode, "native_wav": native.available()}
         cls = None if why is None else _seeded_image_dataset()
@@ -3100,7 +3373,7 @@ def phase_trainer(smi, beside, phase=18, configs=TRAINER_CONFIGS, c_overrides=()
             rec = _new_record()
             trainer, final_state, launches = _counted_fit(lambda: _cli_fit(argv), rec)
             tree = trainer.config
-            summary = _check_trainer_run(lp, trainer, rec, launches, 0)
+            summary = _check_trainer_run(lp, trainer, rec, launches, 0, corpus_gold)
             first = _read_metrics(run_p)[0][1]
             del trainer, rec
             clear()
@@ -3114,13 +3387,13 @@ def phase_trainer(smi, beside, phase=18, configs=TRAINER_CONFIGS, c_overrides=()
             # the cascaded config through the Trainer API, slim checkpoints
             run_c = os.path.join(tmp, "c_run")
             tree_c = load_config(configs["spchclp_c"], overrides=TRAINER_OVERRIDES + [
-                "trainer.checkpoint_frozen=false", *c_overrides])
+                "trainer.checkpoint_frozen=false", *DIAGNOSTICS_OVERRIDES, *c_overrides])
             tree_c.set_path("data.dataset.dataset_root", corpus)
             tree_c.set_path("trainer.default_root_dir", run_c)
             tree_c["seed"] = TRAINER_SEED
             rec = _new_record()
             trainer_c, state_c, launches_c = _counted_fit(lambda: _api_fit(tree_c), rec)
-            summary_c = _check_trainer_run(lc, trainer_c, rec, launches_c, 0)
+            summary_c = _check_trainer_run(lc, trainer_c, rec, launches_c, 0, corpus_gold)
             if not trainer_c.ckpt.is_slim(os.path.join(run_c, "ckpts", "last")):
                 fail(f"trainer {lc}: checkpoint_frozen false wrote a full checkpoint")
             first_c = _read_metrics(run_c)[0][1]
@@ -3149,7 +3422,8 @@ def phase_trainer(smi, beside, phase=18, configs=TRAINER_CONFIGS, c_overrides=()
             f"{r['host_share']:.4f} ({r['data_wait_s']:.3f} of {r['train_wall_s']:.3f} s; each "
             f"epoch's first batch {[round(v, 3) for v in r['epoch_first_wait_s']]} s, the others' "
             f"median {r['other_wait_s']:.3f} s); "
-            f"image-cache build {r['image_cache_s']:.3f} s; validations "
+            f"image-cache build {r['image_cache_s']:.3f} s; keyword diagnostics "
+            f"{_diagnostics_note(r['diagnostics'])}; validations "
             f"{[round(v, 3) for v in r['validation_s']]} s; checkpoint saves "
             f"{[(s['step'], round(s['seconds'], 3), s['bytes']) for s in r['saves']]} "
             f"(step, s, bytes)")
@@ -4210,6 +4484,433 @@ def phase_serving(smi):
     return out, {"serving 6.4s": short_launches, "serving 17s": long_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the text side
+# ---------------------------------------------------------------------------
+TEXT_SIDE_CAPTIONS = 256
+TEXT_SIDE_IMAGES = 32
+CAPTION_WORDS = ("a", "the", "dog", "dogs", "man", "woman", "child", "girl", "boy", "people",
+                 "runs", "running", "jumps", "sits", "plays", "walks", "stands", "rides",
+                 "on", "in", "at", "with", "of", "and", "near", "over", "through", "across",
+                 "grass", "water", "snow", "street", "field", "beach", "park", "road", "wall",
+                 "red", "blue", "white", "black", "brown", "green", "small", "large", "two",
+                 "three", "ball", "bike", "shirt", "hat", "camera", "building", "crowd")
+
+
+def _seeded_captions(words, n: int, seed: int):
+    """n captions of 4-14 words drawn from ``words`` (a sequence, or a
+    mapping's keys), single-spaced."""
+    import numpy as np
+
+    words = list(words)
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(words, int(rng.integers(4, 15)))) for _ in range(n)]
+
+
+def _table_words(tokenizer, vocab, limit: int | None = 3000):
+    """Words of the reduced table (its first ``limit`` rows, all for None):
+    each a word-final subword whose text tokenizes back to that one id, so
+    captions made of them map onto the table (CLIP's real merges file is not
+    in the repository; over the synthetic one a Flickr caption's subwords
+    need not be in the table). -> {word: original id}, in table order."""
+    words = {}
+    for orig in vocab.selected_ids[:limit]:
+        tok = tokenizer.decoder[int(orig)]
+        word = tok[:-len("</w>")] if tok.endswith("</w>") else None
+        if word and word.isalpha() and word == word.lower() and tokenizer.encode(word) == [
+                int(orig)]:
+            words[word] = int(orig)
+    return words
+
+
+def _text_side_check(label, clip, captions, clip_mod, attention_backend):
+    """prep_text, encode_text under "pallas" (12 f32 flash_attention)
+    against the plain path, deTokenize against the captions. -> (ids,
+    eot, features, sequences/s)."""
+    import torch
+
+    ids, eot = clip.prep_text(captions)
+    layers = clip.cfg.text.layers
+    with attention_backend("pallas"):
+        feats, launches = _run_counted(lambda: clip.encode_text(ids, eot))
+        plain = clip_mod.encode_text(clip.params, clip.cfg.text, ids, eot, plain=True)
+        rate = _rate(lambda: clip.encode_text(ids, eot), len(captions))
+    scale = max(1.0, float(plain.abs().max()))
+    err = float((feats - plain).abs().max()) / scale
+    cos = row_cosine_min(feats, plain)
+    rows = ids.shape[0]
+    ends_ok = bool((ids[:, 0] == clip.sot_id).all()) and bool(
+        (ids[torch.arange(rows, device=ids.device), eot] == clip.eot_id).all())
+    detok = [clip.deTokenize(ids[i, :int(eot[i]) + 1])[0] for i in range(rows)]
+    want = [c.lower() for c in captions]
+    say(f"  {label}: {rows} captions -> ids {tuple(ids.shape)} (SOT {clip.sot_id}, EOT "
+        f"{clip.eot_id}, table {clip.params['text']['token_embedding'].shape[0]} rows; first and "
+        f"EOT ids in place {ends_ok}); encode_text 'pallas' launches {launches} (expect "
+        f"{layers} flash_attention, f32) -> {tuple(feats.shape)} {feats.dtype}; vs plain: max "
+        f"abs {err:.3e} x max(1, max|feat|) (tol {F32_TOL}), min row cosine {cos:.7f} (tol "
+        f"{MIN_F32_COSINE}); deTokenize of the rows to their EOT equals the lower-cased "
+        f"captions: {detok == want}; {rate:.2f} sequences/s ({RATE_NOTE})")
+    _expect_launches(f"text side {label}", launches, flash_attention=layers)
+    if err > F32_TOL or cos < MIN_F32_COSINE:
+        fail(f"text side {label}: encode_text under 'pallas' disagrees with the plain path")
+    if feats.dtype != torch.float32 or not bool(torch.isfinite(feats).all()) or not ends_ok:
+        fail(f"text side {label}: features or ids malformed")
+    if detok != want:
+        bad = next(i for i, (a, b) in enumerate(zip(detok, want)) if a != b)
+        fail(f"text side {label}: deTokenize row {bad} {detok[bad]!r} != {want[bad]!r}")
+    return ids, eot, feats, rate
+
+
+def phase_text_side(smi):
+    """Phase 24: the CLIP tokenizer over the synthetic full-size merges
+    file (``SPEECHCLIP_BPE_PATH``), ``ClipWrapper`` over ViT-B/32 from a
+    seeded init: tokenize TEXT_SIDE_CAPTIONS captions (host ms, cold
+    cache), ``prep_text`` -> ``encode_text`` under "pallas" against the
+    plain path, with the full table and the reduced Flickr one (SOT / EOT
+    remapped), ``get_scores`` against ``encode_image`` and ``encode_text``
+    recomputed in float64, ``deTokenize``."""
+    import numpy as np
+    import torch
+
+    from speechclip_tpu_torch.config import FLICKR_VOCAB
+    from speechclip_tpu_torch.models import clip as clip_mod
+    from speechclip_tpu_torch.models.clip_api import ClipWrapper
+    from speechclip_tpu_torch.models.tokenizer import CLIPTokenizer
+    from speechclip_tpu_torch.ops.attention import attention_backend
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    tok = CLIPTokenizer()
+    load_s = time.perf_counter() - t0
+    captions = _seeded_captions(CAPTION_WORDS, TEXT_SIDE_CAPTIONS, 24)
+    t0 = time.perf_counter()
+    tok.tokenize(captions)
+    tokenize_ms = (time.perf_counter() - t0) * 1e3
+    say(f"phase 24 text side: tokenizer over {tok.vocab_size} ids (SOT {tok.sot_id}, EOT "
+        f"{tok.eot_id}) loaded in {load_s:.3f} s; tokenize {len(captions)} captions "
+        f"{tokenize_ms:.3f} ms on the host (cold BPE cache)")
+    if (tok.vocab_size, tok.sot_id, tok.eot_id) != (49408, 49406, 49407):
+        fail("text side: the merges file does not give CLIP's id layout")
+    out = {"tokenize_ms": tokenize_ms}
+    clip = ClipWrapper("ViT-B/32", tokenizer=tok, seed=24)
+    ids, eot, feats, out["sequences_per_s"] = _text_side_check(
+        "full table", clip, captions, clip_mod, attention_backend)
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    images = torch.randn(TEXT_SIDE_IMAGES, 224, 224, 3, generator=gen, device="cuda")
+    rows = slice(0, 64)
+    logits_img, logits_txt = clip.get_scores(images, ids[rows], eot[rows])
+    img = clip.encode_image(images).double().cpu().numpy()
+    txt = feats[rows].double().cpu().numpy()
+    img /= np.linalg.norm(img, axis=-1, keepdims=True)
+    txt /= np.linalg.norm(txt, axis=-1, keepdims=True)
+    want = math.exp(float(clip.params["logit_scale"])) * img @ txt.T
+    err = float(np.abs(logits_img.double().cpu().numpy() - want).max()) / max(
+        1.0, float(np.abs(want).max()))
+    transposed = bool(torch.equal(logits_txt, logits_img.T))
+    say(f"  get_scores: {TEXT_SIDE_IMAGES} seeded images x {txt.shape[0]} captions -> "
+        f"{tuple(logits_img.shape)} {logits_img.dtype}; vs float64 from encode_image and "
+        f"encode_text: max abs {err:.3e} x max(1, max|logit|) (tol {F32_TOL}); per text = per "
+        f"image transposed: {transposed}")
+    if logits_img.dtype != torch.float32 or err > F32_TOL or not transposed:
+        fail("text side: get_scores disagrees with encode_image / encode_text")
+
+    reduced = ClipWrapper("ViT-B/32", tokenizer=tok, seed=24,
+                          reduce_subword_embbedding=FLICKR_VOCAB)
+    table = reduced.reduced_vocab
+    remapped = (reduced.sot_id, reduced.eot_id) == (table.original_to_reduced[49406],
+                                                    table.original_to_reduced[49407])
+    if reduced.params["text"]["token_embedding"].shape[0] != 8112 or not remapped:
+        fail("text side: the reduced table is not Flickr's 8112 rows with SOT / EOT remapped")
+    words = list(_table_words(tok, table))
+    say(f"  reduced table: {table.size} rows, SOT / EOT -> {reduced.sot_id} / "
+        f"{reduced.eot_id}; {len(words)} word-final subwords of its first 3000 rows tokenize "
+        f"back to themselves")
+    _, _, _, out["reduced_sequences_per_s"] = _text_side_check(
+        "reduced table", reduced, _seeded_captions(words, TEXT_SIDE_CAPTIONS, 25), clip_mod,
+        attention_backend)
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"phase 24 text side on {smi}: {out['sequences_per_s']:.2f} sequences/s full table, "
+        f"{out['reduced_sequences_per_s']:.2f} reduced; wall {out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the s3prl upstreams
+# ---------------------------------------------------------------------------
+UPSTREAM_BATCH = 256
+UPSTREAM_TRAIN_BATCH = 64
+
+
+def _apc_config():
+    """The flagship's parallel topology over the APC upstream at its own
+    widths (80 mels, 3 GRU layers of 512) and a parallel branch at
+    d_model 512 (8 heads, FFN 2048): the branch prepends CLS at the
+    upstream's width, with no input projection."""
+    from speechclip_tpu_torch import base_config
+    from speechclip_tpu_torch.models.upstream import APCConfig
+
+    base = base_config()
+    return dataclasses.replace(
+        base, audio=APCConfig(), audio_encoder_type="s3prl_plus",
+        parallel_branch=dataclasses.replace(base.parallel_branch, d_model=512,
+                                            dim_feedforward=2048))
+
+
+def _gru_library(params, x):
+    """cuDNN's GRU (torch.nn.GRU) with the stack's weights, in x's dtype:
+    timed beside the port's step loop, used nowhere in the port."""
+    import torch
+
+    layers = params["layers"]
+    h = layers[0]["w_hh"].shape[0]
+    gru = torch.nn.GRU(x.shape[-1], h, num_layers=len(layers), batch_first=True).to(
+        device=x.device, dtype=x.dtype)
+    gru.flatten_parameters()  # the copies below land in cuDNN's one weight buffer
+    with torch.no_grad():
+        for i, p in enumerate(layers):
+            getattr(gru, f"weight_ih_l{i}").copy_(p["w_ih"].T)
+            getattr(gru, f"weight_hh_l{i}").copy_(p["w_hh"].T)
+            getattr(gru, f"bias_ih_l{i}").copy_(p["b_ih"])
+            getattr(gru, f"bias_hh_l{i}").copy_(p["b_hh"])
+    return gru
+
+
+def _below_half_ulp(x, lr: float) -> bool:
+    """Whether every element of the f32 tensor ``x`` has half an ulp above
+    ``lr``: an update of at most ``lr`` rounds back to it."""
+    import torch
+
+    a = x.detach().float().abs()
+    return bool(((torch.nextafter(a, torch.full_like(a, float("inf"))) - a) / 2 > lr).all())
+
+
+def _gru_in_encode(encode, reps: int = 5):
+    """The GRU stack's share of ``encode()``, timed inside the same calls:
+    CUDA events around each ``gru_layer_apply`` call of the upstream and
+    around the whole encode, on one stream, so the GRU's intervals lie
+    within the encode's and the share cannot exceed 1. -> (median encode
+    ms, median GRU ms, median share), over ``reps`` calls after one warm-up."""
+    import torch
+
+    from speechclip_tpu_torch.models import upstream as upstream_mod
+
+    gru, marks = upstream_mod.gru_layer_apply, []
+
+    def timed_gru(params, x):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = gru(params, x)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    upstream_mod.gru_layer_apply = timed_gru
+    try:
+        encode()
+        rows = []
+        for _ in range(reps):
+            marks.clear()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            encode()
+            end.record()
+            torch.cuda.synchronize()
+            total = start.elapsed_time(end)
+            in_gru = sum(a.elapsed_time(b) for a, b in marks)
+            rows.append((total, in_gru, in_gru / total))
+    finally:
+        upstream_mod.gru_layer_apply = gru
+    if not marks:
+        fail("upstreams: the APC encode called no GRU layer")
+    return tuple(statistics.median(r[i] for r in rows) for i in range(3))
+
+
+def phase_upstreams(smi):
+    """Phase 25: ``audio_encoder.type: s3prl_plus``. APC (``_apc_config``)
+    encode + retrieve at B = UPSTREAM_BATCH x 6.4 s against the plain path
+    (phase 3's cosine limit), launches a forward against the gates, utt/s,
+    the log-mel, GRU-stack and branch times (and cuDNN's GRU beside the
+    step loop); one train step at B = UPSTREAM_TRAIN_BATCH: a finite loss,
+    the frozen upstream unchanged, the branch and weighted sum moved;
+    ``modified_cpc`` with ``feat_select_idx`` [1]: one forward at B = 64.
+    -> (summary, the APC forward's launches)."""
+    import torch
+
+    from speechclip_tpu_torch import retrieve
+    from speechclip_tpu_torch.models import branches
+    from speechclip_tpu_torch.models.speechclip import SpeechCLIPModel, cast_params
+    from speechclip_tpu_torch.models.upstream import CPCConfig, log_mel
+    from speechclip_tpu_torch.ops.basic import l2_normalize
+    from speechclip_tpu_torch.ops.mlp import mlp_apply
+    from speechclip_tpu_torch.training.optim import build_optimizer
+    from speechclip_tpu_torch.training.train_step import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = _apc_config()
+    model = SpeechCLIPModel(cfg)
+    params, state = (cast_params(t, model.compute_dtype) for t in model.init(0))
+    up, pb = model.audio_cfg, cfg.parallel_branch
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    gallery = torch.nn.functional.normalize(
+        torch.randn(GALLERY, cfg.clip_embed_dim, generator=gen, device="cuda"), dim=-1)
+    wav, wav_len = _wavs(UPSTREAM_BATCH, WAV_SAMPLES, WAV_SAMPLES // 2, gen)
+    wav = wav.to(model.compute_dtype)
+    t = WAV_SAMPLES // up.hop_length
+    expect = _encoder_layer_launches(UPSTREAM_BATCH, t + 1, pb.d_model, pb.nhead,
+                                     pb.dim_feedforward)
+    expect = {name: n * pb.n_layers for name, n in expect.items() if n}
+
+    def encode(plain=False):
+        feats = model.encode_speech(params, state, wav, wav_len, plain=plain)
+        return feats["parallel_audio_feat"]
+
+    feats, launches = _run_counted(encode)
+    plain_feats = encode(plain=True)
+    _, top = retrieve(feats, gallery, TOPK)
+    _, plain_top = retrieve(plain_feats, gallery, TOPK)
+    cos = row_cosine_min(feats, plain_feats)
+    top1, overlap = _top_agreement(top, plain_top)
+    rate = _rate(lambda: retrieve(encode(), gallery, TOPK)[1], UPSTREAM_BATCH)
+    plain_rate = _rate(lambda: retrieve(encode(True), gallery, TOPK)[1], UPSTREAM_BATCH)
+
+    ae = params["audio_encoder"]
+    mel = log_mel(wav, up.n_mels, up.win_length, up.hop_length).to(wav.dtype)
+    x = mel @ ae["prenet"]["w"].to(wav.dtype) + ae["prenet"]["b"].to(wav.dtype)
+    with torch.no_grad():
+        audio, audio_len = model.forward_audio(params, wav, wav_len)
+
+        def branch():
+            feat = branches.parallel_branch_apply(params["parallel_branch"], pb, audio, audio_len)
+            feat = l2_normalize(mlp_apply(params["p_branch_proj"], feat).float()
+                                if "p_branch_proj" in params else feat.float())
+            return retrieve(feat, gallery, TOPK)[1]
+
+        ms = {"log-mel": cuda_time_ms(lambda: log_mel(wav, up.n_mels, up.win_length,
+                                                       up.hop_length), reps=5, warmup=1),
+              "upstream": cuda_time_ms(lambda: model.upstream.apply(ae, wav, wav_len), reps=5,
+                                       warmup=1),
+              "branch + retrieve": cuda_time_ms(branch, reps=5, warmup=1)}
+        ms["encode"], ms["GRU stack"], gru_share = _gru_in_encode(encode)
+        from speechclip_tpu_torch.models.upstream import gru_layer_apply
+
+        def stack():
+            h = x
+            for layer in ae["layers"]:
+                h = gru_layer_apply(layer, h)
+            return h
+
+        gru = _gru_library(ae, x)
+        ms["cuDNN GRU (library)"] = cuda_time_ms(lambda: gru(x), reps=5, warmup=1)
+        lib_cos = row_cosine_min(gru(x)[0].flatten(0, 1), stack().flatten(0, 1))
+        # the bf16 stack against an f32 one on the same weights (the CPU tests
+        # hold the port to JAX at f32 1e-4 and bf16 cosine 0.999)
+        f32_ae = {k: v if k != "layers" else [{n: t.float() for n, t in layer.items()}
+                                                for layer in v] for k, v in ae.items()}
+        states16, _ = model.upstream.apply(ae, wav[:16], wav_len[:16])
+        states32, _ = model.upstream.apply(f32_ae, wav[:16].float(), wav_len[:16])
+        bf16_cos = min(row_cosine_min(a.flatten(0, 1), b.flatten(0, 1))
+                       for a, b in zip(states16, states32))
+    say(f"phase 25 upstreams: APC (80 mels, {up.num_layers} GRU layers of "
+        f"{up.encoder_embed_dim}) + parallel branch (d_model {pb.d_model}, {pb.nhead} heads, FFN "
+        f"{pb.dim_feedforward}) encode_speech B={UPSTREAM_BATCH} x {WAV_SAMPLES} samples "
+        f"(T={t}, +1 CLS) -> {tuple(feats.shape)}; launches {launches} (expect {expect}: "
+        f"the branch layer at T={t + 1}); min row cosine vs plain {cos:.6f} (tol "
+        f"{MIN_COSINE}); retrieve top-{TOPK} of {GALLERY}: top-1 agreement {top1:.4f}, "
+        f"top-{TOPK} overlap {overlap:.4f}")
+    say(f"  on {smi}: encode + retrieve {rate:.2f} utt/s (plain {plain_rate:.2f}; {RATE_NOTE}); "
+        f"ms (CUDA-event medians of 5): {({k: round(v, 3) for k, v in ms.items()})}; the GRU "
+        f"stack is {gru_share:.1%} of the encode (median of 5 encodes, each timed with its "
+        f"GRU calls inside it); cuDNN's GRU on the same weights and input (not used: its f32 "
+        f"gate sums differ from JAX's bf16 rounding points) min row cosine {lib_cos:.6f} "
+        f"against the step loop; the bf16 GRU "
+        f"states against the same stack in f32 (16 rows): min row cosine {bf16_cos:.6f}")
+    if launches != {name: expect.get(name, 0) for name in launches}:
+        fail(f"upstreams: APC launches {launches}, the gates give {expect}")
+    if tuple(feats.shape) != (UPSTREAM_BATCH, cfg.clip_embed_dim) or not bool(
+            torch.isfinite(feats).all()) or cos < MIN_COSINE:
+        fail("upstreams: the APC kernel path disagrees with the plain path")
+    if not math.isfinite(lib_cos) or not 0.0 < gru_share <= 1.0:
+        fail(f"upstreams: cuDNN's GRU min row cosine {lib_cos}, the GRU share {gru_share}")
+    out = {"apc": {"utt_per_s": rate, "plain_utt_per_s": plain_rate, "ms": ms,
+                   "gru_share": gru_share, "bf16_vs_f32_min_cosine": bf16_cos,
+                   "launches": launches, "min_cosine": cos, "top1": top1}}
+    apc_launches = launches
+    del feats, plain_feats, mel, x, gru, audio
+    torch.cuda.empty_cache()
+
+    # one train step: the frozen upstream holds, the branch and weighted sum move
+    train = create_train_state(model, seed=0)
+    optimizer, scheduler = build_optimizer(model.config, train.params,
+                                           model.trainable_mask(train.params))
+    step = make_train_step(model, optimizer, scheduler)
+    b = UPSTREAM_TRAIN_BATCH
+    batch = {"wav": wav[:b].float().cpu().numpy(), "wav_len": wav_len[:b].cpu().numpy(),
+             "image": _uint8_images(b, 224, gen).cpu().numpy(),
+             "id": (torch.arange(b) % (b // 5)).numpy()}
+    from speechclip_tpu_torch.training.train_step import to_device
+
+    before = {k: _snapshot(train.params[k])
+              for k in ("audio_encoder", "parallel_branch", "weighted_sum")}
+    lr = optimizer.param_groups[0]["lr"]  # this step's: the scheduler steps after it
+    (train, metrics), train_launches = _run_counted(
+        lambda: step(train, to_device(batch, "cuda")))
+    loss = float(metrics["train_loss"])
+    moved = {k: _moved(v, train.params[k]) for k, v in before.items()}
+    live = dict(_leaf_paths(train.params["parallel_branch"]))
+    # Adam's first update is at most lr in size: a leaf every element of
+    # which has half an f32 ulp above lr cannot move in round to nearest (the
+    # LayerNorm scales at 1.0 under the warm-up's first lr); each of those
+    # must still hold a gradient, 10x weight decay's share of Adam's moment
+    stuck = {path for path, x in before["parallel_branch"].items() if _below_half_ulp(x, lr)}
+    wd, beta1 = optimizer.defaults["weight_decay"], optimizer.defaults["betas"][0]
+    no_grad = sorted(
+        path for path in stuck
+        if not float(optimizer.state[live[path]]["exp_avg"].abs().max()) > 10 * (1 - beta1) * wd
+        * float(before["parallel_branch"][path].abs().max()))
+    say(f"  train step B={b}: loss {loss:.6f}, grad_norm {float(metrics['grad_norm']):.6f}, "
+        f"launches {train_launches} (the branch's dropout 0.1 keeps its layer unfused); leaves "
+        f"moved: upstream {len(moved['audio_encoder'])} of {len(before['audio_encoder'])}, "
+        f"parallel branch {len(moved['parallel_branch'])} of "
+        f"{len(before['parallel_branch'])} (lr {lr:.3e}: {sorted(stuck)} cannot move in one "
+        f"step and hold a gradient in Adam's moment), weighted sum "
+        f"{len(moved['weighted_sum'])} of {len(before['weighted_sum'])}")
+    if not math.isfinite(loss) or moved["audio_encoder"] or moved["weighted_sum"] != set(
+            before["weighted_sum"]) or moved["parallel_branch"] != set(
+            before["parallel_branch"]) - stuck or no_grad:
+        still = sorted(set(before["parallel_branch"]) - moved["parallel_branch"] - stuck)
+        fail(f"upstreams: the APC train step trained the frozen upstream or not the branch "
+             f"(branch leaves that should move and did not: {still}; without a gradient: "
+             f"{no_grad})")
+    out["apc"]["train"] = {"loss": loss, "launches": train_launches, "lr": lr,
+                           "unmoved_by_rounding": sorted(stuck)}
+    del train, optimizer, scheduler, step, model, params, state
+    torch.cuda.empty_cache()
+
+    cpc_cfg = dataclasses.replace(
+        cfg, audio=CPCConfig(), feat_select_idx=(1,),
+        parallel_branch=dataclasses.replace(pb, d_model=256, nhead=4, dim_feedforward=1024))
+    cpc = SpeechCLIPModel(cpc_cfg)
+    cpc_params, _ = (cast_params(t, cpc.compute_dtype) for t in cpc.init(0))
+    with torch.no_grad():
+        (sel,), feat_len = cpc.forward_audio(cpc_params, wav[:64], wav_len[:64])
+        cpc_ms = cuda_time_ms(lambda: cpc.forward_audio(cpc_params, wav[:64], wav_len[:64]),
+                              reps=5, warmup=1)
+    frames = WAV_SAMPLES
+    for k, s in zip(cpc.audio_cfg.conv_kernels, cpc.audio_cfg.conv_strides):
+        frames = (frames + 2 * (k // 2) - k) // s + 1
+    say(f"  modified_cpc feat_select_idx [1]: forward_audio B=64 -> state c "
+        f"{tuple(sel.shape)} {sel.dtype} (z is {cpc.audio_cfg.conv_dim} wide, c "
+        f"{cpc.audio_cfg.context_dim}), lengths {int(feat_len.min())}..{int(feat_len.max())}; "
+        f"{cpc_ms:.3f} ms")
+    if tuple(sel.shape) != (64, frames, 256) or not bool(torch.isfinite(sel).all()):
+        fail(f"upstreams: CPC's selected state {tuple(sel.shape)}")
+    out["cpc_forward_ms"] = cpc_ms
+    out["wall_s"] = time.perf_counter() - t_phase
+    say(f"phase 25 upstreams: wall {out['wall_s']:.1f} s")
+    return out, apc_launches
+
+
 REPLACES = {
     "mha_layer_block": ("speechclip_tpu_torch/csrc/gemm_epilogue.cu + "
                         "speechclip_tpu_torch/csrc/attention_vmem.cu",
@@ -4318,6 +5019,15 @@ def main(argv) -> int:
     train = phase_train_timed(smi)
     torch.cuda.empty_cache()
     cache_step = f"phase 17's image-cache step {train['cache_ms']:.3f}"
+    # the CLIP tokenizer of phases 18, 21 and 24: CLIP's id layout over a
+    # synthetic merges file (CLIP's own is not in the repository)
+    bpe_dir = tempfile.mkdtemp(prefix="chip_smoke_bpe_")
+    atexit.register(shutil.rmtree, bpe_dir, True)
+    t0 = time.perf_counter()
+    os.environ["SPEECHCLIP_BPE_PATH"] = write_synthetic_merges(
+        os.path.join(bpe_dir, "bpe_simple_vocab_16e6.txt.gz"))
+    say(f"tokenizer: synthetic merges file ({BPE_MERGES} merges) written in "
+        f"{time.perf_counter() - t0:.2f} s; SPEECHCLIP_BPE_PATH points at it")
     trainer = phase_trainer(smi, {"spchclp_p": cache_step, "spchclp_c": cache_step})
     torch.cuda.empty_cache()
 
@@ -4344,6 +5054,10 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     serving, serving_launches = phase_serving(smi)
     launches.update(serving_launches)
+    torch.cuda.empty_cache()
+    text_side = phase_text_side(smi)
+    torch.cuda.empty_cache()
+    upstreams, launches["apc"] = phase_upstreams(smi)
 
     kernels = []
     for name, (source, replaces, row, path) in REPLACES.items():
@@ -4375,7 +5089,8 @@ def main(argv) -> int:
     print(json.dumps({"kernels": kernels, "train": train, "trainer": trainer,
                       "large": {"encode_utt_per_s": large_rates, "train": large_train,
                                 "trainer": large_trainer},
-                      "trainable": trainable, "serving": serving}))
+                      "trainable": trainable, "serving": serving, "text_side": text_side,
+                      "upstreams": upstreams}))
     print(json.dumps({
         "ok": True,
         "device": {

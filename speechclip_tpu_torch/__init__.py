@@ -19,7 +19,10 @@ as the JAX package's ``custom_vjp``s do; and the trainer
 (``python -m speechclip_tpu_torch.run_task``: the YAML config tree read by
 ``config.load_config``, the bucketed Flickr8k / SpokenCOCO loaders of
 ``data/``, ``training/trainer.py``'s fit and validation, the checkpoints of
-``training/checkpoint.py``). The encoder
+``training/checkpoint.py``; with the CLIP tokenizer of
+``models/tokenizer.py``, the keyword diagnostics); the s3prl upstreams APC
+and CPC (``models/upstream.py``) in HuBERT's place; and ``ClipWrapper``
+(``models/clip_api.py``), the pooling heads and the text metrics. The encoder
 layers take the JAX package's length-dependent routes (``ops/attention.py``,
 ``kernels/fused_layer.py``) through hand-written Hopper kernels (``csrc/``:
 the two fused half-layers, whole-row attention, streaming flash attention
@@ -27,8 +30,8 @@ at any head width, and the stride-2 conv chain) on CUDA tensors, and
 through their plain PyTorch versions on CPU tensors. Entry points run on
 the card unless the caller passes ``device="cpu"``.
 
-The package imports torch, numpy and the standard library (PIL and scipy
-inside the functions that need them): never jax, yaml, regex or
+The package imports torch, numpy and the standard library (PIL, regex and
+scipy inside the functions that need them): never jax, yaml or
 speechclip_tpu.
 """
 

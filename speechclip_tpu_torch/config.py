@@ -38,6 +38,10 @@ from typing import Any, Iterable, Mapping, Optional, Tuple, Union
 
 from .models.hubert import HUBERT_BASE, HUBERT_LARGE, HubertConfig
 from .models.hubert import NAMED_CONFIGS as NAMED_HUBERT_CONFIGS
+from .models.upstream import APCConfig, CPCConfig, Upstream, resolve_upstream
+
+# the audio encoder: HuBERT, or an s3prl upstream's config (models/upstream.py)
+AudioConfig = Union[HubertConfig, APCConfig, CPCConfig]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,7 +214,9 @@ NAMED_CLIP_CONFIGS = {
 
 @dataclasses.dataclass(frozen=True)
 class SpeechCLIPConfig:
-    audio: HubertConfig = HUBERT_BASE
+    # HuBERT for "FairseqHubert" or the hubert family under "s3prl_plus";
+    # APCConfig / CPCConfig for the s3prl_plus upstreams apc / modified_cpc
+    audio: AudioConfig = HUBERT_BASE
     audio_encoder_type: str = "FairseqHubert"
     feat_select_idx: Union[str, Tuple[int, ...]] = "weighted_sum"
     normalize_hiddenstates: bool = False
@@ -890,7 +896,6 @@ def load_config(path: Optional[str] = None, overrides: Iterable[str] = (),
 # ConfigTree -> SpeechCLIPConfig
 # ---------------------------------------------------------------------------
 
-VARIANTS_ITEM = "the ROADMAP item 'Variants' (Queue 1 item 8)"
 DDP_ITEM = "the ROADMAP item 'DDP' (Queue 1 item 7)"
 EXPORT_ITEM = "the ROADMAP item 'export' (Queue 1 item 6)"
 
@@ -903,11 +908,27 @@ def _proj_dropout(node) -> float:
     return 0.1 if node is None else node.get("dropout", 0.1)
 
 
-def _audio_config(ae) -> HubertConfig:
-    if ae.type != "FairseqHubert":
-        raise NotImplementedError(
-            f"audio_encoder.type {ae.type!r}: custom upstreams (models/upstream.py) wait for "
-            f"{VARIANTS_ITEM}")
+def resolve_audio_upstream(ae) -> Optional[Upstream]:
+    """The upstream handle of an ``audio_encoder`` node whose type is
+    ``s3prl_plus`` with a registered non-HuBERT name (``upstream_args``
+    over its config's defaults, lists as tuples); None for
+    ``FairseqHubert`` and for the hubert family (JAX's
+    ``resolve_audio_upstream``). An unregistered name raises."""
+    if ae.type != "s3prl_plus":
+        return None
+    args = ae.get("upstream_args")
+    overrides = None if args is None else {
+        k: tuple(v) if isinstance(v, list) else v for k, v in args.to_dict().items()}
+    return resolve_upstream(ae.name, overrides)
+
+
+def _audio_config(ae) -> AudioConfig:
+    """The upstream's config (``resolve_audio_upstream``), else HuBERT's:
+    ``custom`` widths or the named preset, with ``conv_batch_chunk`` and
+    ``remat``."""
+    upstream = resolve_audio_upstream(ae)
+    if upstream is not None:
+        return upstream.cfg
     custom = ae.get("custom")
     if custom is not None:
         kwargs = dict(custom.to_dict())
@@ -997,9 +1018,8 @@ def model_config_from_tree(tree: ConfigTree) -> SpeechCLIPConfig:
     JAX ``SpeechCLIPModel`` and ``build_optimizer`` read it: a missing
     objective weight is 0.0, and a branch's section is read only when the
     branch is live (weight > 0); a dead branch keeps the dataclass default,
-    which nothing reads. What the port lacks
-    raises ``NotImplementedError`` naming its ROADMAP item: the other
-    upstreams."""
+    which nothing reads. An s3prl upstream outside the registry raises
+    ``NotImplementedError``, as in JAX."""
     ae, ms, clip = tree.audio_encoder, tree.model_settings, tree.clip
     clip_cfg = _clip_config(clip)
     select = ae.feat_select_idx

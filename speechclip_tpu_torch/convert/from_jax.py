@@ -6,7 +6,9 @@ packages keep linear weights as (in, out) for ``y = x @ w + b``, so those
 copy straight across. Convolution kernels change layout: JAX's WIO
 ``(k, in / groups, out)`` becomes torch's ``(out, in / groups, k)``, and
 HWIO ``(kh, kw, in, out)`` (the CLIP image towers' convs) becomes OIHW
-``(out, in, kh, kw)``. The CLIP towers (``clip``: ``visual``, ``text``,
+``(out, in, kh, kw)``. An s3prl upstream's ``audio_encoder`` comes across
+too: APC's ``prenet`` and GRU ``layers`` as they are (the GRU keeps JAX's
+(in, 3H) layout), CPC's ``convs`` turned from WIO and its ``gru``. The CLIP towers (``clip``: ``visual``, ``text``,
 ``logit_scale``) and the image projection (``img_enc_proj``) come across
 whatever the branches; so do a trainable loss temperature (``criterion``:
 ``log_inv_temp``, or SupCon's ``temp``; a fixed one is an empty subtree and
@@ -59,11 +61,14 @@ def speechclip_params_from_jax(tree: dict) -> dict:
     if "clip" in params:
         params["clip"]["visual"] = _hwio_to_oihw(params["clip"]["visual"])
     ae = params.get("audio_encoder")
-    if ae is not None:
+    if ae is not None and "feature_extractor" in ae:  # HuBERT
         for layer in ae["feature_extractor"]:
             layer["w"] = _wio_to_oik(layer["w"])
         pos = ae["encoder"]["pos_conv"]
         pos["w"] = _wio_to_oik(pos["w"])
+    elif ae is not None and "convs" in ae:  # the CPC upstream's conv encoder
+        for conv in ae["convs"]:
+            conv["w"] = _wio_to_oik(conv["w"])
     return params
 
 

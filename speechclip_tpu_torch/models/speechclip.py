@@ -45,6 +45,14 @@ encoder, ``forward_audio`` takes the weighted sum through
 and the logits' gradient recomputes the encoder in the backward. With a
 trainable encoder it does not engage, and the model warns once, as JAX's.
 
+With ``audio_encoder_type`` "s3prl_plus" and an ``APCConfig`` or
+``CPCConfig`` as ``audio`` (``models/upstream.py``), that upstream takes
+HuBERT's place in ``init`` and ``forward_audio`` (no kernel: log-mel or
+convs, and GRUs); its states feed the weighted sum or the named / indexed
+selection, ``wsum_remat`` does not engage, ``reinit_layers`` /
+``unfreeze_layers`` raise, and a configured weight file is refused with a
+warning (no s3prl weights offline), as in JAX.
+
 The model and ``cast_params`` run on the card unless the caller asks for
 the CPU (``device="cpu"``); without a card they raise.
 """
@@ -74,6 +82,7 @@ from ..ops.mlp import mlp_apply, mlp_init
 from ..ops.transformer import TRANSFORMER_TYPES
 from ..ops.weighted_sum import weighted_sum_apply, weighted_sum_init
 from . import branches, clip as clip_mod, hubert
+from .upstream import upstream_for_config, upstream_name
 
 WEIGHTED_SUM_MODE = "weighted_sum"
 LOSS_TYPES = ("MaskedContrastiveLoss", "SupConLoss")
@@ -140,12 +149,14 @@ def resolve_asset_path(path: str) -> str:
     return path
 
 
-def _warn_wsum_remat_blockers(config: SpeechCLIPConfig) -> None:
+def _warn_wsum_remat_blockers(config: SpeechCLIPConfig, upstream) -> None:
     """The JAX model's one warning when ``wsum_remat`` is set but the config
     rules the recompute out: the stack of hidden states stays live."""
     blockers = []
     if config.feat_select_idx != WEIGHTED_SUM_MODE:
         blockers.append(f"feat_select_idx={config.feat_select_idx!r} (needs 'weighted_sum')")
+    if upstream is not None:
+        blockers.append("a custom s3prl upstream is configured")
     if config.audio_trainable:
         blockers.append("audio_encoder.trainable=true (the backward recompute assumes a "
                         "frozen, deterministic encoder)")
@@ -193,16 +204,19 @@ class SpeechCLIPModel:
     functions over the params dict."""
 
     def __init__(self, config: SpeechCLIPConfig, device="cuda"):
-        if config.audio_encoder_type != "FairseqHubert":
-            raise NotImplementedError(
-                f"audio encoder {config.audio_encoder_type!r}: custom upstreams "
-                "wait for the ROADMAP item 'Variants' (models/upstream.py)"
-            )
+        if config.audio_encoder_type not in ("FairseqHubert", "s3prl_plus"):
+            raise NotImplementedError(f"audio encoder type {config.audio_encoder_type}")
+        # an s3prl upstream (models/upstream.py); None: HuBERT
+        name = upstream_name(config.audio)
+        if name is not None and config.audio_encoder_type != "s3prl_plus":
+            raise ValueError(f"the {name} upstream's config needs audio_encoder_type s3prl_plus")
+        self.upstream = None if name is None else upstream_for_config(name, config.audio)
         # forward_audio takes hubert_frozen_weighted_sum (JAX's conditions)
         self.wsum_remat_engaged = (config.wsum_remat and not config.audio_trainable
-                                   and config.feat_select_idx == WEIGHTED_SUM_MODE)
+                                   and config.feat_select_idx == WEIGHTED_SUM_MODE
+                                   and self.upstream is None)
         if config.wsum_remat and not self.wsum_remat_engaged:
-            _warn_wsum_remat_blockers(config)
+            _warn_wsum_remat_blockers(config, self.upstream)
         if (config.reinit_layers or config.unfreeze_layers) and not config.audio_trainable:
             raise ValueError(
                 "reinit_layers/unfreeze_layers require audio_trainable: otherwise the "
@@ -253,7 +267,8 @@ class SpeechCLIPModel:
         not depend on them."""
         cfg = self.config
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        params: Params = {"audio_encoder": hubert.hubert_init(gen, self.audio_cfg)}
+        params: Params = {"audio_encoder": (hubert.hubert_init(gen, self.audio_cfg)
+                                            if self.upstream is None else self.upstream.init(gen))}
         cl = cfg.cl_loss
         if cl.type == "MaskedContrastiveLoss":
             criterion = contrastive_temp_init(cl.temperature, cl.temperature_trainable,
@@ -316,6 +331,12 @@ class SpeechCLIPModel:
                                    cast_params(new, self.compute_dtype, self.device))
 
         ae_path = self.config.audio_pretrained_path
+        if ae_path and self.upstream is not None:
+            logger.warning(
+                "pretrained weights for generic s3prl upstream %s are not available offline; "
+                "keeping random init (the reference supports pretrained=False the same way, "
+                "speech_encoder_plus.py:151-152)", self.upstream.name)
+            ae_path = None
         if ae_path:
             if os.path.exists(ae_path):
                 from ..convert.from_torch import load_hubert_checkpoint
@@ -325,6 +346,10 @@ class SpeechCLIPModel:
             else:
                 logger.warning("HuBERT checkpoint %s not found; random init", ae_path)
         reinit = self.config.reinit_layers
+        if reinit and self.upstream is not None:
+            raise NotImplementedError(
+                "reinit_layers is a hubert-family feature (the reference gates it on "
+                "name.startswith('hubert') too, speech_encoder_plus.py:157-183)")
         if reinit:
             fresh = hubert.hubert_init(torch.Generator(device=self.device).manual_seed(0),
                                        self.audio_cfg)["encoder"]["layers"]
@@ -381,10 +406,15 @@ class SpeechCLIPModel:
                 norm_type=self.hidden_norm_type, plain=plain)
         trainable = self.config.audio_trainable
         with _grad_unless(frozen=not trainable):
-            hidden_states, feat_len = hubert.hubert_apply(
-                params["audio_encoder"], self.audio_cfg, wav, wav_len, plain=plain,
-                train=train and trainable, generator=generator,
-            )
+            if self.upstream is not None:
+                hidden_states, feat_len = self.upstream.apply(
+                    params["audio_encoder"], wav, wav_len, generator=generator,
+                    train=train and trainable)
+            else:
+                hidden_states, feat_len = hubert.hubert_apply(
+                    params["audio_encoder"], self.audio_cfg, wav, wav_len, plain=plain,
+                    train=train and trainable, generator=generator,
+                )
         if self.hidden_norm_type in ("method1", "method2"):
             hidden_states = hubert.normalize_hidden_states(
                 hidden_states, self.hidden_norm_type
@@ -618,9 +648,15 @@ class SpeechCLIPModel:
         if selected and not cfg.audio_trainable:
             raise ValueError("reinit_layers/unfreeze_layers require audio_trainable")
 
+        if selected and self.upstream is not None:
+            raise NotImplementedError("reinit/unfreeze_layers are hubert-family features "
+                                      "(reference speech_encoder_plus.py:157-198)")
+
         mask: Params = {}
         for key, sub in params.items():
-            if key == "audio_encoder":
+            if key == "audio_encoder" and self.upstream is not None:
+                mask[key] = _same(sub, cfg.audio_trainable)
+            elif key == "audio_encoder":
                 mask[key] = _same(sub, cfg.audio_trainable and not selected)
                 encoder = mask[key]["encoder"]
                 for i in selected:

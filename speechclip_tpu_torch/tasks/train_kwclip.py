@@ -4,6 +4,9 @@ speechclip_tpu/tasks/train_kwclip.py): the config tree (a YAML file and
 for ``--resume``, with the CLI's settings applied again), then
 ``Trainer.fit`` (``--train``) or ``Trainer.validate`` on the dev split
 (``--eval``) or the test split (``--test``) from ``--ckpt`` / ``--resume``.
+The trainer gets the CLIP tokenizer where ``default_bpe_path`` finds the
+merges file (``data.dataset.tokenizeText`` and the keyword diagnostics use
+it); without the file the run warns and goes on without them.
 
 Checkpoints are the port's own run directories or a reference Lightning
 ``.ckpt`` (``--ckpt`` / ``--resume``), converted by
@@ -23,9 +26,10 @@ import torch
 
 from ..config import DDP_ITEM, load_config, parse_override_value
 from ..convert.reference_ckpt import load_reference_checkpoint
+from ..models.tokenizer import CLIPTokenizer
 from ..training.checkpoint import load_config_from_checkpoint
 from ..training.logging import set_logging
-from ..training.trainer import TOKENIZER_ITEM, Trainer
+from ..training.trainer import Trainer
 from .base_task import BaseTask
 
 logger = logging.getLogger(__name__)
@@ -35,6 +39,17 @@ def _seed_everything(seed: int) -> None:
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
+
+
+def _build_tokenizer():
+    """The CLIP tokenizer over the merges file ``default_bpe_path`` finds;
+    None, with JAX's warning, where there is none."""
+    try:
+        return CLIPTokenizer()
+    except FileNotFoundError:
+        logger.warning("CLIP BPE merges file not found (SPEECHCLIP_BPE_PATH); text "
+                       "tokenization and keyword diagnostics disabled")
+        return None
 
 
 class TrainKWClip_GeneralTransformer(BaseTask):
@@ -70,9 +85,7 @@ class TrainKWClip_GeneralTransformer(BaseTask):
             key, _, value = ov.partition("=")
             config.set_path(key.strip(), parse_override_value(value.strip()))
 
-        logger.warning("the CLIP tokenizer is not in the port yet (%s); text tokenization and "
-                       "keyword diagnostics disabled", TOKENIZER_ITEM)
-        trainer = self.trainer = Trainer(config, tokenizer=None, device=device)
+        trainer = self.trainer = Trainer(config, tokenizer=_build_tokenizer(), device=device)
         self.config = config
 
         if args.train:

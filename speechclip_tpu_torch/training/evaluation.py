@@ -4,13 +4,16 @@ outputs are collected on the host, the image features deduplicated by
 pair id (five captions share one image), the full audio x image score
 matrix built in f32 with TF32 off on the device, and recall@k computed in
 both directions; for the cascaded branch, each keyword's nearest subwords
-(cosine or pseudo-inverse) and their hit rate against the gold captions.
+(cosine or pseudo-inverse) and their hit rate against the gold captions,
+dumped as JSON by ``run_keyword_diagnostics``.
 """
 
 from __future__ import annotations
 
+import json
 import logging
-from typing import Dict, List, Sequence, Tuple
+import os
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -121,3 +124,42 @@ def detokenize_keywords(
             records.append({"gold": gold, "neighbors": neighbors})
     hit_rate = hit_rate / max(n, 1) * 100.0
     return hit_rate, records, kw_top_ret
+
+
+def run_keyword_diagnostics(
+    model,
+    collected: Dict,
+    token_embedding,  # (V, D) tensor or array
+    tokenizer,
+    output_dir: str,
+    epoch: int,
+    kw_cfg: Optional[Mapping] = None,
+) -> Optional[Dict[str, float]]:
+    """The keyword diagnostics of a validation (JAX's
+    ``run_keyword_diagnostics``, the reference's kwClip.py:278-466):
+    ``detokenize_keywords`` over the collected keywords and ``gold_text``
+    with ``kw_cfg``'s ``detokenized_K_neighbors`` (10) and
+    ``retrieve_method`` ("cosine"), ``kw_cfg`` being the run's
+    ``model_settings.cascaded_branch.keyword`` node; writes
+    ``kw_hit_ep{epoch}.json`` (each keyword's hit token ids) and
+    ``keywords_ep{epoch}.json`` (the neighbour records) under
+    ``output_dir``. -> {"kw_i": hit rate x100}, or None without keywords,
+    gold text or a tokenizer."""
+    if "keywords" not in collected or tokenizer is None:
+        return None
+    gold = collected.get("gold_text")
+    if gold is None:
+        return None
+    os.makedirs(output_dir, exist_ok=True)
+    kw_cfg = kw_cfg or {}
+    hit_rate, records, kw_top_ret = detokenize_keywords(
+        collected["keywords"], _host(token_embedding), gold, tokenizer,
+        reduced_vocab=model.reduced_vocab,
+        k_neighbors=kw_cfg.get("detokenized_K_neighbors", 10),
+        retrieve_method=kw_cfg.get("retrieve_method", "cosine"),
+    )
+    with open(os.path.join(output_dir, f"kw_hit_ep{epoch}.json"), "w") as f:
+        json.dump(kw_top_ret, f)
+    with open(os.path.join(output_dir, f"keywords_ep{epoch}.json"), "w") as f:
+        json.dump(records, f)
+    return {f"kw_{i}": float(hit_rate[i]) for i in range(len(hit_rate))}

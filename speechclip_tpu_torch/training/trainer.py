@@ -10,9 +10,11 @@ the frozen image tower run once over the unique images), then loops over
 epochs: train steps (``train_step.make_train_step``) on batches staged on
 the card ahead of use, metrics logged every ``trainer.log_every_n_steps``,
 and every ``trainer.check_val_every_n_epoch`` epochs a validation (losses
-over the full batches, recall@k both ways) and the checkpoints of
-``CheckpointManager``'s policy. ``fit(resume=...)`` continues a run from a
-checkpoint; ``resume="auto"`` from the run's own ``ckpts/last``.
+over the full batches, recall@k both ways; for the cascaded branch with a
+tokenizer, the keyword diagnostics of ``run_keyword_diagnostics``) and the
+checkpoints of ``CheckpointManager``'s policy. ``fit(resume=...)``
+continues a run from a checkpoint; ``resume="auto"`` from the run's own
+``ckpts/last``.
 
 One card: ``trainer.model_parallel > 1`` raises (data-parallel training
 waits for the DDP item of ROADMAP.md). The host waits on the card only at
@@ -37,7 +39,7 @@ from ..data.loader import BucketedLoader
 from ..models.speechclip import SpeechCLIPModel
 from ..ops.schedules import get_schedule
 from .checkpoint import STATE_FILE, CheckpointManager
-from .evaluation import collect_validation_outputs, retrieval_metrics
+from .evaluation import collect_validation_outputs, retrieval_metrics, run_keyword_diagnostics
 from .logging import MetricsLogger
 from .optim import build_optimizer
 from .train_step import (
@@ -51,7 +53,6 @@ from .train_step import (
 )
 
 logger = logging.getLogger(__name__)
-TOKENIZER_ITEM = "the ROADMAP item 'The tokenizer and its users' (Queue 1 item 3)"
 
 
 def _inject_cached_image_feats(batch: Dict[str, np.ndarray], cache: np.ndarray,
@@ -369,13 +370,15 @@ class Trainer:
                 if img_cache is not None:
                     batch = _inject_cached_image_feats(batch, img_cache, id2row)
                 padded, n_valid = _pad_batch(batch, batch_size)
-                yield to_device(padded, self.model.device), n_valid
+                yield to_device(padded, self.model.device), n_valid, batch
 
-        for dev_batch, n_valid in staged(prepared()):
+        for dev_batch, n_valid, batch in staged(prepared()):
             out = self._eval_step(state, dev_batch)
             rec = {k: out[k][:n_valid] for k in ("id", "audio_feat", "image_feat")}
             if "keywords" in out:
                 rec["keywords"] = out["keywords"][:n_valid]
+                if "text" in batch and self.tokenizer is not None:
+                    rec["gold_text"] = [self._gold_text(row) for row in batch["text"][:n_valid]]
             outputs.append(rec)
             host = {k: float(v) for k, v in out["metrics"].items()}
             if n_valid == batch_size:
@@ -407,7 +410,24 @@ class Trainer:
         if (self.config.get_path("log_setting.log_detokenize_results", True)
                 and self.model.use_cascaded and self.tokenizer is not None
                 and "keywords" in collected and epoch % max(every_n, 1) == 0):
-            raise NotImplementedError(
-                f"keyword diagnostics (run_keyword_diagnostics) need the CLIP tokenizer, which "
-                f"waits for {TOKENIZER_ITEM}")
+            t0 = time.perf_counter()
+            hits = run_keyword_diagnostics(
+                self.model, collected, state.params["clip"]["text"]["token_embedding"],
+                self.tokenizer,
+                os.path.join(self.workdir, "detokenizeText"), epoch,
+                self.config.get_path("model_settings.cascaded_branch.keyword"))
+            self.loop_stats.setdefault("diagnostics", []).append(
+                (epoch, time.perf_counter() - t0))
+            if hits:
+                metrics["kw_hit_rate"] = hits
         return metrics
+
+    def _gold_text(self, row) -> str:
+        """A tokenized caption row [SOT, ids..., EOT, 0...] -> its text: cut
+        at the EOT, a leading SOT dropped (id 0 is the real token '!', so
+        the pad is not told apart by value)."""
+        toks = [int(t) for t in row]
+        eot = self.tokenizer.eot_id
+        end = toks.index(eot) if eot in toks else len(toks)
+        start = 1 if toks and toks[0] == self.tokenizer.sot_id else 0
+        return self.tokenizer.decode(toks[start:end])

@@ -263,9 +263,19 @@ def test_base_hubert_is_jax_hubert_base():
 
 @pytest.mark.parametrize("field, value", [("audio_encoder_type", "s3prl_plus")])
 def test_out_of_slice_configs_raise(field, value):
+    """s3prl_plus over HuBERT's config builds HuBERT (JAX maps the hubert
+    family to its own module); an audio encoder type outside FairseqHubert
+    and s3prl_plus raises as JAX's does, and so does an upstream's config
+    under FairseqHubert."""
+    from speechclip_tpu_torch.models.upstream import APCConfig
+
     cfg = dataclasses.replace(port_config.tiny_config(), **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpeechCLIPModel(cfg, device="cpu")
+    assert SpeechCLIPModel(cfg, device="cpu").upstream is None
+    with pytest.raises(NotImplementedError, match="audio encoder type Wav2Vec2"):
+        SpeechCLIPModel(dataclasses.replace(cfg, audio_encoder_type="Wav2Vec2"), device="cpu")
+    with pytest.raises(ValueError, match="s3prl_plus"):
+        SpeechCLIPModel(dataclasses.replace(port_config.tiny_config(), audio=APCConfig()),
+                        device="cpu")
 
 
 @pytest.mark.parametrize("field", ["audio_trainable", "image_encoder_trainable",

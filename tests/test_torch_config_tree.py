@@ -15,6 +15,7 @@ import pytest
 import yaml
 
 from speechclip_tpu.config import ConfigNode, load_config as jax_load_config
+from speechclip_tpu.models.speechclip import resolve_tower_configs
 from speechclip_tpu_torch.config import (
     BranchConfig,
     CascadedBranchConfig,
@@ -187,10 +188,18 @@ def test_large_configs_equal_port_config_from_jax(path, remat):
     assert model.hidden_norm_type == "s3prl" and model.reduced_vocab is not None
 
 
-@pytest.mark.parametrize("override, item", [("audio_encoder.type=s3prl_plus", "Variants")])
+@pytest.mark.parametrize("override, item", [("audio_encoder.name=wav2vec2_xlsr",
+                                             "offline registry")])
 def test_what_the_port_lacks_raises_naming_its_item(override, item):
+    """An s3prl_plus upstream outside the registry raises, in JAX and here,
+    naming the registry; the hubert family under s3prl_plus reads as HuBERT."""
+    overrides = ["audio_encoder.type=s3prl_plus"]
     with pytest.raises(NotImplementedError, match=item):
-        model_config_from_tree(load_config(BASE[1], overrides=[override]))
+        model_config_from_tree(load_config(BASE[1], overrides=overrides + [override]))
+    with pytest.raises(NotImplementedError, match=item):
+        resolve_tower_configs(jax_load_config(BASE[1], overrides=overrides + [override]))
+    got = model_config_from_tree(load_config(BASE[1], overrides=overrides))
+    assert got.audio == model_config_from_tree(load_config(BASE[1])).audio
 
 
 def test_config_tree_pickles_and_merges_like_config_node():

@@ -161,7 +161,9 @@ def test_port_imports_no_jax_yaml_or_reference_package():
             importlib.import_module(name)
         for sub in ("data.loader", "data.datasets", "data.native", "training.trainer",
                     "training.checkpoint", "training.logging", "tasks.train_kwclip",
-                    "run_task", "convert.from_torch"):
+                    "run_task", "convert.from_torch", "models.tokenizer", "models.clip_api",
+                    "models.upstream", "ops.pooling", "utils.metrics",
+                    "utils.penalty_scheduler", "data.vocab_stats", "example"):
             assert "speechclip_tpu_torch." + sub in names, sub
         assert not bad(), bad()
 
