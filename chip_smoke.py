@@ -197,7 +197,26 @@ line each (a failed check exits non-zero before the last line):
     log-mel, GRU-stack and branch times and cuDNN's GRU beside the step
     loop (timed only); one train step at B = 64 (finite loss, the frozen
     upstream unchanged, the branch and weighted sum moved); and
-    ``modified_cpc`` with ``feat_select_idx`` [1]: one forward at B = 64.
+    ``modified_cpc`` with ``feat_select_idx`` [1]: one forward at B = 64;
+26. export and the artifact backend (run right after phase 23): phase 23's
+    checkpoint exported by ``python -m speechclip_tpu_torch.export`` in a
+    subprocess (``--batch 32 --wav-samples 102400 272000 --dtype bf16
+    --compact-wav``: ``encode_speech@<n>.pt2``, ``encode_image.pt2``,
+    ``encode_text.pt2``), and through the Python API ``encode_speech`` at
+    6.4 s and ``encode_text`` under "pallas" (both ``flash_attention``
+    forms) and a polymorphic ``encode_speech`` (the same weights,
+    ``conv_batch_chunk`` 0); each artifact's export seconds and MB; each
+    loaded in a fresh process that must not import the model code, its
+    graph's kernel nodes equal to ``_expected_launches`` for its surface
+    and bucket and one call's launches equal to its nodes; the artifacts
+    against the direct calls on seeded inputs (max abs difference and
+    whether bitwise; per-row cosine 0.99999, keyword ids and ``retrieve``'s
+    top-10 equal), the polymorphic one at B = 1, 3 and 32; where the host
+    first waits for the card in an artifact call and in the direct call
+    (``set_sync_debug_mode("error")``); then the CLI's artifacts served by
+    ``EncoderService(artifact_dir)`` with phase 23's drives (launches per
+    batch times the batches, no plain version on a CUDA tensor), utt/s and
+    p50 / p99 printed beside phase 23's.
 
 Rates (utt/s, images/s, sequences/s) come from CUDA events around as many
 back-to-back calls as fill about 1 s.
@@ -232,7 +251,7 @@ right after, so the counts in the summary are that path's own.
 
 The last lines are a JSON summary of the kernels (with their backward
 rows and recompute counts), of the timed train step, of the trainer, of
-serving, of the text side and of the upstreams and, last,
+serving, of export, of the text side and of the upstreams and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 
@@ -2687,15 +2706,15 @@ def _seeded_image_dataset():
 
 
 def _encoder_layer_launches(b, t, d, heads, f):
-    """The kernel launches of one encoder layer of (b, t, d) in bf16 under
-    "auto", from the gates: the fused half-layers where ``block_eligible``
+    """The kernel launches of one encoder layer of (b, t, d) in bf16, from
+    the gates: under "auto" the fused half-layers where ``block_eligible``
     (``ffn_block`` where ``ffn_eligible`` too), else the unfused layer's
-    attention route."""
+    attention route (under "pallas" ``flash_attention``)."""
     from speechclip_tpu_torch.kernels.ffn_block import ffn_eligible
     from speechclip_tpu_torch.kernels.mha_block import block_eligible
-    from speechclip_tpu_torch.ops.attention import attention_route
+    from speechclip_tpu_torch.ops.attention import attention_route, get_attention_backend
 
-    if block_eligible(b, t, d, heads, 2):
+    if get_attention_backend() == "auto" and block_eligible(b, t, d, heads, 2):
         return {"mha_layer_block": 1, "ffn_block": int(ffn_eligible(b, t, d, f, 2))}
     route = attention_route(b, t, t, d, heads, 2)
     return {route: 1} if route in ("attention_vmem", "flash_attention") else {}
@@ -4343,6 +4362,66 @@ def _split_summary(rec):
             "batches": len(rec["rows"])}
 
 
+def _serving_wavs():
+    """bench.py's pool (8 wavs of 3.2-6.4 s) and the 17 s drive's wavs, from
+    one seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    pool = [rng.standard_normal(n).astype(np.float32)
+            for n in np.linspace(WAV_SAMPLES // 2, WAV_SAMPLES, 8).astype(int)]
+    n_long, lo, hi = SERVING_LONG
+    long_wavs = [rng.standard_normal(n).astype(np.float32) * 0.1
+                 for n in np.linspace(lo * TRAINER_SR, hi * TRAINER_SR, n_long).astype(int)]
+    return pool, long_wavs
+
+
+def _serving_drives(service, pool, long_wavs):
+    """The serving drives of phases 23 and 26 on a service with a 6.4 s and
+    a 17 s bucket: an untimed half drive, then SERVING_DRIVES timed drives
+    of SERVING_REQUESTS at SERVING_CONCURRENCY over ``pool`` (the worker's
+    split recorded), then the 17 s drive; each bucket's launch counts set
+    to 0 before its drives and read after. -> the rates, latencies,
+    launches and batches."""
+    import torch
+
+    from speechclip_tpu_torch.serving import drive_requests
+
+    short, long = service._speech_buckets
+    counters = _counters()
+    drive_requests(service, pool, SERVING_REQUESTS // 2, SERVING_CONCURRENCY)
+    batches0 = short["batcher"].batches_run
+    _reset(counters)
+    rates, latencies = [], []
+    split = {"start": [], "rows": [], "dispatch_ms": [], "call_ms": []}
+    with _worker_split(service, short, split):
+        for _ in range(SERVING_DRIVES):
+            elapsed, lat = drive_requests(service, pool, SERVING_REQUESTS, SERVING_CONCURRENCY)
+            rates.append(SERVING_REQUESTS / elapsed)
+            latencies += lat
+    torch.cuda.synchronize()
+    out = {"rates": rates, "latencies": latencies, "split": _split_summary(split),
+           "short_launches": {n: f.launches for n, f in counters.items()},
+           "short_batches": short["batcher"].batches_run - batches0}
+    batches0 = long["batcher"].batches_run
+    _reset(counters)
+    out["long_elapsed"], out["long_lat"] = drive_requests(service, long_wavs, len(long_wavs),
+                                                          len(long_wavs))
+    torch.cuda.synchronize()
+    out["long_launches"] = {n: f.launches for n, f in counters.items()}
+    out["long_batches"] = long["batcher"].batches_run - batches0
+    return out
+
+
+def _expect_drive_launches(label, drives, short, long, expect):
+    """Each bucket's launches in ``_serving_drives`` equal ``expect`` (per
+    batch, by wav length) times its batches."""
+    for launches, batches, bucket in ((drives["short_launches"], drives["short_batches"], short),
+                                      (drives["long_launches"], drives["long_batches"], long)):
+        want = {n: k * batches for n, k in expect[bucket["wav_samples"]].items()}
+        _expect_launches(f"{label} {bucket['wav_samples']}-sample bucket", launches, **want)
+
+
 def phase_serving(smi):
     """Phase 23: serve the seeded flagship checkpoint at bench.py's b32
     serving point through ``EncoderService.from_checkpoint``: utt/s and
@@ -4356,7 +4435,7 @@ def phase_serving(smi):
 
     from speechclip_tpu_torch.models.hubert import conv_output_length
     from speechclip_tpu_torch.ops.attention import attention_route
-    from speechclip_tpu_torch.serving import EncoderService, drive_requests
+    from speechclip_tpu_torch.serving import EncoderService
 
     t_phase = time.perf_counter()
     rec = {"plain_on_cuda": []}
@@ -4383,41 +4462,16 @@ def phase_serving(smi):
                 cb = model.config.cascaded_branch
                 heads[t] = attention_route(SERVING_BATCH, cb.keyword_number + t,
                                            cb.keyword_number + t, cb.d_model, cb.nhead, 2)
-            rng = np.random.default_rng(0)  # bench.py's pool: 8 wavs of 3.2-6.4 s
-            pool = [rng.standard_normal(n).astype(np.float32)
-                    for n in np.linspace(WAV_SAMPLES // 2, WAV_SAMPLES, 8).astype(int)]
+            pool, long_wavs = _serving_wavs()
             n_long, lo, hi = SERVING_LONG
-            long_wavs = [rng.standard_normal(n).astype(np.float32) * 0.1
-                         for n in np.linspace(lo * TRAINER_SR, hi * TRAINER_SR, n_long).astype(int)]
-            counters = _counters()
             with _plain_guard(rec):
-                drive_requests(service, pool, SERVING_REQUESTS // 2, SERVING_CONCURRENCY)
-                batches0 = short["batcher"].batches_run
-                _reset(counters)
-                rates, latencies = [], []
-                split = {"start": [], "rows": [], "dispatch_ms": [], "call_ms": []}
-                with _worker_split(service, short, split):
-                    for _ in range(SERVING_DRIVES):
-                        elapsed, lat = drive_requests(service, pool, SERVING_REQUESTS,
-                                                      SERVING_CONCURRENCY)
-                        rates.append(SERVING_REQUESTS / elapsed)
-                        latencies += lat
-                torch.cuda.synchronize()
-                split = _split_summary(split)
-                short_launches = {n: f.launches for n, f in counters.items()}
-                short_batches = short["batcher"].batches_run - batches0
-                batches0 = long["batcher"].batches_run
-                _reset(counters)
-                elapsed, long_lat = drive_requests(service, long_wavs, n_long, n_long)
-                torch.cuda.synchronize()
-                long_launches = {n: f.launches for n, f in counters.items()}
-                long_batches = long["batcher"].batches_run - batches0
+                drives = _serving_drives(service, pool, long_wavs)
                 http = _http_checks(service, root)
-            for launches, batches, bucket in ((short_launches, short_batches, short),
-                                              (long_launches, long_batches, long)):
-                want = {n: k * batches for n, k in expect[bucket["wav_samples"]].items()}
-                _expect_launches(f"phase 23 {bucket['wav_samples']}-sample bucket", launches,
-                                 **want)
+            rates, latencies, split = drives["rates"], drives["latencies"], drives["split"]
+            short_launches, short_batches = drives["short_launches"], drives["short_batches"]
+            long_launches, long_batches = drives["long_launches"], drives["long_batches"]
+            elapsed, long_lat = drives["long_elapsed"], drives["long_lat"]
+            _expect_drive_launches("phase 23", drives, short, long, expect)
             if rec["plain_on_cuda"]:
                 fail(f"phase 23: plain kernel versions ran on CUDA tensors: "
                      f"{sorted(set(rec['plain_on_cuda']))}")
@@ -4482,6 +4536,422 @@ def phase_serving(smi):
         f"({http['image_form']} images); no plain kernel on a CUDA tensor; phase wall "
         f"{time.perf_counter() - t_phase:.1f} s")
     return out, {"serving 6.4s": short_launches, "serving 17s": long_launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 26: export and the artifact backend
+# ---------------------------------------------------------------------------
+ARTIFACT_POLY_BATCHES = (1, 3, 32)  # the polymorphic artifact's batches
+ARTIFACT_TEXT_BATCH = 32
+ARTIFACT_MIN_COSINE = 0.99999  # per row, an artifact's features against the direct call
+# The loader of the artifacts: one fresh process each (``export.load_program``
+# imports the kernels' op registrations and nothing of the model code), one
+# call on zeros of the program's input shapes (a polymorphic batch at 2);
+# prints the graph's kernel nodes, the call's launches, the load seconds and
+# the port's modules under ``models`` that the process imported.
+ARTIFACT_LOADER = """
+import importlib, json, sys, time
+t0 = time.perf_counter()
+import torch
+from speechclip_tpu_torch.export import kernel_nodes, load_program
+program = load_program(sys.argv[1])
+load_s = time.perf_counter() - t0
+args = []
+for node in program.graph.nodes:
+    if node.op == "placeholder" and node.name in program.graph_signature.user_inputs:
+        val = node.meta["val"]
+        shape = [d if isinstance(d, int) else 2 for d in val.shape]
+        args.append(torch.zeros(shape, dtype=val.dtype, device="cuda"))
+if len(args) == 2 and args[0].dim() == 2 and args[1].dim() == 1 and args[0].shape[1] > 77:
+    args[1].fill_(args[0].shape[1])  # speech: full-length rows
+with torch.inference_mode():
+    program.module()(*args)
+torch.cuda.synchronize()
+mods = {"mha_layer_block": "mha_block", "ffn_block": "ffn_block",
+        "attention_vmem": "attention_vmem", "flash_attention": "flash_attention",
+        "fused_conv_chain": "conv_frontend"}
+launches = {}
+for name, mod in mods.items():
+    m = sys.modules.get("speechclip_tpu_torch.kernels." + mod)
+    launches[name] = getattr(m, name).launches if m else 0
+print(json.dumps({"nodes": kernel_nodes(program), "launches": launches, "load_s": load_s,
+                  "models": sorted(m for m in sys.modules
+                                   if m.startswith("speechclip_tpu_torch.models"))}))
+"""
+
+
+def _nonzero(counts):
+    return {n: k for n, k in counts.items() if k}
+
+
+def _export_cli(ckpt, out):
+    """``python -m speechclip_tpu_torch.export`` in a subprocess at phase
+    23's serving point; -> {artifact stem: {"mb", "export_s"}} from its
+    lines, and the command's wall seconds."""
+    cmd = [sys.executable, "-m", "speechclip_tpu_torch.export", "--ckpt", ckpt, "--out", out,
+           "--batch", str(SERVING_BATCH), "--wav-samples", *map(str, SERVING_BUCKETS),
+           "--dtype", "bf16", "--compact-wav"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"phase 26: the export CLI failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    written = {}
+    for m in re.finditer(r"wrote (\S+) \(([\d.]+) MB, exported in ([\d.]+) s", proc.stdout):
+        written[os.path.basename(m.group(1))[:-4]] = {"mb": float(m.group(2)),
+                                                       "export_s": float(m.group(3))}
+    return written, wall, " ".join(cmd[1:])
+
+
+def _start_fresh_loads(paths):
+    """Start one fresh process per artifact (all together) that loads it
+    and calls it once (ARTIFACT_LOADER); -> {path: process}."""
+    return {p: subprocess.Popen([sys.executable, "-c", ARTIFACT_LOADER, p],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for p in paths}
+
+
+def _finish_fresh_loads(procs):
+    """Wait for ``_start_fresh_loads``' processes; -> {path: the loader's
+    JSON}."""
+    out = {}
+    for p, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for other in procs.values():
+                other.kill()
+            fail(f"phase 26: loading {p} in a fresh process did not finish in 600 s")
+        if proc.returncode != 0:
+            fail(f"phase 26: loading {p} in a fresh process failed:\n{stderr[-3000:]}")
+        out[p] = json.loads(stdout.strip().splitlines()[-1])
+    return out
+
+
+def _feature_agreement(label, got, want, table=None, gallery=None):
+    """An artifact's features against the direct call's: max abs diff and
+    bitwise equality, per-row cosine (ARTIFACT_MIN_COSINE) of each feature,
+    keyword ids (VQ argmax against ``table``) equal, and retrieve's top-10
+    against ``gallery`` equal."""
+    import torch
+
+    from speechclip_tpu_torch import retrieve
+    from speechclip_tpu_torch.models import branches
+
+    got = got if isinstance(got, dict) else {"feat": got}
+    want = want if isinstance(want, dict) else {"feat": want}
+    if sorted(got) != sorted(want):
+        fail(f"phase 26 {label}: outputs {sorted(got)}, the direct call's {sorted(want)}")
+    out = {"max_abs_diff": max(float((got[k].float() - want[k].float()).abs().max())
+                               for k in got),
+           "bitwise": all(torch.equal(got[k], want[k]) for k in got)}
+    feats = [k for k in got if k != "keywords"]
+    out["min_cosine"] = min(row_cosine_min(got[k], want[k]) for k in feats)
+    if not all(bool(torch.isfinite(got[k].float()).all()) for k in got):
+        fail(f"phase 26 {label}: non-finite outputs")
+    if out["min_cosine"] < ARTIFACT_MIN_COSINE:
+        fail(f"phase 26 {label}: features disagree with the direct call ({out})")
+    if "keywords" in got:
+        ids = lambda kw: branches.cosine_scores(kw, table).argmax(-1)
+        if not torch.equal(ids(got["keywords"]), ids(want["keywords"])):
+            fail(f"phase 26 {label}: keyword ids differ from the direct call's")
+        out["keyword_ids_equal"] = True
+    if gallery is not None:
+        for k in feats:
+            if not torch.equal(retrieve(got[k].float(), gallery, TOPK)[1],
+                               retrieve(want[k].float(), gallery, TOPK)[1]):
+                fail(f"phase 26 {label}: retrieve's top-{TOPK} of {k} differs")
+        out["top10_equal"] = True
+    return out
+
+
+def _sync_site(fn):
+    """Run ``fn`` with ``torch.cuda.set_sync_debug_mode("error")``: the first
+    operation that makes the host wait for the card raises; -> that
+    operation's line in the innermost generated graph frame (or the port's
+    frame), or None when nothing waited."""
+    import traceback
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        frames = traceback.extract_tb(e.__traceback__)
+        inner = [f for f in frames if f.filename.startswith("<eval_with_key")
+                 or "speechclip_tpu_torch" in f.filename]
+        site = inner[-1] if inner else frames[-1]
+        return f"{os.path.basename(site.filename)}:{site.lineno} {(site.line or '').strip()}"
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return None
+
+
+def _artifact_expect(model):
+    """Each phase-26 artifact's kernel nodes (and launches a call), from
+    the gates: the CLI's speech buckets and the polymorphic artifact as
+    ``_expected_launches`` gives a 6.4 s / 17 s batch of 32; the image tower
+    from ``_tower_launches``; the bf16 text tower's 77 causal rows none under
+    "auto"; under "pallas" the speech surface's every attention and the f32
+    text tower's 12 causal layers on ``flash_attention``."""
+    from speechclip_tpu_torch.ops.attention import attention_backend, attention_route
+
+    short_n = SERVING_BUCKETS[0]
+    expect = {f"encode_speech@{n}": _expected_launches(model, SERVING_BATCH, n, False)
+              for n in SERVING_BUCKETS}
+    expect["encode_image"] = _tower_launches(model, SERVING_BATCH)
+    expect["encode_text"] = {}
+    text = model.clip_cfg
+    with attention_backend("pallas"):
+        expect["pallas_speech"] = _expected_launches(model, SERVING_BATCH, short_n, False)
+        route = attention_route(ARTIFACT_TEXT_BATCH, text.context_length, text.context_length,
+                                text.width, text.heads, 4, causal=True)
+    expect["pallas_text"] = {route: text.layers} if route == "flash_attention" else {}
+    expect["poly_speech"] = expect[f"encode_speech@{short_n}"]
+    return expect
+
+
+def _artifact_checks(model, params, state, paths, service, launches, out, rec):
+    """Phase 26's agreement: each artifact called on seeded inputs (the
+    CLI's through ``service``'s loaded programs, the API's loaded here),
+    one call's launches against its expected nodes, its outputs against
+    the direct call (``_feature_agreement``); the polymorphic artifact at
+    ARTIFACT_POLY_BATCHES; the first host wait of an artifact call and of
+    the direct call. -> (checks, the polymorphic checks, the expected
+    nodes)."""
+    import torch
+
+    from speechclip_tpu_torch.export import cast_float_params, load_program
+    from speechclip_tpu_torch.ops.attention import attention_backend
+
+    expect = _artifact_expect(model)
+    short_n, long_n = SERVING_BUCKETS
+    p16 = cast_float_params(params, torch.bfloat16)
+    table = params["clip"]["text"]["token_embedding"]
+    table16 = p16["clip"]["text"]["token_embedding"]
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    gallery = torch.nn.functional.normalize(
+        torch.randn(GALLERY, model.config.clip_embed_dim, generator=gen, device="cuda"), dim=-1)
+    served = {f"encode_speech@{b['wav_samples']}": b["exported"]
+              for b in service._speech_buckets}
+    served.update(service._exported)
+
+    def module(stem):
+        if stem in served:
+            return served[stem].module()
+        return load_program(paths[stem]).module()
+
+    def int16_batch(b, samples, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        wav = (torch.randn(b, samples, generator=g, device="cuda") * 3000).to(torch.int16)
+        lens = torch.randint(samples // 2, samples + 1, (b,), generator=g, device="cuda")
+        return wav * (torch.arange(samples, device="cuda") < lens[:, None]), lens.int()
+
+    def counted(stem, fn, *args):
+        got, counts = _run_counted(lambda: fn(*args))
+        if _nonzero(counts) != expect[stem]:
+            fail(f"phase 26: {stem} launched {counts} in one call, its graph holds "
+                 f"{expect[stem]}")
+        return got, _nonzero(counts)
+
+    checks = {}
+    with _plain_guard(rec), torch.inference_mode():
+        for stem, backend, ref, tbl in ((f"encode_speech@{short_n}", "auto", p16, table16),
+                                        (f"encode_speech@{long_n}", "auto", p16, table16),
+                                        ("pallas_speech", "pallas", params, table)):
+            samples = long_n if stem.endswith(str(long_n)) else short_n
+            wav, lens = int16_batch(SERVING_BATCH, samples, len(checks))
+            got, counts = counted(stem, module(stem), wav, lens)
+            with attention_backend(backend):
+                want = model.encode_speech(ref, state, wav, lens)
+            checks[stem] = _feature_agreement(stem, got, {k: want[k] for k in got}, tbl, gallery)
+            if stem == "pallas_speech":
+                launches["artifact pallas speech"] = counts
+        g = torch.Generator(device="cuda").manual_seed(261)
+        side = model.vision_cfg.image_size
+        images = torch.randn(SERVING_BATCH, side, side, 3, generator=g, device="cuda")
+        got, _ = counted("encode_image", module("encode_image"), images)
+        checks["encode_image"] = _feature_agreement("encode_image", got,
+                                                    model.forward_image(p16, images))
+        ctx = model.clip_cfg.context_length
+        ids = torch.randint(0, table.shape[0], (ARTIFACT_TEXT_BATCH, ctx), generator=g,
+                            device="cuda", dtype=torch.int32)
+        eot = torch.randint(1, ctx, (ARTIFACT_TEXT_BATCH,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        for stem, backend, ref in (("encode_text", "auto", p16), ("pallas_text", "pallas", params)):
+            got, counts = counted(stem, module(stem), ids, eot)
+            with attention_backend(backend):
+                want = model.forward_text(ref, ids.long(), eot)
+            checks[stem] = _feature_agreement(stem, got, want)
+            if stem == "pallas_text":
+                launches["artifact pallas text"] = counts
+        fn, poly = module("poly_speech"), {}
+        for b in ARTIFACT_POLY_BATCHES:
+            wav, lens = int16_batch(b, short_n, 100 + b)
+            got, _ = counted("poly_speech", fn, wav, lens)
+            want = model.encode_speech(params, state, wav, lens)
+            poly[b] = _feature_agreement(f"poly_speech B={b}", got, {k: want[k] for k in got},
+                                         table, gallery)
+        checks["poly_speech"] = poly
+        # where the host first waits for the card: an artifact call, and the
+        # direct call it replaces
+        fn = module(f"encode_speech@{short_n}")
+        wav, lens = int16_batch(SERVING_BATCH, short_n, 7)
+        out["host_wait"] = {
+            "artifact": _sync_site(lambda: fn(wav, lens)),
+            "direct": _sync_site(lambda: model.encode_speech(p16, state, wav, lens))}
+    out["checks"] = checks
+    if rec["plain_on_cuda"]:
+        fail(f"phase 26: plain kernel versions ran on CUDA tensors: "
+             f"{sorted(set(rec['plain_on_cuda']))}")
+    return checks, poly, expect
+
+
+def phase_export(smi, serving23):
+    """Phase 26: export phase 23's seeded flagship serving checkpoint with
+    the CLI (6.4 s and 17 s at a fixed batch of 32, bf16 weights, int16
+    wav) and, through the Python API, ``encode_speech`` at 6.4 s and
+    ``encode_text`` under "pallas" and a polymorphic ``encode_speech``; load
+    each in a fresh process (no model code imported); hold each graph's
+    kernel nodes to ``_expected_launches`` and its runtime launches to the
+    nodes times the calls; hold the artifacts to the direct calls; serve
+    the CLI's artifacts at phase 23's settings. -> (the ``export`` object,
+    launches by artifact path)."""
+    import numpy as np
+    import torch
+
+    from speechclip_tpu_torch.export import export_encode_speech, export_encode_text
+    from speechclip_tpu_torch.models.speechclip import SpeechCLIPModel
+    from speechclip_tpu_torch.ops.attention import attention_backend
+    from speechclip_tpu_torch.serving import EncoderService
+    from speechclip_tpu_torch.training.checkpoint import load_any_checkpoint
+
+    t_phase = time.perf_counter()
+    rec = {"plain_on_cuda": []}
+    launches = {}
+    out = {"card": smi, "artifacts": {}}
+    with tempfile.TemporaryDirectory() as root:
+        ckpt = _serving_checkpoint(root)
+        cli_dir, api_dir = os.path.join(root, "exports"), os.path.join(root, "api")
+        os.makedirs(api_dir)
+        written, cli_wall, cli_cmd = _export_cli(ckpt, cli_dir)
+        out["cli"] = {"command": cli_cmd, "wall_s": cli_wall}
+        model, params, state = load_any_checkpoint(ckpt)
+        cfg = model.config
+        poly_model = SpeechCLIPModel(dataclasses.replace(cfg, audio=dataclasses.replace(
+            cfg.audio, conv_batch_chunk=0)))
+        api = {  # stem -> (export call, backend)
+            "pallas_speech": (lambda: export_encode_speech(
+                model, params, state, SERVING_BATCH, WAV_SAMPLES, compact_wav=True), "pallas"),
+            "pallas_text": (lambda: export_encode_text(model, params, ARTIFACT_TEXT_BATCH),
+                            "pallas"),
+            "poly_speech": (lambda: export_encode_speech(
+                poly_model, params, state, SERVING_BATCH, WAV_SAMPLES, polymorphic_batch=True,
+                compact_wav=True), "auto"),
+        }
+        for stem, (job, backend) in api.items():
+            t0 = time.perf_counter()
+            with attention_backend(backend):
+                blob = job()
+            written[stem] = {"mb": len(blob) / 1e6, "export_s": time.perf_counter() - t0}
+            with open(os.path.join(api_dir, stem + ".pt2"), "wb") as f:
+                f.write(blob)
+            del blob
+        del poly_model
+        paths = {stem: os.path.join(cli_dir if "@" in stem or stem.startswith("encode_")
+                                    else api_dir, stem + ".pt2") for stem in written}
+        # the fresh processes load while this one checks the artifacts
+        t_fresh = time.perf_counter()
+        loaders, service = _start_fresh_loads(list(paths.values())), None
+        try:
+            t0 = time.perf_counter()
+            service = EncoderService(cli_dir, max_wait_ms=SERVING_WAIT_MS)
+            load_s = time.perf_counter() - t0
+            checks, poly, expect = _artifact_checks(model, params, state, paths, service, launches,
+                                                    out, rec)
+            fresh = _finish_fresh_loads(loaders)
+            out["fresh_load_wall_s"] = time.perf_counter() - t_fresh
+            for stem, path in paths.items():
+                got = fresh[path]
+                if got["models"]:
+                    fail(f"phase 26: loading {stem} imported the model code {got['models']}")
+                if got["nodes"] != expect[stem]:
+                    fail(f"phase 26: {stem}'s graph holds kernel nodes {got['nodes']}, the "
+                         f"gates give {expect[stem]}")
+                if _nonzero(got["launches"]) != got["nodes"]:
+                    fail(f"phase 26: {stem}'s call in the fresh process launched "
+                         f"{got['launches']}, its graph holds {got['nodes']}")
+                out["artifacts"][stem] = dict(written[stem], nodes=got["nodes"],
+                                              fresh_load_s=got["load_s"])
+            del model, params, state
+            torch.cuda.empty_cache()
+
+            # serving the CLI's artifacts at phase 23's settings
+            short, long = service._speech_buckets
+            if [b["fixed_batch"] for b in (short, long)] != [SERVING_BATCH] * 2 or [
+                    b["wav_dtype"] for b in (short, long)] != [np.int16] * 2:
+                fail("phase 26: the CLI's speech artifacts do not read as fixed-batch int16 "
+                     "buckets")
+            t0 = time.perf_counter()
+            service.warmup()
+            torch.cuda.synchronize()
+            warmup_s = time.perf_counter() - t0
+            pool, long_wavs = _serving_wavs()
+            with _plain_guard(rec):
+                drives = _serving_drives(service, pool, long_wavs)
+            per_batch = {b["wav_samples"]: expect[f"encode_speech@{b['wav_samples']}"]
+                         for b in (short, long)}
+            _expect_drive_launches("phase 26", drives, short, long, per_batch)
+            if rec["plain_on_cuda"]:
+                fail(f"phase 26: plain kernel versions ran on CUDA tensors: "
+                     f"{sorted(set(rec['plain_on_cuda']))}")
+        finally:
+            for proc in loaders.values():
+                if proc.poll() is None:
+                    proc.kill()
+            if service is not None:
+                service.close()
+    rates, lat_ms = drives["rates"], np.asarray(drives["latencies"]) * 1e3
+    out["serving"] = {
+        "utt_per_s": max(rates), "utt_per_s_range": [min(rates), max(rates)],
+        "p50_ms": float(np.percentile(lat_ms, 50)), "p99_ms": float(np.percentile(lat_ms, 99)),
+        "batches": drives["short_batches"], "launches": drives["short_launches"],
+        "long_utt_per_s": len(long_wavs) / drives["long_elapsed"],
+        "long_batches": drives["long_batches"], "long_launches": drives["long_launches"],
+        "worker": drives["split"], "load_s": load_s, "warmup_s": warmup_s,
+        "phase23": {k: serving23[k] for k in ("utt_per_s", "utt_per_s_range", "p50_ms",
+                                               "p99_ms", "long_utt_per_s")},
+    }
+    out["wall_s"] = time.perf_counter() - t_phase
+    launches["artifact 6.4 s"] = drives["short_launches"]
+    launches["artifact 17 s"] = drives["long_launches"]
+    arts = ", ".join(f"{stem} {a['mb']:.1f} MB in {a['export_s']:.1f} s (nodes {a['nodes']}, "
+                     f"fresh load {a['fresh_load_s']:.1f} s)" for stem, a in out["artifacts"].items())
+    srv, s23 = out["serving"], out["serving"]["phase23"]
+    say(f"phase 26 export (phase 23's flagship checkpoint; the CLI: {cli_cmd}, "
+        f"{cli_wall:.1f} s of wall; the Python API: encode_speech 6.4 s and encode_text under "
+        f"\"pallas\", a polymorphic encode_speech) on {smi}: {arts}; every artifact loaded in a "
+        f"fresh process without the model code ({out['fresh_load_wall_s']:.1f} s for all, in "
+        f"parallel), each graph's kernel nodes as the gates give, each call's launches its "
+        f"nodes; against the direct calls: " + "; ".join(
+            f"{stem} max abs {c['max_abs_diff']:.3g} (bitwise {c['bitwise']}), min row cosine "
+            f"{c['min_cosine']:.6f}" for stem, c in checks.items() if stem != "poly_speech")
+        + f"; polymorphic at B = {list(poly)}: bitwise {[c['bitwise'] for c in poly.values()]}; "
+        f"keyword ids and top-{TOPK} equal; the host waits in an artifact call at "
+        f"{out['host_wait']['artifact']!r} (the direct call at {out['host_wait']['direct']!r}); "
+        f"served from the artifacts (EncoderService(artifact_dir), fixed batch {SERVING_BATCH}, "
+        f"{SERVING_WAIT_MS:g} ms): best {srv['utt_per_s']:.2f} utt/s of {SERVING_DRIVES} drives "
+        f"[{srv['utt_per_s_range'][0]:.2f}, {srv['utt_per_s_range'][1]:.2f}], p50 "
+        f"{srv['p50_ms']:.1f} ms p99 {srv['p99_ms']:.1f} ms, {srv['batches']} batches, launches "
+        f"{srv['launches']}; 17 s {srv['long_utt_per_s']:.2f} utt/s, launches "
+        f"{srv['long_launches']}; beside phase 23's from_checkpoint in this run: best "
+        f"{s23['utt_per_s']:.2f} utt/s [{s23['utt_per_s_range'][0]:.2f}, "
+        f"{s23['utt_per_s_range'][1]:.2f}], p50 {s23['p50_ms']:.1f} ms p99 {s23['p99_ms']:.1f} "
+        f"ms, 17 s {s23['long_utt_per_s']:.2f} utt/s; service load {load_s:.1f} s, warmup "
+        f"{warmup_s:.1f} s; no plain kernel on a CUDA tensor; phase wall {out['wall_s']:.1f} s")
+    return out, launches
 
 
 # ---------------------------------------------------------------------------
@@ -5055,6 +5525,9 @@ def main(argv) -> int:
     serving, serving_launches = phase_serving(smi)
     launches.update(serving_launches)
     torch.cuda.empty_cache()
+    export, export_launches = phase_export(smi, serving)
+    launches.update(export_launches)
+    torch.cuda.empty_cache()
     text_side = phase_text_side(smi)
     torch.cuda.empty_cache()
     upstreams, launches["apc"] = phase_upstreams(smi)
@@ -5089,7 +5562,8 @@ def main(argv) -> int:
     print(json.dumps({"kernels": kernels, "train": train, "trainer": trainer,
                       "large": {"encode_utt_per_s": large_rates, "train": large_train,
                                 "trainer": large_trainer},
-                      "trainable": trainable, "serving": serving, "text_side": text_side,
+                      "trainable": trainable, "serving": serving, "export": export,
+                      "text_side": text_side,
                       "upstreams": upstreams}))
     print(json.dumps({
         "ok": True,

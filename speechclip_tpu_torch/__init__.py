@@ -35,31 +35,29 @@ scipy inside the functions that need them): never jax, yaml or
 speechclip_tpu.
 """
 
-from .config import (
-    SpeechCLIPConfig,
-    base_cascaded_config,
-    base_config,
-    bench_variant_config,
-    flagship_config,
-    flagship_large_config,
-    shipped_cascaded_config,
-    tiny_config,
-    tiny_flagship_config,
-)
-from .models.speechclip import SpeechCLIPModel
-from .ops.retrieval import recall_at_k, retrieve
+import importlib
 
-__all__ = [
-    "SpeechCLIPConfig",
-    "SpeechCLIPModel",
-    "base_cascaded_config",
-    "base_config",
-    "bench_variant_config",
-    "flagship_config",
-    "flagship_large_config",
-    "recall_at_k",
-    "retrieve",
-    "shipped_cascaded_config",
-    "tiny_config",
-    "tiny_flagship_config",
-]
+# The public names, each imported at first use (PEP 562): a loaded export
+# artifact imports ``speechclip_tpu_torch.kernels._ops`` alone, and the
+# package's own import pulls in neither the config nor the model code.
+_EXPORTS = {
+    "SpeechCLIPConfig": "config",
+    "base_cascaded_config": "config",
+    "base_config": "config",
+    "bench_variant_config": "config",
+    "flagship_config": "config",
+    "flagship_large_config": "config",
+    "shipped_cascaded_config": "config",
+    "tiny_config": "config",
+    "tiny_flagship_config": "config",
+    "SpeechCLIPModel": "models.speechclip",
+    "recall_at_k": "ops.retrieval",
+    "retrieve": "ops.retrieval",
+}
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f".{_EXPORTS[name]}", __name__), name)

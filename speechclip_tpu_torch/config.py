@@ -897,7 +897,6 @@ def load_config(path: Optional[str] = None, overrides: Iterable[str] = (),
 # ---------------------------------------------------------------------------
 
 DDP_ITEM = "the ROADMAP item 'DDP' (Queue 1 item 7)"
-EXPORT_ITEM = "the ROADMAP item 'export' (Queue 1 item 6)"
 
 
 def _dims(node) -> Optional[Tuple[int, ...]]:

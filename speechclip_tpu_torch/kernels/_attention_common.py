@@ -141,3 +141,10 @@ def empty_heads_out(b: int, h: int, l: int, dh: int, device,
     """A (B, H, L, Dh) output laid out as (B, L, H, Dh), so merging the heads
     afterwards is a free view."""
     return torch.empty((b, l, h, dh), dtype=dtype, device=device).permute(0, 2, 1, 3)
+
+
+def heads_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (B, H, L, Dh) in ``empty_heads_out``'s layout: the attention
+    ops return it on every device, so a graph traced on one runs on the
+    other."""
+    return t.transpose(1, 2).contiguous().transpose(1, 2)

@@ -13,8 +13,9 @@ optional causal flag, with the TPU kernel's rounding points:
   f32; ``out = acc / max(denom, 1e-30)``, rounded once.
 That is not ``masked_sdpa``'s rounding, which normalizes in f32 first.
 
-On a CUDA bf16 tensor it launches ``csrc/attention_vmem.cu``; on a CPU
-tensor, or with ``plain=True``, it runs ``attention_vmem_plain``. Where q,
+The call is the custom op ``speechclip::attention_vmem`` (``_ops``). On a
+CUDA bf16 tensor it launches ``csrc/attention_vmem.cu``; on a CPU tensor,
+or with ``plain=True``, it runs ``attention_vmem_plain``. Where q,
 k or v requires grad, the call goes through ``AttentionVmemFn``: the
 forward as above, the gradient from a recompute through
 ``attention_vmem_plain`` (``_plain_grad``; JAX's ``_bwd`` recomputes
@@ -36,7 +37,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, _ops
 from ._plain_grad import needs_grad, plain_grad_function
 from ._attention_common import (
     check_attention_operands,
@@ -53,27 +54,55 @@ VMEM_BUDGET = 10 * 1024 * 1024  # the TPU kernel's per-cell VMEM cap (bytes)
 ROW_BQ, ROW_BK = 64, 64
 
 
+GROUPS = (16, 12, 8, 6, 4, 3, 2)  # the TPU kernel's (batch*head) groups, largest first
+
+
+def _group_fits(g: int, l: int, s: int, d: int, itemsize: int) -> bool:
+    per_pair = (2 * l * d + s * d + s * (d + 1)) * itemsize * 2
+    score = l * s * (4 + 2)
+    return g * per_pair + score <= VMEM_BUDGET
+
+
 def _group_size(bh: int, l: int, s: int, d: int, itemsize: int) -> int:
     """The TPU kernel's (batch*head) group per grid cell (attention_vmem.py
     ``_group_size``); the port uses it only inside ``vmem_eligible``."""
-    per_pair = (2 * l * d + s * d + s * (d + 1)) * itemsize * 2
-    score = l * s * (4 + 2)
-    for g in (16, 12, 8, 6, 4, 3, 2):
-        if bh % g == 0 and g * per_pair + score <= VMEM_BUDGET:
+    for g in GROUPS:
+        if bh % g == 0 and _group_fits(g, l, s, d, itemsize):
             return g
     return 1
+
+
+def _symbolic_batch_eligible(h: int, l: int, s: int, d: int, itemsize: int) -> bool:
+    """The gate's group test for a batch that is a symbol (``torch.export``
+    with a polymorphic batch), decided without the batch: a group of 2 or
+    more that fits and divides the heads divides every B * H, so the route
+    holds at every batch; with no group that fits, at none. Otherwise the
+    route would depend on the batch, and that raises. (JAX's symbolic gate
+    answers False there and its artifact takes the XLA attention at every
+    batch, which its fixed-batch artifacts do not.)"""
+    fits = [g for g in GROUPS if _group_fits(g, l, s, d, itemsize)]
+    if any(h % g == 0 for g in fits):
+        return True
+    if not fits:
+        return False
+    raise ValueError(
+        f"attention_vmem's gate depends on the batch at H = {h} heads, L = {l}, S = {s}, "
+        f"Dh = {d}: no group of {fits} divides H, so B * H decides; export a fixed batch")
 
 
 def vmem_eligible(b: int, h: int, l: int, s: int, d: int, itemsize: int = 2) -> bool:
     """The JAX gate, number for number: head dim a multiple of 8 up to 128,
     ``L*S >= 128^2``, ``6*L*S <= VMEM_BUDGET / 2`` (L = S <= 934) and a
-    group of at least 2 (batch*head) pairs."""
+    group of at least 2 (batch*head) pairs. A symbolic ``b`` (a traced
+    polymorphic batch): ``_symbolic_batch_eligible``."""
     if d % 8 != 0 or d > 128:
         return False
     if l * s < 128 * 128:
         return False
     if l * s * 6 > VMEM_BUDGET // 2:
         return False
+    if isinstance(b, torch.SymInt):
+        return _symbolic_batch_eligible(h, l, s, d, itemsize)
     return _group_size(b * h, l, s, d, itemsize) >= 2
 
 
@@ -123,24 +152,28 @@ def rowwise_attention(q, k, v, lens, out, causal: bool, vmem_rounding: bool) -> 
 
 def attention_vmem(q, k, v, lens: Optional[torch.Tensor] = None,
                    causal: bool = False, plain: bool = False) -> torch.Tensor:
-    """(B, H, L, Dh) x3 [+ lens (B,)] -> (B, H, L, Dh). CPU tensor or
-    ``plain``: the plain version. CUDA tensor: the kernel, or an exception.
-    Differentiable: where an input requires grad, through
-    ``AttentionVmemFn`` (``plain``: the plain version's own autograd)."""
+    """(B, H, L, Dh) x3 [+ lens (B,)] -> (B, H, L, Dh) through the op
+    ``speechclip::attention_vmem``. CPU tensor or ``plain``: the plain
+    version. CUDA tensor: the kernel, or an exception. Differentiable: where
+    an input requires grad, through ``AttentionVmemFn`` (``plain``: the
+    plain version's own autograd)."""
     if plain:
         return attention_vmem_plain(q, k, v, lens, causal)
+    _ops.check_device(q, "attention_vmem")
     if needs_grad(q, k, v):
-        return AttentionVmemFn.apply(q, k, v, lens, causal)
-    return _attention_vmem(q, k, v, lens, causal)
+        return AttentionVmemFn.apply(q, k, v, lens, bool(causal))
+    return _ops.attention_vmem(q, k, v, lens, bool(causal))
 
 
-def _attention_vmem(q, k, v, lens: Optional[torch.Tensor], causal: bool) -> torch.Tensor:
-    """The device dispatch of ``attention_vmem``."""
-    if q.device.type == "cpu":
-        return attention_vmem_plain(q, k, v, lens, causal)
+def attention_vmem_cuda(q, k, v, lens: Optional[torch.Tensor], causal: bool) -> torch.Tensor:
+    """The op's CUDA implementation: the kernel, counted in
+    ``attention_vmem.launches``; zero rows return the empty output without
+    a launch."""
     check_attention_operands(q, k, v, lens, "attention_vmem")
     b, h, l, dh = q.shape
     out = empty_heads_out(b, h, l, dh, q.device)
+    if out.numel() == 0:
+        return out
     rowwise_attention(q, k, v, lens, out, causal, vmem_rounding=True)
     attention_vmem.launches += 1
     return out
@@ -148,5 +181,5 @@ def _attention_vmem(q, k, v, lens: Optional[torch.Tensor], causal: bool) -> torc
 
 attention_vmem.launches = 0
 attention_vmem.recomputes = 0
-AttentionVmemFn = plain_grad_function("AttentionVmemFn", _attention_vmem, attention_vmem_plain,
-                                      attention_vmem)
+AttentionVmemFn = plain_grad_function("AttentionVmemFn", _ops.attention_vmem,
+                                      attention_vmem_plain, attention_vmem)

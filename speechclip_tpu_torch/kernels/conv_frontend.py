@@ -8,7 +8,8 @@ the exact erf on the f32 sum, one rounding to x's dtype per layer. It is
 not HuBERT's own bf16 chain, which rounds each conv before a tanh GELU
 (``models/hubert.py``); like the JAX kernel, it lies on no model path.
 
-On a CUDA bf16 tensor it launches ``csrc/conv_chain.cu`` once per layer:
+The call is the custom op ``speechclip::fused_conv_chain`` (``_ops``). On a
+CUDA bf16 tensor it launches ``csrc/conv_chain.cu`` once per layer:
 one wgmma GEMM whose A operand is the TPU kernel's stride-2 fold of the
 input, read by TMA with no copy, as ``fold_segments`` describes it; on a CPU
 tensor, or with ``plain=True``, it runs ``fused_conv_chain_plain``.
@@ -24,8 +25,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _ops
 from ._attention_common import SMEM_LIMIT
+from ._plain_grad import needs_grad
 
 # Agreement of the kernel with its plain version. The products are exact
 # and the sums f32 on both sides, so one layer's outputs differ only where
@@ -172,25 +174,56 @@ def fused_conv_chain_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
 def fused_conv_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
                      kernels: Sequence[int], plain: bool = False) -> torch.Tensor:
-    """x (B, T, C) -> (B, T_out, C_out), T_out by VALID conv arithmetic.
-    CPU tensor or ``plain``: the plain version. CUDA tensor: the kernel, or
-    an exception."""
+    """x (B, T, C) -> (B, T_out, C_out), T_out by VALID conv arithmetic,
+    through the op ``speechclip::fused_conv_chain``. CPU tensor or
+    ``plain``: the plain version. CUDA tensor: the kernel, or an exception;
+    forward-only, as in JAX: an input that requires grad raises there (on
+    a CPU tensor the plain version's own autograd takes it)."""
     kernels = tuple(kernels)
     if len(weights) != len(kernels):
         raise ValueError(f"{len(weights)} weights for {len(kernels)} kernel sizes")
-    if plain or x.device.type == "cpu":
+    if plain:
         return fused_conv_chain_plain(x, weights, kernels)
+    _ops.check_device(x, "fused_conv_chain")
+    if needs_grad(x, *weights):
+        if x.device.type == "cpu":
+            return fused_conv_chain_plain(x, weights, kernels)
+        raise RuntimeError("fused_conv_chain: kernel path is forward-only: an input requires grad")
+    return _ops.fused_conv_chain(x, list(weights), [int(k) for k in kernels])
+
+
+def check_chain_operands(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                         kernels: Sequence[int]) -> None:
+    """What the kernel takes (bf16 on the card, a T the chain's window fits,
+    kernel sizes 2 and 3, (k, C_in, C_out) weights with channels a multiple
+    of 8); anything else raises."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv_chain: kernel path needs CUDA tensors, got {x.device}")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"fused_conv_chain: kernel path runs bf16, got {x.dtype}")
-    if x.requires_grad:
-        raise RuntimeError("fused_conv_chain: kernel path is forward-only: x requires grad")
     if chain_out_len(x.shape[1], kernels) < 1:
         raise ValueError(f"fused_conv_chain: T = {x.shape[1]} is shorter than the chain's window")
     if any(k not in KERNEL_SIZES for k in kernels):
         raise ValueError(
-            f"fused_conv_chain: the kernel takes kernel sizes {KERNEL_SIZES}, got {kernels}")
+            f"fused_conv_chain: the kernel takes kernel sizes {KERNEL_SIZES}, got {tuple(kernels)}")
+    c = x.shape[2]
+    for w, k in zip(weights, kernels):
+        if tuple(w.shape[:2]) != (k, c) or w.shape[2] % 8 or c % 8:
+            raise ValueError(
+                f"fused_conv_chain: weight {tuple(w.shape)} for a (k={k}, C_in={c}) "
+                "layer; channels must be multiples of 8"
+            )
+        c = w.shape[2]
+
+
+def fused_conv_chain_cuda(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                          kernels: Sequence[int]) -> torch.Tensor:
+    """The op's CUDA implementation: one kernel launch a layer, counted once
+    a chain in ``fused_conv_chain.launches``; zero rows return the empty
+    output without a launch."""
+    check_chain_operands(x, weights, kernels)
+    if x.shape[0] == 0:
+        return x.new_empty((0, chain_out_len(x.shape[1], kernels), weights[-1].shape[2]))
     h = x.contiguous()
     for w, k in zip(weights, kernels):
         h = conv_layer(h, w, k)

@@ -3,7 +3,8 @@
 
 ``ln_mode`` "post": LN(x + ffn(x)); "pre": x + ffn(LN(x)); "none": ffn(x).
 
-On a CUDA bf16 tensor: [row LN for "pre"] -> fc1 GEMM with a bias + GELU
+The call is the custom op ``speechclip::ffn_block`` (``_ops``). On a CUDA
+bf16 tensor: [row LN for "pre"] -> fc1 GEMM with a bias + GELU
 epilogue writing the (B*T, F) activation in bf16 -> fc2 GEMM with a bias +
 residual epilogue [-> row LN for "post"] (csrc/gemm_epilogue.cu). On a CPU
 tensor: ``ffn_block_plain``, with the TPU kernel's rounding points — the
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from . import _ops
 from ._plain_grad import needs_grad, plain_grad_function
 from .mha_block import (
     EPI_BIAS,
@@ -70,23 +72,27 @@ def ffn_block_plain(x, w1, b1, w2, b2, ln_g, ln_b, ln_mode: str,
 
 def ffn_block(x, w1, b1, w2, b2, ln_g, ln_b, ln_mode: str,
               eps: float) -> torch.Tensor:
-    """(B, T, D) -> (B, T, D). CPU tensor: the plain version. CUDA tensor:
-    the hand-written kernels, or an exception. Differentiable: where an
-    input requires grad, through ``FfnBlockFn``."""
+    """(B, T, D) -> (B, T, D) through the op ``speechclip::ffn_block``. CPU
+    tensor: the plain version. CUDA tensor: the hand-written kernels, or an
+    exception. Differentiable: where an input requires grad, through
+    ``FfnBlockFn``."""
     if ln_mode not in LN_MODES:
         raise ValueError(f"ln_mode {ln_mode!r} not in {LN_MODES}")
+    _ops.check_device(x, "ffn_block")
     if needs_grad(x, w1, b1, w2, b2, ln_g, ln_b):
         return FfnBlockFn.apply(x, w1.to(x.dtype), b1, w2.to(x.dtype), b2, ln_g, ln_b,
-                                ln_mode, eps)
-    return _ffn_block(x, w1, b1, w2, b2, ln_g, ln_b, ln_mode, eps)
+                                ln_mode, float(eps))
+    return _ops.ffn_block(x, w1, b1, w2, b2, ln_g, ln_b, ln_mode, float(eps))
 
 
-def _ffn_block(x, w1, b1, w2, b2, ln_g, ln_b, ln_mode: str, eps: float) -> torch.Tensor:
-    """The device dispatch of ``ffn_block``."""
-    if x.device.type == "cpu":
-        return ffn_block_plain(x, w1, b1, w2, b2, ln_g, ln_b, ln_mode, eps)
+def ffn_block_cuda(x, w1, b1, w2, b2, ln_g, ln_b, ln_mode: str, eps: float) -> torch.Tensor:
+    """The op's CUDA implementation: the kernels, counted in
+    ``ffn_block.launches``; zero rows return the empty output without a
+    launch."""
     check_cuda_operands(x, w1, b1, w2, b2, ln_g, ln_b)
     bsz, t, d = x.shape
+    if x.numel() == 0:
+        return x.new_empty(x.shape)
     x2 = x.contiguous().view(bsz * t, d)
     h_in = layer_norm_rows(x2, ln_g, ln_b, eps) if ln_mode == "pre" else x2
     mid = gemm(h_in, w1, b1, EPI_BIAS_GELU)
@@ -104,4 +110,4 @@ def _ffn_block(x, w1, b1, w2, b2, ln_g, ln_b, ln_mode: str, eps: float) -> torch
 
 ffn_block.launches = 0
 ffn_block.recomputes = 0
-FfnBlockFn = plain_grad_function("FfnBlockFn", _ffn_block, ffn_block_plain, ffn_block)
+FfnBlockFn = plain_grad_function("FfnBlockFn", _ops.ffn_block, ffn_block_plain, ffn_block)

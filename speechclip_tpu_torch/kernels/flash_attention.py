@@ -12,8 +12,9 @@ A row with no valid key (``lens = 0``) is the mean of v over its S keys
 here, as in ``masked_sdpa``; the TPU kernel divides that sum by S rounded up
 to its 128-key block instead, the only place its padding shows.
 
-On CUDA bf16 or f32 tensors it launches ``csrc/flash_attention.cu``; on a
-CPU tensor, or with ``plain=True``, it runs ``flash_attention_plain``. In
+The call is the custom op ``speechclip::flash_attention`` (``_ops``). On
+CUDA bf16 or f32 tensors it launches ``csrc/flash_attention.cu``; on a CPU
+tensor, or with ``plain=True``, it runs ``flash_attention_plain``. In
 bf16, like the TPU kernel, it has no head-dim limit: Dh % 8 == 0 is all it
 asks. Heads up
 to 128 wide run ``flash_kernel<Dh>`` (a block of 4 warps per 64-row query
@@ -43,7 +44,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, _ops
 from ._plain_grad import needs_grad, plain_grad_function
 from ._sdpa_ref import NEG_INF
 from ._attention_common import check_attention_operands, empty_heads_out, key_mask, launch_args
@@ -93,28 +94,39 @@ def wide_scores_shape(b: int, h: int, l: int, s: int):
 
 def flash_attention(q, k, v, lens: Optional[torch.Tensor] = None,
                     causal: bool = False, plain: bool = False) -> torch.Tensor:
-    """(B, H, L, Dh) x3 [+ lens (B,)] -> (B, H, L, Dh). CPU tensor or
-    ``plain``: the plain version. CUDA tensor: the kernel, or an exception.
-    Differentiable: where an input requires grad, through
-    ``FlashAttentionFn`` (``plain``: the plain version's own autograd)."""
+    """(B, H, L, Dh) x3 [+ lens (B,)] -> (B, H, L, Dh) through the op
+    ``speechclip::flash_attention``. CPU tensor or ``plain``: the plain
+    version. CUDA tensor: the kernel, or an exception. Differentiable: where
+    an input requires grad, through ``FlashAttentionFn`` (``plain``: the
+    plain version's own autograd)."""
     if plain:
         return flash_attention_plain(q, k, v, lens, causal)
+    _ops.check_device(q, "flash_attention")
     if needs_grad(q, k, v):
-        return FlashAttentionFn.apply(q, k, v, lens, causal)
-    return _flash_attention(q, k, v, lens, causal)
+        return FlashAttentionFn.apply(q, k, v, lens, bool(causal))
+    return _ops.flash_attention(q, k, v, lens, bool(causal))
 
 
-def _flash_attention(q, k, v, lens: Optional[torch.Tensor], causal: bool) -> torch.Tensor:
-    """The device dispatch of ``flash_attention``."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, lens, causal)
+def check_flash_operands(q, k, v, lens) -> None:
+    """What the bf16 form (Dh % 8 == 0, any width) and the f32 form (Dh up
+    to F32_MAX_HEAD_DIM) take; anything else raises."""
+    check_attention_operands(
+        q, k, v, lens, "flash_attention",
+        max_head_dim=F32_MAX_HEAD_DIM if q.dtype == torch.float32 else None,
+        dtypes=(torch.bfloat16, torch.float32))
+
+
+def flash_attention_cuda(q, k, v, lens: Optional[torch.Tensor], causal: bool) -> torch.Tensor:
+    """The op's CUDA implementation: the bf16 or the f32 form by the
+    operands' dtype, counted in ``flash_attention.launches``; zero rows
+    return the empty output without a launch."""
+    check_flash_operands(q, k, v, lens)
     f32 = q.dtype == torch.float32
-    check_attention_operands(q, k, v, lens, "flash_attention",
-                             max_head_dim=F32_MAX_HEAD_DIM if f32 else None,
-                             dtypes=(torch.bfloat16, torch.float32))
     b, h, l, dh = q.shape
     s = k.shape[2]
     out = empty_heads_out(b, h, l, dh, q.device, q.dtype)
+    if out.numel() == 0:
+        return out
     scores = None
     if dh > WIDE_CHUNK and not f32:
         scores = torch.empty(wide_scores_shape(b, h, l, s), dtype=torch.float32, device=q.device)
@@ -135,5 +147,5 @@ def _flash_attention(q, k, v, lens: Optional[torch.Tensor], causal: bool) -> tor
 
 flash_attention.launches = 0
 flash_attention.recomputes = 0
-FlashAttentionFn = plain_grad_function("FlashAttentionFn", _flash_attention,
+FlashAttentionFn = plain_grad_function("FlashAttentionFn", _ops.flash_attention,
                                        flash_attention_plain, flash_attention)

@@ -9,7 +9,8 @@
 MHA is torch ``nn.MultiheadAttention`` self-attention: fused QKV projection,
 per-head scaled dot product with a key-length mask, out-projection.
 
-On a CUDA bf16 tensor it runs as three or four launches of the hand-written
+The call is the custom op ``speechclip::mha_layer_block`` (``_ops``). On a
+CUDA bf16 tensor it runs as three or four launches of the hand-written
 kernels in ``csrc/``: [row LN for "pre"] -> QKV GEMM + f32 bias ->
 attention core -> out-proj GEMM with bias + residual epilogue [-> row LN for
 "post"]. The GEMMs are ``csrc/gemm_epilogue.cu`` (wgmma fed by TMA). The
@@ -33,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, _ops
 from . import attention_vmem as rowwise
 from ._plain_grad import needs_grad, plain_grad_function
 from ._attention_common import MAX_HEAD_DIM, MAX_ROWS
@@ -212,17 +213,23 @@ def attention_core_max_t(dh: int) -> int:
     return MAX_ROWS
 
 
-def attention_core(qkv: torch.Tensor, lens: Optional[torch.Tensor], bsz: int,
-                   t: int, d: int, heads: int) -> torch.Tensor:
-    """(B*T, 3D) bf16 qkv -> (B*T, D) bf16 head outputs: the whole-row kernel
-    of csrc/attention_vmem.cu with masked_sdpa's rounding points, reading q,
-    k, v straight out of qkv and writing the heads in place."""
+def check_core_shape(t: int, d: int, heads: int) -> None:
+    """The rows and heads the attention core takes; anything else raises."""
     dh = d // heads
     if d % heads or d % 8 or t > attention_core_max_t(dh):
         raise ValueError(
             f"attention core does not take T={t}, Dh={dh} (needs Dh % 8 == 0, "
             f"Dh <= {MAX_HEAD_DIM} and T <= {attention_core_max_t(dh)})"
         )
+
+
+def attention_core(qkv: torch.Tensor, lens: Optional[torch.Tensor], bsz: int,
+                   t: int, d: int, heads: int) -> torch.Tensor:
+    """(B*T, 3D) bf16 qkv -> (B*T, D) bf16 head outputs: the whole-row kernel
+    of csrc/attention_vmem.cu with masked_sdpa's rounding points, reading q,
+    k, v straight out of qkv and writing the heads in place."""
+    check_core_shape(t, d, heads)
+    dh = d // heads
     out = torch.empty((bsz * t, d), dtype=torch.bfloat16, device=qkv.device)
     heads_of = lambda z: z.view(bsz, t, heads, dh).permute(0, 2, 1, 3)
     q, k, v = (heads_of(z) for z in qkv.view(bsz, t, 3 * d).split(d, dim=-1))
@@ -231,29 +238,40 @@ def attention_core(qkv: torch.Tensor, lens: Optional[torch.Tensor], bsz: int,
     return out
 
 
+def check_block_operands(x: torch.Tensor, params, heads: int) -> None:
+    """What ``mha_layer_block``'s kernels take (``check_cuda_operands`` and
+    the attention core's head and row limits); anything else raises. The
+    op's fake implementation runs it too, so an export at a shape the
+    kernels refuse fails at export time."""
+    check_cuda_operands(x, *params)
+    check_core_shape(x.shape[1], x.shape[2], heads)
+
+
 def mha_layer_block(x, w_in, b_in, w_out, b_out, ln_g, ln_b, lens,
                     heads: int, ln_mode: str, eps: float) -> torch.Tensor:
-    """(B, T, D) -> (B, T, D). CPU tensor: the plain version. CUDA tensor:
-    the hand-written kernels, or an exception. Differentiable: where an
-    input requires grad, through ``MhaLayerBlockFn``."""
+    """(B, T, D) -> (B, T, D) through the op ``speechclip::mha_layer_block``.
+    CPU tensor: the plain version. CUDA tensor: the hand-written kernels, or
+    an exception. Differentiable: where an input requires grad, through
+    ``MhaLayerBlockFn``."""
     if ln_mode not in LN_MODES:
         raise ValueError(f"ln_mode {ln_mode!r} not in {LN_MODES}")
+    _ops.check_device(x, "mha_layer_block")
     args = (x, w_in, b_in, w_out, b_out, ln_g, ln_b)
     if needs_grad(*args):
         return MhaLayerBlockFn.apply(x, w_in.to(x.dtype), b_in, w_out.to(x.dtype), b_out,
-                                     ln_g, ln_b, lens, heads, ln_mode, eps)
-    return _mha_layer_block(*args, lens, heads, ln_mode, eps)
+                                     ln_g, ln_b, lens, int(heads), ln_mode, float(eps))
+    return _ops.mha_layer_block(*args, lens, int(heads), ln_mode, float(eps))
 
 
-def _mha_layer_block(x, w_in, b_in, w_out, b_out, ln_g, ln_b, lens,
-                     heads: int, ln_mode: str, eps: float) -> torch.Tensor:
-    """The device dispatch of ``mha_layer_block``."""
-    if x.device.type == "cpu":
-        return mha_layer_block_plain(
-            x, w_in, b_in, w_out, b_out, ln_g, ln_b, lens, heads, ln_mode, eps
-        )
-    check_cuda_operands(x, w_in, b_in, w_out, b_out, ln_g, ln_b)
+def mha_layer_block_cuda(x, w_in, b_in, w_out, b_out, ln_g, ln_b, lens,
+                         heads: int, ln_mode: str, eps: float) -> torch.Tensor:
+    """The op's CUDA implementation: the kernels, counted in
+    ``mha_layer_block.launches``; zero rows return the empty output
+    without a launch."""
+    check_block_operands(x, (w_in, b_in, w_out, b_out, ln_g, ln_b), heads)
     bsz, t, d = x.shape
+    if x.numel() == 0:
+        return x.new_empty(x.shape)
     x2 = x.contiguous().view(bsz * t, d)
     h_in = layer_norm_rows(x2, ln_g, ln_b, eps) if ln_mode == "pre" else x2
     qkv = gemm(h_in, w_in, b_in, EPI_BIAS)
@@ -272,5 +290,5 @@ def _mha_layer_block(x, w_in, b_in, w_out, b_out, ln_g, ln_b, lens,
 
 mha_layer_block.launches = 0
 mha_layer_block.recomputes = 0
-MhaLayerBlockFn = plain_grad_function("MhaLayerBlockFn", _mha_layer_block,
+MhaLayerBlockFn = plain_grad_function("MhaLayerBlockFn", _ops.mha_layer_block,
                                       mha_layer_block_plain, mha_layer_block)

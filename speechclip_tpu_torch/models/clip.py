@@ -24,6 +24,7 @@ from ..config import CLIPResNetVisionConfig, CLIPTextConfig, VisionConfig
 from ..ops.attention import multi_head_attention
 from ..ops.basic import (
     Params,
+    conv_f32,
     layer_norm,
     layer_norm_init,
     linear,
@@ -130,14 +131,8 @@ def _resblock(params: Params, x: torch.Tensor, heads: int, causal: bool,
 
 
 def _conv2d(w: torch.Tensor, x: torch.Tensor, stride: int = 1, padding: int = 0):
-    """Bias-free conv on NCHW with JAX's ``preferred_element_type=f32``: the
-    sums in f32, the output rounded to ``x.dtype``. cuDNN's bf16 conv
-    accumulates in f32; PyTorch's CPU bf16 conv does not, so on the CPU the
-    operands are upcast first (as ``hubert._conv1d``)."""
-    w = w.to(x.dtype)
-    if x.device.type == "cpu" and x.dtype != torch.float32:
-        return F.conv2d(x.float(), w.float(), stride=stride, padding=padding).to(x.dtype)
-    return F.conv2d(x, w, stride=stride, padding=padding)
+    """Bias-free conv on NCHW with f32 sums (``ops.basic.conv_f32``)."""
+    return conv_f32(F.conv2d, x, w, "models/clip.py _conv2d", stride=stride, padding=padding)
 
 
 def _batch_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

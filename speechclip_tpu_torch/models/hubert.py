@@ -52,7 +52,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.fused_layer import fused_encoder_layer
 from ..ops.attention import attention_backend, get_attention_backend, multi_head_attention
-from ..ops.basic import Params, dropout, gelu, layer_norm, layer_norm_init, linear, normal
+from ..ops.basic import Params, conv_f32, dropout, gelu, layer_norm, layer_norm_init, linear, normal
 from ..ops.masking import (
     conv_frame_valid_lengths,
     hubert_feature_lengths,
@@ -175,15 +175,8 @@ def hubert_init(generator: torch.Generator, cfg: HubertConfig) -> Params:
 
 
 def _conv1d(x: torch.Tensor, w: torch.Tensor, **kwargs) -> torch.Tensor:
-    """conv1d with JAX's ``preferred_element_type=f32``: the operands in the
-    compute dtype, the sums in f32, the output rounded to ``x.dtype``.
-    cuDNN's bf16 convolution accumulates in f32 already; PyTorch's CPU bf16
-    convolution does not (its grouped form errs by more than the output's
-    own magnitude), so on the CPU the bf16 operands are upcast first."""
-    w = w.to(x.dtype)
-    if x.device.type == "cpu" and x.dtype != torch.float32:
-        return F.conv1d(x.float(), w.float(), **kwargs).to(x.dtype)
-    return F.conv1d(x, w, **kwargs)
+    """conv1d with f32 sums (``ops.basic.conv_f32``)."""
+    return conv_f32(F.conv1d, x, w, "models/hubert.py _conv1d", **kwargs)
 
 
 def _group_norm_per_channel(x: torch.Tensor, norm: Params) -> torch.Tensor:

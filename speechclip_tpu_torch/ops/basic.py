@@ -7,7 +7,9 @@ transpose.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -63,6 +65,43 @@ def layer_norm_init(dim: int, device) -> Params:
         "scale": torch.ones(dim, dtype=torch.float32, device=device),
         "bias": torch.zeros(dim, dtype=torch.float32, device=device),
     }
+
+
+_DEVICE_BRANCHES = threading.local()
+
+
+@contextlib.contextmanager
+def recording_device_branches():
+    """Yield a set that collects, while the block runs on this thread, the
+    ``where`` of every call that took a branch depending on its device
+    (``conv_f32``'s upcast). A traced graph keeps the branch of the device
+    it was traced on, so such a graph computes on another device what no
+    direct call there computes."""
+    prev = getattr(_DEVICE_BRANCHES, "log", None)
+    _DEVICE_BRANCHES.log = log = set()
+    try:
+        yield log
+    finally:
+        _DEVICE_BRANCHES.log = prev
+
+
+def conv_f32(conv, x: torch.Tensor, w: torch.Tensor, where: str, **kwargs) -> torch.Tensor:
+    """``conv(x, w, **kwargs)`` with JAX's ``preferred_element_type=f32``:
+    the operands in ``x.dtype``, the sums in f32, the output rounded to
+    ``x.dtype``. cuDNN's bf16 convolution accumulates in f32 already;
+    PyTorch's CPU bf16 convolution does not (its grouped form errs by more
+    than the output's own magnitude), so on the CPU non-f32 operands are
+    upcast first. That choice depends on the device: it is noted under
+    ``where`` for ``recording_device_branches``."""
+    w = w.to(x.dtype)
+    if x.dtype == torch.float32:
+        return conv(x, w, **kwargs)
+    log = getattr(_DEVICE_BRANCHES, "log", None)
+    if log is not None:
+        log.add(where)
+    if x.device.type == "cpu":
+        return conv(x.float(), w.float(), **kwargs).to(x.dtype)
+    return conv(x, w, **kwargs)
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

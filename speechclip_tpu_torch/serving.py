@@ -1,15 +1,20 @@
 """The serving runtime (port of speechclip_tpu/serving.py): micro-batching,
 wav-length buckets, round-robin over devices and a stdlib HTTP front, over
-eager calls of the model's three surfaces with the params as arguments.
+exported artifacts or eager calls of the model's three surfaces with the
+params as arguments.
 
     python -m speechclip_tpu_torch.serving --ckpt <run>/ckpts/last --port 8787
     python -m speechclip_tpu_torch.serving --ckpt model.ckpt --platform cpu
+    python -m speechclip_tpu_torch.serving --artifacts exports/ --port 8787
 
 - ``MicroBatcher`` gathers concurrent single-item requests into one device
   batch (up to ``max_batch``, waiting at most ``max_wait_ms`` after the
   first arrival); in pipelined mode a fetch thread reads batch N back while
   the worker launches batch N + 1.
-- ``EncoderService`` (``from_checkpoint`` / ``from_model``) pads speech to
+- ``EncoderService`` serves exported artifacts (``EncoderService(artifact_dir)``,
+  the ``*.pt2`` files of ``python -m speechclip_tpu_torch.export``: each
+  bucket's wav length and fixed or polymorphic batch read from the artifact
+  itself) or a model (``from_checkpoint`` / ``from_model``); it pads speech to
   its bucket's wav length (exact: the model masks by ``wav_len``), pads
   partial batches (to the next power of two, or to ``batch`` with
   ``fixed_batch``) and slices the results back; each request routes to the
@@ -35,9 +40,7 @@ asks for the CPU. Each dispatch runs under ``torch.inference_mode()`` on
 the thread that makes it (grad mode is thread-local, so a caller's
 ``no_grad`` does not reach a batcher's worker) and records a CUDA event
 that the fetch waits on before it reads the features back. Nothing falls
-back: a kernel that fails raises through the request. The AOT artifact
-backend (``EncoderService(artifact_dir)``, ``--artifacts``) waits for the
-export item of ROADMAP.md and raises.
+back: a kernel that fails raises through the request.
 """
 
 from __future__ import annotations
@@ -57,8 +60,14 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .config import EXPORT_ITEM
-from .export import cast_float_params, encode_speech_surface
+from .export import (
+    ARTIFACT_SUFFIX,
+    cast_float_params,
+    encode_speech_surface,
+    load_program,
+    program_device,
+    to_device,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -238,6 +247,72 @@ class _Aval:
         self.dtype = np.dtype(dtype)
 
 
+class _ArtifactEncoder:
+    """A loaded export artifact (``export.load_program``) behind the same
+    contract: ``in_avals`` from the program's input placeholders (a symbolic
+    batch reads as None), ``call`` runs the program's module on the
+    artifact's device or on one of ``devices``. The weights ride inside the
+    artifact; it is moved to each of ``devices`` up front (``to_device``,
+    which refuses a move the artifact's trace cannot take)."""
+
+    def __init__(self, program, devices: Optional[Sequence] = None):
+        devices = [_device(d) for d in devices or [program_device(program)]]
+        self.device = devices[0]
+        self._modules = {}
+        for device in devices:
+            if str(device) not in self._modules:
+                self._modules[str(device)] = to_device(program, device).module()
+        self.in_avals = []
+        for node in program.graph.nodes:
+            if node.op == "placeholder" and node.name in program.graph_signature.user_inputs:
+                val = node.meta["val"]
+                self.in_avals.append(_Aval(tuple(int(d) if isinstance(d, int) else None
+                                                 for d in val.shape),
+                                           torch.empty((), dtype=val.dtype).numpy().dtype))
+
+    def module(self, device=None):
+        """The program's module on ``device`` (the first of the encoder's
+        devices by default)."""
+        return self._modules[str(self.device if device is None else _device(device))]
+
+    def call(self, *args, device=None):
+        device = self.device if device is None else _device(device)
+        module = self.module(device)
+        inputs = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in args]
+        if device.type != "cuda":
+            return module(*inputs)
+        with torch.cuda.device(device):
+            return module(*inputs)
+
+
+def _device(device) -> torch.device:
+    """``device`` with its index (``cuda`` -> the current card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _artifact_encoders(artifact_dir: str, devices: Optional[Sequence] = None) -> List:
+    """(stem, ``_ArtifactEncoder``) for each ``*.pt2`` under ``artifact_dir``:
+    every ``encode_speech*`` is a speech bucket (its wav length read from
+    the artifact, not the file name), ``encode_image`` and ``encode_text``
+    the gallery surfaces."""
+    encoders = []
+    for fname in sorted(os.listdir(artifact_dir)):
+        stem = fname[: -len(ARTIFACT_SUFFIX)]
+        if not fname.endswith(ARTIFACT_SUFFIX) or not (
+                stem.startswith("encode_speech") or stem in ("encode_image", "encode_text")):
+            continue
+        program = load_program(os.path.join(artifact_dir, fname))
+        encoders.append(("encode_speech" if stem.startswith("encode_speech") else stem,
+                         _ArtifactEncoder(program, devices)))
+    if not encoders:
+        raise FileNotFoundError(f"no *{ARTIFACT_SUFFIX} artifacts under {artifact_dir} "
+                                "(export them with python -m speechclip_tpu_torch.export)")
+    return encoders
+
+
 def _next_pow2(n: int) -> int:
     return 1 << (n - 1).bit_length() if n > 1 else 1
 
@@ -270,11 +345,16 @@ def _text_fn(model, params, text, eot):
 
 
 class EncoderService:
-    """The encoder surfaces as padded, micro-batched callables, built by
-    ``EncoderService.from_checkpoint(ckpt, ...)`` or ``.from_model(model,
-    params, state, ...)``. ``EncoderService(artifact_dir)`` (the JAX
-    package's AOT artifact backend) waits for the export item of ROADMAP.md
-    and raises."""
+    """The encoder surfaces as padded, micro-batched callables, over two
+    backends behind one runtime (the same batchers, buckets, padding,
+    warmup, gallery and HTTP front):
+
+    - artifacts (``EncoderService(artifact_dir)``): the ``*.pt2`` files of
+      ``python -m speechclip_tpu_torch.export``, weights inside, run on
+      their own device or on ``devices``;
+    - a model (``EncoderService.from_checkpoint(ckpt, ...)`` /
+      ``.from_model(model, params, state, ...)``): its surfaces called
+      eagerly with the params as arguments."""
 
     def __init__(self, artifact_dir: Optional[str] = None, max_batch: Optional[int] = None,
                  max_wait_ms: float = 5.0, devices: Optional[Sequence] = None,
@@ -284,9 +364,7 @@ class EncoderService:
             if artifact_dir is None:
                 raise TypeError("EncoderService needs an artifact_dir (or use "
                                 "EncoderService.from_checkpoint / .from_model)")
-            raise NotImplementedError(
-                f"serving exported artifacts ({artifact_dir}) waits for {EXPORT_ITEM}; "
-                "serve a checkpoint with EncoderService.from_checkpoint (--ckpt)")
+            _encoders = _artifact_encoders(artifact_dir, devices)
         # round-robin over `devices`: the pipelined batchers launch batch
         # N + 1 on the next device while batch N computes; None = the
         # model's own device
@@ -308,6 +386,12 @@ class EncoderService:
         speech_encoders.sort(key=lambda e: int(e.in_avals[0].shape[1]))
         for encoder in speech_encoders:
             wav_aval = encoder.in_avals[0]
+            if self._speech_buckets and int(wav_aval.shape[1]) == self._speech_buckets[-1][
+                    "wav_samples"]:
+                # e.g. encode_speech.pt2 beside a re-exported encode_speech@<n>.pt2
+                logger.warning("duplicate encode_speech surface for wav length %d ignored",
+                               int(wav_aval.shape[1]))
+                continue
             self._speech_buckets.append({
                 "exported": encoder,
                 "wav_samples": int(wav_aval.shape[1]),
@@ -414,7 +498,8 @@ class EncoderService:
         routes to. float32 samples pass through; int16 PCM is rescaled by
         1/32768 (exact)."""
         if not self._speech_buckets:
-            raise RuntimeError("no encode_speech surface loaded")
+            raise RuntimeError("no encode_speech surface loaded (export one with "
+                               "python -m speechclip_tpu_torch.export)")
         wav = np.asarray(wav)
         if wav.squeeze().ndim > 1:
             # a batch flattened into one row would be one plausible wrong feature
@@ -844,7 +929,8 @@ def main(argv: Optional[Sequence[str]] = None):
 
     parser = argparse.ArgumentParser(prog="python -m speechclip_tpu_torch.serving")
     backend = parser.add_mutually_exclusive_group(required=True)
-    backend.add_argument("--artifacts", help=f"a directory of exported artifacts ({EXPORT_ITEM})")
+    backend.add_argument("--artifacts", help="a directory of exported *.pt2 artifacts "
+                                             "(python -m speechclip_tpu_torch.export)")
     backend.add_argument("--ckpt", help="a run checkpoint directory of the port or a reference "
                                         "Lightning .ckpt")
     parser.add_argument("--wav-samples", type=int, nargs="+", default=[102400],
@@ -871,18 +957,23 @@ def main(argv: Optional[Sequence[str]] = None):
                         help="round-robin the dispatched batches over the first N devices")
     args = parser.parse_args(argv)
 
-    if args.artifacts:
-        raise NotImplementedError(f"--artifacts waits for {EXPORT_ITEM}; serve --ckpt instead")
     device = "cpu" if args.platform == "cpu" else "cuda"
     devices = None
     if args.devices and args.devices > 1:
         devices = ([device] * args.devices if device == "cpu"
                    else [f"cuda:{i}" for i in range(args.devices)])
-    service = EncoderService.from_checkpoint(
-        args.ckpt, wav_buckets=args.wav_samples, batch=args.batch, dtype=args.dtype,
-        compact_wav=args.compact_wav, device=device,
-        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms, devices=devices,
-        gallery_max=args.gallery_max)
+    if args.artifacts:
+        # the artifacts carry their buckets, batch and dtypes; they run on
+        # --platform's device (a move they cannot take raises)
+        service = EncoderService(args.artifacts, max_batch=args.max_batch,
+                                 max_wait_ms=args.max_wait_ms, devices=devices or [device],
+                                 gallery_max=args.gallery_max)
+    else:
+        service = EncoderService.from_checkpoint(
+            args.ckpt, wav_buckets=args.wav_samples, batch=args.batch, dtype=args.dtype,
+            compact_wav=args.compact_wav, device=device,
+            max_batch=args.max_batch, max_wait_ms=args.max_wait_ms, devices=devices,
+            gallery_max=args.gallery_max)
     if args.gallery:
         service.gallery_path = args.gallery
         if os.path.exists(args.gallery):

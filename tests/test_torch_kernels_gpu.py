@@ -718,3 +718,272 @@ def test_conv_plan_matches_the_library(cuda):
         stages = ctypes.c_int(0)
         smem = lib.scl_conv_chain_plan(tile, ctypes.byref(stages))
         assert (smem, stages.value) == (conv_plan(tile)["smem_bytes"], conv_plan(tile)["stages"])
+
+
+# ---------------------------------------------------------------------------
+# the kernels as custom ops (kernels/_ops.py) and in an exported graph
+# ---------------------------------------------------------------------------
+def _op_cases(dev, b):
+    """name -> (the op's arguments, the plain version) for each kernel at
+    batch ``b`` at a shape of its main path."""
+    from speechclip_tpu_torch.kernels import attention_vmem as av
+    from speechclip_tpu_torch.kernels import conv_frontend as cf
+    from speechclip_tpu_torch.kernels import ffn_block as fb
+    from speechclip_tpu_torch.kernels import flash_attention as fa
+    from speechclip_tpu_torch.kernels import mha_block as mb
+
+    x, w_in, b_in, w_out, b_out, ln_g, ln_b, lens, heads, mode, eps = _mha_args(
+        dev, max(b, 1), 319, 768, 12, "post", True)
+    x, lens = x[:b], lens[:b]
+    g = torch.Generator(device=dev).manual_seed(1)
+    w1 = (torch.randn(768, 3072, generator=g, device=dev) * 768 ** -0.5).bfloat16()
+    w2 = (torch.randn(3072, 768, generator=g, device=dev) * 3072 ** -0.5).bfloat16()
+    b1 = 0.1 * torch.randn(3072, generator=g, device=dev)
+    q, k, v, qlens = _qkv(dev, max(b, 1), 12, 849, 849, 64, seed=2, packed=True)
+    tq, tk, tv, _ = _qkv(dev, max(b, 1), 8, 77, 77, 64, seed=3, dtype=torch.float32)
+    cx, cws = _conv_inputs(dev, max(b, 1), 2100, 512, (3, 3, 2), seed=4)
+    return {
+        "mha_layer_block": ((x, w_in, b_in, w_out, b_out, ln_g, ln_b, lens, heads, mode, eps),
+                            mb.mha_layer_block_plain),
+        "ffn_block": ((x, w1, b1, w2, b_out, ln_g, ln_b, mode, eps), fb.ffn_block_plain),
+        "attention_vmem": ((q[:b], k[:b], v[:b], qlens[:b], False), av.attention_vmem_plain),
+        "flash_attention": ((q[:b], k[:b], v[:b], qlens[:b], False), fa.flash_attention_plain),
+        "flash_attention f32": ((tq[:b], tk[:b], tv[:b], None, True), fa.flash_attention_plain),
+        "fused_conv_chain": ((cx[:b], cws, [3, 3, 2]), cf.fused_conv_chain_plain),
+    }
+
+
+def _counter(name):
+    from chip_smoke import _counters
+
+    return _counters()[name.split()[0]]
+
+
+@pytest.mark.parametrize("name", ["mha_layer_block", "ffn_block", "attention_vmem",
+                                  "flash_attention", "flash_attention f32", "fused_conv_chain"])
+def test_zero_rows_return_the_plain_empty_output(cuda, name):
+    """B = 0 (a custom op's fake implementation admits it): the op returns
+    the plain version's empty output, with no launch and no count (it was
+    ``CUDA error 9``, an empty launch grid)."""
+    args, plain = _op_cases(cuda, 0)[name]
+    counter = _counter(name)
+    before = counter.launches
+    got = getattr(torch.ops.speechclip, name.split()[0])(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    assert counter.launches == before
+    assert got.shape == want.shape and got.dtype == want.dtype and got.numel() == 0
+    assert got.device == want.device
+
+
+def test_clip_wrapper_encodes_no_captions_under_pallas(cuda, tmp_path):
+    """``ClipWrapper.prep_text([])`` then ``encode_text`` under "pallas":
+    (0, 512) f32, as the plain path gives, no flash launch."""
+    import chip_smoke
+    from speechclip_tpu_torch.kernels.flash_attention import flash_attention
+    from speechclip_tpu_torch.models import clip as clip_mod
+    from speechclip_tpu_torch.models.clip_api import ClipWrapper
+    from speechclip_tpu_torch.models.tokenizer import CLIPTokenizer
+    from speechclip_tpu_torch.ops.attention import attention_backend
+
+    tok = CLIPTokenizer(chip_smoke.write_synthetic_merges(str(tmp_path / "m.txt.gz")))
+    clip = ClipWrapper("ViT-B/32", tokenizer=tok, seed=0)
+    ids, eot = clip.prep_text([])
+    before = flash_attention.launches
+    with attention_backend("pallas"):
+        got = clip.encode_text(ids, eot)
+        torch.cuda.synchronize()
+        want = clip_mod.encode_text(clip.params, clip.cfg.text, ids, eot, plain=True)
+    assert flash_attention.launches == before
+    assert got.shape == want.shape == (0, 512) and got.dtype == want.dtype == torch.float32
+
+
+@pytest.mark.parametrize("name", ["mha_layer_block", "ffn_block", "attention_vmem",
+                                  "flash_attention", "flash_attention f32", "fused_conv_chain"])
+def test_each_op_is_bitwise_the_wrappers_kernel(cuda, name):
+    """``torch.ops.speechclip.<kernel>`` on the card is the kernel module's
+    CUDA implementation, bit for bit, and counts one launch."""
+    import importlib
+
+    module = {"mha_layer_block": "mha_block", "fused_conv_chain": "conv_frontend"}.get(
+        name.split()[0], name.split()[0])
+    cuda_impl = getattr(importlib.import_module(f"speechclip_tpu_torch.kernels.{module}"),
+                        f"{name.split()[0]}_cuda")
+    args, _ = _op_cases(cuda, 2)[name]
+    counter = _counter(name)
+    before = counter.launches
+    got = getattr(torch.ops.speechclip, name.split()[0])(*args)
+    assert counter.launches == before + 1
+    want = cuda_impl(*args)
+    torch.cuda.synchronize()
+    assert got.stride() == want.stride() and torch.equal(got, want)
+
+
+def _phase2_rows(dev):
+    """(label, op name, args) at every shape phase 2 of chip_smoke.py
+    launches a kernel at."""
+    import chip_smoke as cs
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    layers = {"hubert": dict(cs.HUBERT_SHAPE, mode="post"), "branch": dict(cs.BRANCH_SHAPE,
+                                                                          mode="post"),
+              "vit-l/14": dict(cs.VIT_L14_SHAPE, mode="none")}
+    layers.update({k: dict(v, mode="post") for k, v in cs.REPAIR_SHAPES.items()})
+    layers.update(cs.LARGE_LAYER_SHAPES)
+    for label, shape in layers.items():
+        x, lens, mha, ffn = cs._layer_inputs(shape, gen)
+        rows.append((label, "mha_layer_block", (x, *mha.values(), lens, shape["heads"],
+                                                shape["mode"], 1e-5)))
+        rows.append((label, "ffn_block", (x, *ffn.values(), shape["mode"], 1e-5)))
+    attention = [(f"{name} {label}", name, spec, None)
+                 for name, specs in cs.ATTENTION_SHAPES.items() for label, spec in specs.items()]
+    attention += [(f"gallery {label}", "flash_attention", spec, None)
+                  for label, spec in cs.GALLERY_FLASH_SHAPES.items()]
+    attention += [("large 1024", "flash_attention", cs.LARGE_FLASH_SHAPE, None),
+                  ("large 1024 f32", "flash_attention", cs.LARGE_FLASH_SHAPE, torch.float32),
+                  ("text f32", "flash_attention", cs.TEXT_F32_FLASH_SHAPE, torch.float32)]
+    for label, name, (b, h, l, dh, with_lens, causal, packed), dtype in attention:
+        q, k, v, lens = cs._attention_inputs(b, h, l, dh, with_lens, packed, gen, dtype)
+        rows.append((label, name, (q, k, v, lens, causal)))
+    x, ws = cs._conv_inputs(gen)
+    rows.append(("conv chain", "fused_conv_chain", (x, ws, list(cs.CONV_KERNELS))))
+    return rows
+
+
+def test_fake_shapes_equal_real_shapes_at_phase_2_rows(cuda):
+    """Each op's fake implementation (what ``torch.export`` traces with)
+    gives the shape, dtype, strides and device of its CUDA implementation's
+    output at every row of phase 2."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._pytree import tree_map
+
+    for label, name, args in _phase2_rows(cuda):
+        op = getattr(torch.ops.speechclip, name)
+        real = op(*args)
+        with FakeTensorMode(allow_non_fake_inputs=False) as mode:
+            fake_args = tree_map(lambda a: mode.from_tensor(a) if torch.is_tensor(a) else a,
+                                 args)
+            fake = op(*fake_args)
+        got = (tuple(fake.shape), fake.dtype, fake.stride(), fake.device)
+        want = (tuple(real.shape), real.dtype, real.stride(), real.device)
+        assert got == want, (label, name, got, want)
+        del real
+    torch.cuda.synchronize()
+
+
+class _Layer(torch.nn.Module):
+    """One HuBERT post-norm layer on the fused path (``mha_layer_block`` +
+    ``ffn_block``), its weights as buffers."""
+
+    def __init__(self, dev):
+        super().__init__()
+        cases = _op_cases(dev, 1)
+        mha, ffn = cases["mha_layer_block"][0], cases["ffn_block"][0]
+        for i, t in enumerate(mha[1:7] + ffn[1:5]):
+            self.register_buffer(f"w{i}", t.clone())
+        x, lens = mha[0], mha[7]
+        self.example = (torch.cat([x, x.flip(0)]), torch.cat([lens, lens.flip(0)]))
+
+    def forward(self, x, lens):
+        from speechclip_tpu_torch.kernels.ffn_block import ffn_block
+        from speechclip_tpu_torch.kernels.mha_block import mha_layer_block
+
+        w = [getattr(self, f"w{i}") for i in range(10)]
+        h = mha_layer_block(x, *w[:6], lens, 12, "post", 1e-5)
+        return ffn_block(h, w[6], w[7], w[8], w[9], w[4], w[5], "post", 1e-5)
+
+
+def test_an_exported_artifact_runs_its_kernels_on_the_card(cuda):
+    """A layer exported on the card and loaded back holds one node per
+    kernel, launches each once a call, and equals the direct call bitwise;
+    the planted fault, the same graph with ``mha_layer_block`` decomposed
+    into its plain version, fails the node count."""
+    import io
+
+    from speechclip_tpu_torch.export import kernel_nodes, load_program
+    from speechclip_tpu_torch.kernels.ffn_block import ffn_block
+    from speechclip_tpu_torch.kernels.mha_block import mha_layer_block, mha_layer_block_plain
+
+    layer = _Layer(cuda)
+    x, lens = layer.example
+    program = torch.export.export(layer, (x, lens))
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    loaded = load_program(buf.getvalue())
+    expected = {"mha_layer_block": 1, "ffn_block": 1}
+    assert kernel_nodes(loaded) == expected
+    before = (mha_layer_block.launches, ffn_block.launches)
+    got = loaded.module()(x, lens)
+    assert (mha_layer_block.launches, ffn_block.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, layer(x, lens))
+    decomposed = program.run_decompositions(
+        {torch.ops.speechclip.mha_layer_block.default: mha_layer_block_plain})
+    assert kernel_nodes(decomposed) != expected
+    assert kernel_nodes(decomposed) == {"ffn_block": 1}
+
+
+def test_an_artifact_moves_between_the_cpu_and_the_card(cuda):
+    """``load_exported(..., device=)``: the layer exported on the CPU runs
+    its kernels on the card (one launch each, bitwise the layer's direct
+    call there), and exported on the card it runs the plain versions on the
+    CPU (bitwise the direct call on the CPU)."""
+    import copy
+    import io
+
+    from speechclip_tpu_torch.export import load_exported
+    from speechclip_tpu_torch.kernels.ffn_block import ffn_block
+    from speechclip_tpu_torch.kernels.mha_block import mha_layer_block
+
+    layer = _Layer(cuda)
+    x, lens = layer.example
+    on_cpu = copy.deepcopy(layer).to("cpu")
+    blobs = {}
+    for device, module, args in (("cpu", on_cpu, (x.cpu(), lens.cpu())), ("cuda", layer, (x, lens))):
+        buf = io.BytesIO()
+        torch.export.save(torch.export.export(module, args), buf)
+        blobs[device] = buf.getvalue()
+    before = (mha_layer_block.launches, ffn_block.launches)
+    got = load_exported(blobs["cpu"], device=cuda)(x, lens)
+    assert got.device.type == "cuda"
+    assert (mha_layer_block.launches, ffn_block.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, layer(x, lens))
+    got = load_exported(blobs["cuda"], device="cpu")(x.cpu(), lens.cpu())
+    assert got.device.type == "cpu" and torch.equal(got, on_cpu(x.cpu(), lens.cpu()))
+
+
+@pytest.mark.parametrize("precision", [32, "bf16"])
+def test_a_speech_artifact_moves_between_the_cpu_and_the_card_only_in_f32(cuda, precision):
+    """A tiny speech artifact, HuBERT's conv front end and positional conv
+    included. In f32 its trace takes no device branch: exported on either
+    device and moved to the other, it is bitwise the direct call there.
+    Under bf16 compute the convolutions branch on the device (an f32 upcast
+    on the CPU, cuDNN's bf16 convolution on the card), the graph keeps the
+    traced branch, and each move raises."""
+    import dataclasses
+
+    from speechclip_tpu_torch.config import tiny_config
+    from speechclip_tpu_torch.export import export_encode_speech, load_exported
+    from speechclip_tpu_torch.models.speechclip import SpeechCLIPModel, cast_params
+
+    cfg = dataclasses.replace(tiny_config(), precision=precision)
+    params, state = SpeechCLIPModel(cfg, device="cpu").init(0)
+    gen = torch.Generator().manual_seed(0)
+    wav, wav_len = torch.randn(2, 2000, generator=gen), torch.tensor([2000, 1500], dtype=torch.int32)
+    blobs, direct = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = SpeechCLIPModel(cfg, device=dev)
+        p, s = (cast_params(t, model.compute_dtype, dev) for t in (params, state))
+        blobs[dev] = export_encode_speech(model, p, s, 2, 2000)
+        direct[dev] = model.encode_speech(p, s, wav.to(dev), wav_len.to(dev))
+    for source, target in (("cpu", "cuda"), ("cuda", "cpu")):
+        if precision == "bf16":
+            with pytest.raises(ValueError, match=f"traced on {source} through branches that "
+                                                 r"depend on the device \(models/hubert\.py"):
+                load_exported(blobs[source], device=target)
+            continue
+        got = load_exported(blobs[source], device=target)(wav.to(target), wav_len.to(target))
+        assert sorted(got) == sorted(k for k in direct[target] if k != "vq_results")
+        for key in got:
+            assert got[key].device.type == target
+            assert torch.equal(got[key], direct[target][key]), (source, target, key)

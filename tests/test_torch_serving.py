@@ -284,11 +284,43 @@ class TestServiceGuards:
         finally:
             image_only.close()
 
-    def test_artifacts_wait_for_the_export_item(self, tmp_path):
-        with pytest.raises(NotImplementedError, match=r"Queue 1 item 6"):
+    def test_artifacts_wait_for_the_export_item(self, models, tmp_path, monkeypatch):
+        """The export item has landed: ``--artifacts`` serves a directory of
+        exported artifacts (``main`` builds the service the HTTP front
+        serves; its speech answer is the eager service's, bitwise), an
+        empty directory is a clear error, and no backend at all a
+        TypeError."""
+        from speechclip_tpu_torch import serving
+        from speechclip_tpu_torch.export import export_encode_speech
+
+        with pytest.raises(FileNotFoundError, match="speechclip_tpu_torch.export"):
             EncoderService(str(tmp_path))
-        with pytest.raises(NotImplementedError, match=r"Queue 1 item 6"):
-            main(["--artifacts", str(tmp_path), "--platform", "cpu"])
+        with open(tmp_path / "encode_speech.pt2", "wb") as f:
+            f.write(export_encode_speech(models.model, models.params, models.state, 4, BUCKET))
+        served = {}
+
+        class Server:  # the HTTP front: checks the service, then a Ctrl-C
+            def __init__(self, service, host, port):
+                served["service"] = service
+
+            def serve_forever(self):
+                wav = np.random.default_rng(4).standard_normal(1300).astype(np.float32)
+                served["got"] = served["service"].encode_speech(wav)
+                eager = models.port(fixed_batch=True)
+                try:
+                    served["want"] = eager.encode_speech(wav)
+                finally:
+                    eager.close()
+                raise KeyboardInterrupt
+
+            def server_close(self):
+                pass
+
+        monkeypatch.setattr(serving, "make_http_server", Server)
+        main(["--artifacts", str(tmp_path), "--platform", "cpu"])
+        assert sorted(served["service"].batchers) == ["encode_speech"]
+        for key in served["want"]:
+            np.testing.assert_array_equal(served["got"][key], served["want"][key])
         with pytest.raises(TypeError, match="from_checkpoint"):
             EncoderService()
 
