@@ -216,7 +216,26 @@ line each (a failed check exits non-zero before the last line):
     (``set_sync_debug_mode("error")``); then the CLI's artifacts served by
     ``EncoderService(artifact_dir)`` with phase 23's drives (launches per
     batch times the batches, no plain version on a CUDA tensor), utt/s and
-    p50 / p99 printed beside phase 23's.
+    p50 / p99 printed beside phase 23's;
+27. data parallelism (``speechclip_tpu_torch/parallel/``): (a), run inside
+    phase 18 while its corpus exists, the same CLI argv in a world-1
+    ``torchrun`` environment, so the task joins an NCCL group and every
+    collective runs at world 1: its metric records and its final params
+    and kw-BN statistics bitwise phase 18's, the NCCL version printed; (b)
+    ``flagship_config()`` at full width from one seeded init, world 1 in
+    this process and a world of two gloo ranks on cuda:0
+    (``parallel.mesh.spawn``) on one global batch: dropout 0 under "auto"
+    (B = 256, 128 a rank, 2 steps: 13 ``mha_layer_block`` + 13
+    ``ffn_block`` a rank a step) and "pallas" (B = 64, phase 16's flash
+    counts a rank), and dropout 0.1 (2 steps, the global batch's masks):
+    the loss, each live leaf's gradient cosine and norm, ``grad_norm``, the
+    params after the steps, kw-BN's statistics and the VQ's perplexities
+    within DP_LIMITS, the ranks' params bitwise equal, and a planted
+    gather without the sum over the ranks outside the limits; each rank's
+    step ms (two ranks sharing one card: not a scaling figure); (c) rank
+    0's collectives of one step: the features and ids the only gathers,
+    one gradient all-reduce of the trainable leaves' bytes, the rest
+    statistics and the features' gradients.
 
 Rates (utt/s, images/s, sequences/s) come from CUDA events around as many
 back-to-back calls as fill about 1 s.
@@ -251,7 +270,8 @@ right after, so the counts in the summary are that path's own.
 
 The last lines are a JSON summary of the kernels (with their backward
 rows and recompute counts), of the timed train step, of the trainer, of
-serving, of export, of the text side and of the upstreams and, last,
+serving, of export, of the text side, of the upstreams and of data
+parallelism (``data_parallel``) and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 
@@ -3326,6 +3346,68 @@ def _paired_leaves(tree, *others):
         yield (tree, *others)
 
 
+def _nccl_world1(argv, run_dir, final_state, tmp):
+    """Phase 27 (a), run within phase 18: the CLI's argv again in a world-1
+    ``torchrun`` environment (RANK 0, WORLD_SIZE 1, a free localhost port),
+    so the task joins an NCCL group and every collective of the
+    data-parallel path runs at world 1. Its losses, metrics and final
+    params and statistics against phase 18's run of the same argv (``run_dir``,
+    ``final_state``), bitwise."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from speechclip_tpu_torch.training.optim import tree_leaves
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port)}
+    save = os.path.join(tmp, "p_nccl")
+    argv = list(argv)
+    argv[argv.index("--save_path") + 1] = save
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    try:
+        trainer, state = _cli_fit(argv)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall = time.perf_counter() - t0
+    mesh = trainer.mesh
+    if dist.is_initialized():
+        fail("phase 27 (a): the CLI left its process group initialized")
+    if not (mesh.distributed and mesh.backend == "nccl" and mesh.world_size == 1):
+        fail(f"phase 27 (a): the CLI ran on {mesh}, not a world-1 NCCL group")
+    skip = ("time", "steps_per_sec")
+    records = lambda d: [{k: v for k, v in r.items() if k not in skip}
+                         for part in _read_metrics(d) for _, r in sorted(part.items())]
+    want, got = records(run_dir), records(save)
+    pairs = list(zip(tree_leaves(state.params), tree_leaves(final_state.params))) + list(
+        zip(tree_leaves(state.model_state), tree_leaves(final_state.model_state)))
+    same = [bool(torch.equal(a, b)) for a, b in pairs]
+    max_diff = max(float((a.detach().float() - b.float()).abs().max()) for a, b in pairs)
+    out = {"nccl": ".".join(map(str, torch.cuda.nccl.version())), "backend": mesh.backend,
+           "world": mesh.world_size, "metrics_equal": got == want, "records": len(got),
+           "leaves_equal": sum(same), "leaves": len(same), "max_abs_diff": max_diff,
+           "wall_s": wall}
+    say(f"phase 27 (a) world 1 under NCCL {out['nccl']} (process group initialized: backend "
+        f"{mesh.backend}, world {mesh.world_size}) through the CLI on phase 18's corpus, seed and "
+        f"steps: {len(got)} metric records equal to phase 18's {got == want}; params and kw-BN "
+        f"statistics bitwise equal {sum(same)} of {len(same)} leaves (max abs diff {max_diff}); "
+        f"wall {wall:.1f} s")
+    if got != want or not all(same):
+        fail("phase 27 (a): world 1 under NCCL differs from phase 18's run")
+    del trainer, state
+    return out
+
+
 def phase_trainer(smi, beside, phase=18, configs=TRAINER_CONFIGS, c_overrides=(),
                   resume_c=False):
     """Phase 18 (and 21 for the large configs), the trainer: a seeded
@@ -3398,6 +3480,8 @@ def phase_trainer(smi, beside, phase=18, configs=TRAINER_CONFIGS, c_overrides=()
             clear()
             summary["step1_diff"] = _step_one_check(lp, tree, os.path.join(tmp, "p_step1"), first)
             _restore_check(lp, tree, run_p, final_state)
+            if phase == 18:  # before the resumed fit appends to run_p's metrics
+                out["nccl_world1"] = _nccl_world1(argv, run_p, final_state, tmp)
             del final_state
             clear()
             resume(lp, tree, run_p, summary)  # from step_3 in a fresh trainer, to step 6
@@ -5381,6 +5465,298 @@ def phase_upstreams(smi):
     return out, apc_launches
 
 
+DP_WORLD = 2  # phase 27 (b): two gloo ranks, both on cuda:0
+DP_STEPS = 2  # steps each run takes after its gradient reading
+DP_SEED = 27  # the global batch (every rank makes it and takes its rows)
+DP_DROPOUT = 0.1  # the run that holds the global-noise property
+# phase 27's limits by run, the world of two against world 1 on the same
+# global batch: 5-100x above the first runs' worst readings (PERF.md §6, PR
+# 15). Under "auto" each row of HuBERT's hand kernels has the same bits at
+# either batch; under "pallas" the unfused layers' cuBLAS GEMMs round rows by
+# the batch and train-mode kw-BN magnifies it at random init, as phase 16's
+# limits allow for the plain path. The planted fault is held to "auto"'s.
+DP_LIMITS = {
+    # read: 1.7e-4 (a step's loss), 0.99938, 7.7e-4, 1.2e-7, 2.7e-5, 0
+    "auto": dict(loss_rtol=1e-3, min_grad_cosine=0.995, grad_norm_rtol=5e-3, param_atol=1e-5,
+                 bn_rtol=2e-3, vq_rtol=1e-3),
+    # read: 4.6e-6, 0.99144, 0.011, 6.0e-8, 3.6e-4, 0.0106 (the code perplexity
+    # counts the VQ's own argmaxes, before the imposed ids)
+    "pallas": dict(loss_rtol=1e-3, min_grad_cosine=0.98, grad_norm_rtol=0.03, param_atol=1e-5,
+                   bn_rtol=2e-3, vq_rtol=0.05),
+}
+DP_LIMITS["dropout"] = DP_LIMITS["auto"]  # read: 1.7e-5, 0.99944, 6.0e-4, 1.2e-7, 2.0e-5, 0
+
+
+def _dp_run(model, params, model_state, mesh, backend, batch_size, steps, planted=False,
+            impose=None):
+    """One run of phase 27 on ``mesh`` (None: world 1): the train state from
+    ``params`` (every rank's the same, ``place_state``), the global batch's
+    rows, the loss, the VQ's perplexities, kw-BN's new statistics and the
+    trainable gradients at the initial params (reduced over the ranks as
+    the step reduces them; the generator rewound, so the steps draw the
+    same masks), then ``steps`` counted train steps (the first one's
+    collectives recorded), their metrics, host ms and launches, and the
+    params and statistics after them, and the VQ's keyword ids at the
+    initial params. ``planted``: the gradient reading alone. ``impose``:
+    the global batch's keyword ids (B, K) imposed on the VQ throughout
+    (``imposed_keyword_ids``: its argmax flips under rounding alone)."""
+    import torch
+
+    from speechclip_tpu_torch.ops.attention import attention_backend
+    from speechclip_tpu_torch.parallel import collectives
+    from speechclip_tpu_torch.parallel.inventory import recording
+    from speechclip_tpu_torch.parallel.mesh import shard_batch
+    from speechclip_tpu_torch.training.optim import build_optimizer
+    from speechclip_tpu_torch.training.train_step import (create_train_state, make_train_step,
+                                                          place_state)
+
+    batch = _train_batch(batch_size, torch.Generator(device="cuda").manual_seed(DP_SEED))
+    if mesh is not None:
+        batch = shard_batch(batch, mesh)
+    out = {"metrics": [], "launches": [], "recomputes": [], "ms": []}
+    with contextlib.ExitStack() as imposed:
+        if impose is not None:
+            rows = impose if mesh is None else impose[mesh.rows(len(impose))]
+            imposed.enter_context(imposed_keyword_ids(rows))
+        imposed.enter_context(attention_backend(backend))
+        state = place_state(create_train_state(model, params=params, model_state=model_state,
+                                               mesh=mesh), mesh)
+        optimizer, scheduler = build_optimizer(model.config, state.params,
+                                               model.trainable_mask(state.params))
+        leaves = optimizer.param_groups[0]["params"]
+        drawn = state.generator.get_state()
+        feats, _, others, new_state = model.forward(
+            state.params, state.model_state, batch, generator=state.generator, train=True,
+            num_updates=torch.tensor(0, device="cuda"), mesh=mesh)
+        losses = model.compute_loss(state.params, feats, mesh=mesh)
+        grads = torch.autograd.grad(losses["loss"], leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        grads = collectives.all_reduce_mean(grads, mesh)
+        state.generator.set_state(drawn)
+        vq = others["vq_results"]
+        out.update(loss=float(losses["loss"].detach()), grads=[g.float().cpu() for g in grads],
+                   vq={k: float(vq[k].detach()) for k in ("code_perplexity", "prob_perplexity")},
+                   bn={k: v.cpu() for k, v in new_state["cascaded_branch"]["bn"].items()},
+                   ids=vq["targets"][..., 0].detach().cpu())
+        del feats, others, new_state, losses, grads
+        if planted:
+            return out
+        step = make_train_step(model, optimizer, scheduler, mesh=mesh)
+        for i in range(steps):
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                inv = stack.enter_context(recording(mesh)) if mesh is not None and i == 0 else None
+                state, metrics, launches, recomputes = _counted_step(step, state, batch)
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["metrics"].append({k: float(v) for k, v in metrics.items()})
+            out["launches"].append(launches)
+            out["recomputes"].append(recomputes)
+            if inv is not None:
+                out["inventory"] = {"entries": inv.entries, "bytes": inv.collective_bytes(),
+                                    "trainable_bytes": sum(p.numel() * p.element_size()
+                                                           for p in leaves)}
+        out["params"] = [p.detach().cpu().clone() for p in leaves]
+        out["bn_after"] = {k: v.cpu() for k, v in
+                           state.model_state["cascaded_branch"]["bn"].items()}
+    return out
+
+
+def _slice_backward(ctx, g):
+    """The planted fault of phase 27: the gather's backward takes each rank's
+    rows of its own gradient, without the sum over the ranks."""
+    return g[ctx.mesh.rows(g.shape[0])], None, None
+
+
+def _dp_rank(rank, out_dir):
+    """One rank of phase 27 (b): each run of ``_dp_run`` over the world of
+    DP_WORLD gloo ranks on cuda:0 ("pallas" with world 1's keyword ids
+    imposed); the results saved for the parent."""
+    import torch
+
+    from speechclip_tpu_torch.parallel import collectives
+    from speechclip_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=["cuda:0"] * DP_WORLD)
+    model = _train_model()
+    params, model_state = model.init(0)
+    ids = torch.load(os.path.join(out_dir, "pallas_ids.pt")).cuda()
+    res = {"auto": _dp_run(model, params, model_state, mesh, "auto", TRAIN_BATCH, DP_STEPS),
+           "pallas": _dp_run(model, params, model_state, mesh, "pallas", TRAIN_PALLAS_BATCH, 1,
+                             impose=ids),
+           "dropout": _dp_run(_train_model(dropout=DP_DROPOUT), params, model_state, mesh, "auto",
+                              TRAIN_BATCH, DP_STEPS)}
+    real = collectives._AllGatherRows.backward
+    collectives._AllGatherRows.backward = staticmethod(_slice_backward)
+    try:
+        res["planted"] = _dp_run(model, params, model_state, mesh, "auto", TRAIN_BATCH, 0,
+                                 planted=True)
+    finally:
+        collectives._AllGatherRows.backward = real
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _dp_readings(got, want):
+    """The world of two (``got``: rank 0) against world 1 (``want``) on one
+    global batch: the loss, each live leaf's gradient cosine and norm ratio,
+    and, where the run took steps, ``grad_norm``, the params and kw-BN's
+    statistics after them and the VQ's perplexities."""
+    import torch
+
+    norms = [float(g.norm()) for g in want["grads"]]
+    live = [i for i, n in enumerate(norms) if n >= TRAIN_LIVE_GRAD * max(norms)]
+    cos = [float(torch.nn.functional.cosine_similarity(got["grads"][i].flatten(),
+                                                       want["grads"][i].flatten(), dim=0))
+           for i in live]
+    ratio = [float(got["grads"][i].norm()) / norms[i] for i in live]
+    out = {"loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+           "min_grad_cosine": min(cos), "max_grad_norm_rel": max(abs(r - 1) for r in ratio),
+           "live_leaves": len(live), "leaves": len(norms),
+           "vq_rel": max(abs(got["vq"][k] - v) / abs(v) for k, v in want["vq"].items())}
+    stat_rel = lambda a, b: max(float((a[k] - b[k]).abs().max() / b[k].abs().max()) for k in b)
+    out["bn_rel"] = stat_rel(got["bn"], want["bn"])
+    if got.get("params"):
+        out["grad_norm_rel"] = max(abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                                   for g, w in zip(got["metrics"], want["metrics"]))
+        out["step_loss_rel"] = max(abs(g["train_loss"] - w["train_loss"]) / abs(w["train_loss"])
+                                   for g, w in zip(got["metrics"], want["metrics"]))
+        out["param_max_abs"] = max(float((a - b).abs().max())
+                                   for a, b in zip(got["params"], want["params"]))
+        out["bn_after_rel"] = stat_rel(got["bn_after"], want["bn_after"])
+    return out
+
+
+def _dp_violations(r, limits):
+    """The readings ``r`` outside ``limits`` (a DP_LIMITS entry)."""
+    checks = [("loss_rel", r["loss_rel"] <= limits["loss_rtol"]),
+              ("min_grad_cosine", r["min_grad_cosine"] >= limits["min_grad_cosine"]),
+              ("max_grad_norm_rel", r["max_grad_norm_rel"] <= limits["grad_norm_rtol"]),
+              ("vq_rel", r["vq_rel"] <= limits["vq_rtol"]), ("bn_rel", r["bn_rel"] <= limits["bn_rtol"])]
+    if "param_max_abs" in r:
+        checks += [("grad_norm_rel", r["grad_norm_rel"] <= limits["grad_norm_rtol"]),
+                   ("step_loss_rel", r["step_loss_rel"] <= limits["loss_rtol"]),
+                   ("param_max_abs", r["param_max_abs"] <= limits["param_atol"]),
+                   ("bn_after_rel", r["bn_after_rel"] <= limits["bn_rtol"])]
+    return [name for name, ok in checks if not ok]
+
+
+def _dp_inventory(inv, global_batch, feat_dim):
+    """Phase 27 (c): one step's collectives against ``tests/test_scaling_hlo.py``'s
+    gates: the features (B, feat) and ids (B,) are the only gathers (no rank-3
+    float tensor), the gradient all-reduce moves the trainable leaves' bytes
+    alone, and every other all-reduce carries statistics (kw-BN, the VQ) or
+    the gathered features' gradients."""
+    entries = inv["entries"]
+    gathers = sorted((dt, dims, what) for op, dt, dims, what in entries if op == "all-gather")
+    want = sorted([("f32", (global_batch, feat_dim), "features")] * 4
+                  + [("s64", (global_batch,), "ids")] * 2)
+    if gathers != want:
+        fail(f"phase 27 inventory: gathers {gathers}, expected {want}")
+    grads = [(op, dims) for op, dt, dims, what in entries if what == "gradients"]
+    if len(grads) != 1 or grads[0][0] != "all-reduce" or math.prod(grads[0][1]) * 4 != inv[
+            "trainable_bytes"]:
+        fail(f"phase 27 inventory: gradient reduction {grads}, trainable bytes "
+             f"{inv['trainable_bytes']}")
+    tags = {what for op, dt, dims, what in entries if op == "all-reduce"}
+    allowed = {"gradients", "kw_bn", "kw_bn gradient", "vq", "features gradient"}
+    if not tags <= allowed:
+        fail(f"phase 27 inventory: all-reduces of {tags - allowed}")
+    by_tag = {}
+    for op, dt, dims, what in entries:
+        n, b = by_tag.get((op, what), (0, 0))
+        by_tag[(op, what)] = (n + 1, b + math.prod(dims) * {"f32": 4, "s64": 8}[dt])
+    return {"bytes": {op: list(v) for op, v in inv["bytes"].items()},
+            "by_what": {f"{op} {what}": list(v) for (op, what), v in sorted(by_tag.items())},
+            "trainable_bytes": inv["trainable_bytes"]}
+
+
+def phase_data_parallel(smi, nccl_world1, flash, flash_recomputes):
+    """Phase 27 (b) and (c), the data-parallel step held to world 1: the
+    flagship at full width from one seeded init, at dropout 0 under "auto"
+    (B = TRAIN_BATCH, DP_STEPS steps) and "pallas" (TRAIN_PALLAS_BATCH, 1
+    step) and at DP_DROPOUT (DP_STEPS steps), first at world 1 in this
+    process, then in a world of DP_WORLD gloo ranks on cuda:0
+    (``parallel.mesh.spawn``; "pallas" with world 1's keyword ids imposed),
+    with a planted wrong-reduction gather that must fail the limits; each rank's launches; rank 0's inventory of one
+    step. ``flash`` / ``flash_recomputes``: phase 16's "pallas" counts a
+    step. (a), world 1 under NCCL through the CLI, ran within phase 18
+    (``nccl_world1``)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from speechclip_tpu_torch.parallel.mesh import spawn
+
+    t_phase = time.perf_counter()
+    model = _train_model()
+    params, model_state = model.init(0)
+    ref = {"auto": _dp_run(model, params, model_state, None, "auto", TRAIN_BATCH, DP_STEPS),
+           "pallas": _dp_run(model, params, model_state, None, "pallas", TRAIN_PALLAS_BATCH, 1),
+           "dropout": _dp_run(_train_model(dropout=DP_DROPOUT), params, model_state, None, "auto",
+                              TRAIN_BATCH, DP_STEPS)}
+    feat_dim = model.config.clip_embed_dim
+    del model, params, model_state
+    torch.cuda.empty_cache()
+    t_world = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        # under "pallas" cuBLAS's GEMMs round rows by the batch: the world
+        # of two takes world 1's keyword ids, as phase 16 imposes them
+        torch.save(ref["pallas"]["ids"], os.path.join(tmp, "pallas_ids.pt"))
+        spawn(_dp_rank, DP_WORLD, "gloo", args=(tmp,))
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_WORLD)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    world_s = time.perf_counter() - t_world
+    readings = {run: _dp_readings(ranks[0][run], ref[run]) for run in ("auto", "pallas", "dropout")}
+    readings["planted"] = _dp_readings(ranks[0]["planted"], ref["auto"])
+    bitwise = {run: all(torch.equal(a, b) for a, b in zip(*(r[run]["params"] for r in ranks)))
+               for run in ("auto", "pallas", "dropout")}
+    expect = {"auto": (dict(mha_layer_block=13, ffn_block=13), dict(mha_layer_block=1,
+                                                                     ffn_block=1)),
+              "pallas": (dict(flash_attention=flash), dict(flash_attention=flash_recomputes)),
+              "dropout": (dict(mha_layer_block=12, ffn_block=12), {})}
+    for run, (launches, recomputes) in expect.items():
+        for r, rank in enumerate(ranks):
+            for i, (got, rec) in enumerate(zip(rank[run]["launches"], rank[run]["recomputes"])):
+                _expect_launches(f"phase 27 {run} rank {r} step {i + 1}", got, **launches)
+                _expect_recomputes(f"phase 27 {run} rank {r} step {i + 1}", rec, **recomputes)
+    inventory = _dp_inventory(ranks[0]["auto"]["inventory"], TRAIN_BATCH, feat_dim)
+    for run, r in readings.items():
+        say(f"phase 27 (b) {run}: world {DP_WORLD} (gloo, both ranks on cuda:0) against world 1 "
+            f"on {smi}: " + ", ".join(f"{k} {v:.6g}" for k, v in r.items()))
+    ms = {f"rank {r}": {run: [round(x, 3) for x in rank[run]["ms"]] for run in expect}
+          for r, rank in enumerate(ranks)}
+    say(f"phase 27 (b) step ms per rank (host clock, each step synchronized; two ranks sharing "
+        f"one card, not a scaling figure) {ms}; world 1 in this process "
+        f"{ {run: [round(x, 3) for x in ref[run]['ms']] for run in expect} }; ranks' params "
+        f"bitwise equal {bitwise}; peak GiB per rank "
+        f"{[round(rank['peak_gib'], 2) for rank in ranks]}")
+    say(f"phase 27 (c) one world-{DP_WORLD} step's collectives (rank 0): {inventory['bytes']} "
+        f"(op: count, bytes); by what {inventory['by_what']}; trainable gradient bytes "
+        f"{inventory['trainable_bytes']}")
+    planted = _dp_violations(readings["planted"], DP_LIMITS["auto"])
+    say(f"phase 27 (b) limits {DP_LIMITS}; the planted gather (no sum over the ranks) fails "
+        f"\"auto\"'s on {planted}")
+    if not planted:
+        fail("phase 27: the planted wrong-reduction gather passes the limits")
+    for run in ("auto", "pallas", "dropout"):
+        bad = _dp_violations(readings[run], DP_LIMITS[run])
+        if bad:
+            fail(f"phase 27 {run}: world {DP_WORLD} outside the limits on {bad}")
+        if not bitwise[run]:
+            fail(f"phase 27 {run}: the ranks' params differ")
+    wall = time.perf_counter() - t_phase
+    say(f"phase 27 data parallel: wall {wall:.1f} s (the world of {DP_WORLD} {world_s:.1f} s)")
+    launches = {f"data parallel {run} (a rank)": ranks[0][run]["launches"][0] for run in expect}
+    return {"nccl_world1": nccl_world1, "world": DP_WORLD, "backend": "gloo",
+            "readings": readings, "limits": DP_LIMITS, "planted_fails": planted,
+            "params_bitwise_across_ranks": bitwise, "ms_per_rank": ms,
+            "inventory": inventory, "wall_s": wall}, launches
+
+
 REPLACES = {
     "mha_layer_block": ("speechclip_tpu_torch/csrc/gemm_epilogue.cu + "
                         "speechclip_tpu_torch/csrc/attention_vmem.cu",
@@ -5531,6 +5907,10 @@ def main(argv) -> int:
     text_side = phase_text_side(smi)
     torch.cuda.empty_cache()
     upstreams, launches["apc"] = phase_upstreams(smi)
+    torch.cuda.empty_cache()
+    data_parallel, dp_launches = phase_data_parallel(smi, trainer.pop("nccl_world1"),
+                                                     sum(flash.values()), 2 + text_layers)
+    launches.update(dp_launches)
 
     kernels = []
     for name, (source, replaces, row, path) in REPLACES.items():
@@ -5564,7 +5944,7 @@ def main(argv) -> int:
                                 "trainer": large_trainer},
                       "trainable": trainable, "serving": serving, "export": export,
                       "text_side": text_side,
-                      "upstreams": upstreams}))
+                      "upstreams": upstreams, "data_parallel": data_parallel}))
     print(json.dumps({
         "ok": True,
         "device": {

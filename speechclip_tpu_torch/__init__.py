@@ -20,7 +20,9 @@ as the JAX package's ``custom_vjp``s do; and the trainer
 ``config.load_config``, the bucketed Flickr8k / SpokenCOCO loaders of
 ``data/``, ``training/trainer.py``'s fit and validation, the checkpoints of
 ``training/checkpoint.py``; with the CLIP tokenizer of
-``models/tokenizer.py``, the keyword diagnostics); the s3prl upstreams APC
+``models/tokenizer.py``, the keyword diagnostics), on one device or
+data-parallel over a ``torch.distributed`` world (``parallel/``: the CLI's
+``--devices N``); the s3prl upstreams APC
 and CPC (``models/upstream.py``) in HuBERT's place; and ``ClipWrapper``
 (``models/clip_api.py``), the pooling heads and the text metrics. The encoder
 layers take the JAX package's length-dependent routes (``ops/attention.py``,

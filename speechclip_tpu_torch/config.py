@@ -896,9 +896,6 @@ def load_config(path: Optional[str] = None, overrides: Iterable[str] = (),
 # ConfigTree -> SpeechCLIPConfig
 # ---------------------------------------------------------------------------
 
-DDP_ITEM = "the ROADMAP item 'DDP' (Queue 1 item 7)"
-
-
 def _dims(node) -> Optional[Tuple[int, ...]]:
     return None if node is None else tuple(node.dimensions)
 

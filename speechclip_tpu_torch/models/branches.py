@@ -104,9 +104,9 @@ def _project_keywords(params: Params, branch_cfg, keywords: torch.Tensor, train:
 
 def _pre_vq_keywords(params: Params, state: Params, branch_cfg, audio_feat: torch.Tensor,
                      audio_len: torch.Tensor, plain: bool, train: bool,
-                     generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, Params]:
-    """Branch body -> K keyword rows -> projection -> kw-BN: (keywords
-    (B, K, text_dim), the new state)."""
+                     generator: Optional[torch.Generator], mesh=None) -> Tuple[torch.Tensor, Params]:
+    """Branch body -> K keyword rows -> projection -> kw-BN (over the global
+    batch of ``mesh``): (keywords (B, K, text_dim), the new state)."""
     src, kpm, lens = _src_and_mask(params, audio_feat, audio_len)
     out = branch_transformer_apply(params["transformer"], branch_cfg.transformer_type,
                                    branch_cfg, src, kpm, key_valid_lens=lens, plain=plain,
@@ -118,7 +118,7 @@ def _pre_vq_keywords(params: Params, state: Params, branch_cfg, audio_feat: torc
     keywords, bn_state = kw_bn_apply(params["bn"], state["bn"], keywords,
                                      batchnorm_type=branch_cfg.batchnorm_type,
                                      parallel=branch_cfg.bn_parallel, train=train,
-                                     replica_groups=branch_cfg.bn_replica_groups)
+                                     replica_groups=branch_cfg.bn_replica_groups, mesh=mesh)
     return keywords, {**state, "bn": bn_state}
 
 
@@ -145,20 +145,22 @@ def cascaded_branch_apply(
     train: bool = False,
     generator: Optional[torch.Generator] = None,
     num_updates: Optional[torch.Tensor] = None,
+    mesh=None,
 ):
     """-> (text-tower features (B, output_dim), vq_results, keywords
     (B, K, text_dim) after VQ, in the activation dtype, the new state). At
     eval the kw-BN state is read and returned as it is; in train mode it
     moves with the batch statistics. ``num_updates`` drives a scheduled VQ
-    temperature."""
+    temperature. ``mesh``: the rows are this rank's shard; kw-BN's
+    statistics and the VQ's diagnostics are the global batch's."""
     keywords, new_state = _pre_vq_keywords(params, state, branch_cfg, audio_feat, audio_len,
-                                           plain, train, generator)
+                                           plain, train, generator, mesh)
     table = clip_params["text"]["token_embedding"]
     vq_results = vq_apply(
         params["vq"], cosine_scores(keywords, table), temp_spec=branch_cfg.vq_temp,
         use_gumbel=branch_cfg.use_gumbel, hard=branch_cfg.hard, train=train,
         generator=generator, num_updates=num_updates,
-        ground_truth_perplexity=branch_cfg.ground_truth_perplexity,
+        ground_truth_perplexity=branch_cfg.ground_truth_perplexity, mesh=mesh,
     )
     keywords = (vq_results["subword_prob"] @ table.float()).to(audio_feat.dtype)
     feat = clip_mod.encode_keywords(clip_params, clip_cfg, keywords, sot_id, eot_id, plain)

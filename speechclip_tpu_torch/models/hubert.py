@@ -52,7 +52,17 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.fused_layer import fused_encoder_layer
 from ..ops.attention import attention_backend, get_attention_backend, multi_head_attention
-from ..ops.basic import Params, conv_f32, dropout, gelu, layer_norm, layer_norm_init, linear, normal
+from ..ops.basic import (
+    Params,
+    conv_f32,
+    dropout,
+    gelu,
+    layer_norm,
+    layer_norm_init,
+    linear,
+    normal,
+    seeded_generator,
+)
 from ..ops.masking import (
     conv_frame_valid_lengths,
     hubert_feature_lengths,
@@ -290,18 +300,16 @@ def encoder_layer_apply(
     return layer_norm(params["final_layer_norm"], x + ffn(x))
 
 
-def _seeded_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
-    return None if seed is None else torch.Generator(device=device).manual_seed(seed)
-
-
 def _train_layer(params: Params, cfg: HubertConfig, x: torch.Tensor,
-                 frame_lens: Optional[torch.Tensor], plain: bool, seed: Optional[int]):
+                 frame_lens: Optional[torch.Tensor], plain: bool, seed: Optional[int],
+                 like: Optional[torch.Generator]):
     """One train-mode layer whose dropout draws from a generator seeded with
-    ``seed`` here, inside the call: under ``torch.utils.checkpoint`` the
-    recompute builds it again and draws the same masks (the checkpoint
-    restores the default generators' states, not an explicit one's)."""
+    ``seed`` (of ``like``'s rank shard) here, inside the call: under
+    ``torch.utils.checkpoint`` the recompute builds it again and draws the
+    same masks (the checkpoint restores the default generators' states, not
+    an explicit one's)."""
     return encoder_layer_apply(params, cfg, x, frame_lens, plain=plain, train=True,
-                               generator=_seeded_generator(seed, x.device))
+                               generator=seeded_generator(seed, x.device, like))
 
 
 def layerdrop_select(keep: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -376,11 +384,11 @@ def hubert_apply(
             y = encoder_layer_apply(layer, cfg, x, frame_lens, plain=plain)
         elif cfg.remat:
             y = checkpoint(_train_layer, layer, cfg, x, frame_lens, plain, seeds[2 * i],
-                           use_reentrant=False)
+                           generator, use_reentrant=False)
         else:
-            y = _train_layer(layer, cfg, x, frame_lens, plain, seeds[2 * i])
+            y = _train_layer(layer, cfg, x, frame_lens, plain, seeds[2 * i], generator)
         if train and cfg.layerdrop > 0:
-            g = _seeded_generator(seeds[2 * i + 1], x.device)
+            g = seeded_generator(seeds[2 * i + 1], x.device)
             keep = torch.rand((), generator=g, device=x.device) < 1.0 - cfg.layerdrop
             x = layerdrop_select(keep, y, x)
         else:

@@ -75,9 +75,10 @@ from ..ops import retrieval
 from ..ops.losses import (
     contrastive_temp_init,
     contrastive_temperature,
-    masked_contrastive_loss,
+    masked_contrastive_loss_sharded,
     supcon_loss,
 )
+from ..parallel.collectives import all_gather_rows
 from ..ops.mlp import mlp_apply, mlp_init
 from ..ops.transformer import TRANSFORMER_TYPES
 from ..ops.weighted_sum import weighted_sum_apply, weighted_sum_init
@@ -528,6 +529,7 @@ class SpeechCLIPModel:
         train: bool = False,
         num_updates: Optional[torch.Tensor] = None,
         plain: bool = False,
+        mesh=None,
     ) -> Tuple[Dict, Dict, Dict, Params]:
         """-> (loss_feats, log_metrics, others, new_state), as the JAX
         model's ``forward``. ``batch``: ``wav``, ``wav_len``, ``id`` and
@@ -536,7 +538,10 @@ class SpeechCLIPModel:
         dropout and the Gumbel noise are drawn from ``generator``, kw-BN
         normalizes with batch statistics and returns its running statistics
         updated, and ``num_updates`` drives a scheduled VQ temperature.
-        Features come out L2-normalized in f32."""
+        Features come out L2-normalized in f32. ``mesh`` (a ``DataMesh``):
+        the batch is this rank's shard; kw-BN's statistics and the VQ's
+        diagnostics are the global batch's (``compute_loss`` gathers the
+        features)."""
         audio_feat, audio_len = self.forward_audio(params, batch["wav"], batch["wav_len"],
                                                    plain=plain, generator=generator, train=train)
         if "image_feat_frozen" in batch:
@@ -552,7 +557,7 @@ class SpeechCLIPModel:
                 params["cascaded_branch"], state.get("cascaded_branch", {}),
                 cfg.cascaded_branch, params["clip"], self.clip_cfg, self.sot_id, self.eot_id,
                 audio_feat, audio_len, plain=plain, train=train, generator=generator,
-                num_updates=num_updates,
+                num_updates=num_updates, mesh=mesh,
             )
             if branch_state:
                 new_state = {**state, "cascaded_branch": branch_state}
@@ -599,35 +604,38 @@ class SpeechCLIPModel:
         return torch.tensor(cl.temperature, dtype=torch.float32)
 
     def _pair_loss(self, params: Params, audio_feat: torch.Tensor, image_feat: torch.Tensor,
-                   ids: torch.Tensor) -> torch.Tensor:
+                   ids: torch.Tensor, mesh=None) -> torch.Tensor:
         cl = self.config.cl_loss
         if cl.type == "MaskedContrastiveLoss":
-            return masked_contrastive_loss(
-                params.get("criterion", {}), audio_feat, image_feat, ids,
+            return masked_contrastive_loss_sharded(
+                params.get("criterion", {}), audio_feat, image_feat, ids, mesh,
                 temperature=cl.temperature, temperature_trainable=cl.temperature_trainable,
                 margin=cl.margin, dcl=cl.dcl, a2b=cl.a2b, b2a=cl.b2a,
             )
         # SupConLoss: (audio, image) as two views, pair ids as the labels
-        return supcon_loss(torch.stack([audio_feat, image_feat], dim=1),
-                           temperature=self._current_cl_temperature(params), labels=ids,
+        views = torch.stack([all_gather_rows(audio_feat, mesh), all_gather_rows(image_feat, mesh)],
+                            dim=1)
+        return supcon_loss(views, temperature=self._current_cl_temperature(params),
+                           labels=all_gather_rows(ids, mesh, "ids"),
                            contrast_mode=cl.contrast_mode,
                            base_temperature=cl.base_temperature)
 
-    def compute_loss(self, params: Params, loss_feats: Dict) -> Dict[str, torch.Tensor]:
+    def compute_loss(self, params: Params, loss_feats: Dict, mesh=None) -> Dict[str, torch.Tensor]:
         """-> {"loss", "c_cl_loss" (cascaded), "p_cl_loss" (parallel)}: each
         branch's pair loss against the image features, summed with the
-        objective weights."""
+        objective weights. ``mesh``: the features are this rank's rows,
+        gathered over the ranks for the global batch's loss."""
         cfg = self.config
         ids = loss_feats["id"]
         image_feat = loss_feats["image_feat"].float()
         losses = {"loss": torch.zeros((), dtype=torch.float32, device=image_feat.device)}
         if self.use_cascaded:
             losses["c_cl_loss"] = self._pair_loss(
-                params, loss_feats["cascaded_audio_feat"].float(), image_feat, ids)
+                params, loss_feats["cascaded_audio_feat"].float(), image_feat, ids, mesh)
             losses["loss"] = losses["loss"] + cfg.cascaded_objective_weight * losses["c_cl_loss"]
         if self.use_parallel:
             losses["p_cl_loss"] = self._pair_loss(
-                params, loss_feats["parallel_audio_feat"].float(), image_feat, ids)
+                params, loss_feats["parallel_audio_feat"].float(), image_feat, ids, mesh)
             losses["loss"] = losses["loss"] + cfg.parallel_objective_weight * losses["p_cl_loss"]
         return losses
 

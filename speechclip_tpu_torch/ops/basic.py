@@ -41,6 +41,43 @@ def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+class RowShardGenerator(torch.Generator):
+    """A generator of one rank of a data-parallel world of ``world`` equal
+    batch shards: a batch-shaped draw (``rand_rows``) covers the global
+    batch and keeps this rank's rows, so each rank's dropout masks and Gumbel
+    noise are the single-device draw's rows, as JAX's sharded step draws
+    its noise over the global shape. Every rank holds the same seed, so the
+    ranks stay in step; the cost is ``world`` times the draws."""
+
+    def __new__(cls, device, rank: int, world: int):
+        return super().__new__(cls, device)
+
+    def __init__(self, device, rank: int, world: int):
+        self.rank, self.world = rank, world
+
+
+def seeded_generator(seed: Optional[int], device,
+                     like: Optional[torch.Generator] = None) -> Optional[torch.Generator]:
+    """A generator on ``device`` seeded with ``seed`` (None for None), of
+    ``like``'s rank shard where ``like`` is a ``RowShardGenerator``."""
+    if seed is None:
+        return None
+    if isinstance(like, RowShardGenerator):
+        return RowShardGenerator(device, like.rank, like.world).manual_seed(seed)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def rand_rows(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """f32 U[0, 1) of ``shape`` (batch first) from ``generator``; from a
+    ``RowShardGenerator``, this rank's rows of the global batch's draw."""
+    world = getattr(generator, "world", 1)
+    if world == 1:
+        return torch.rand(shape, generator=generator, device=device)
+    n, rank = shape[0], generator.rank
+    full = torch.rand((world * n, *shape[1:]), generator=generator, device=device)
+    return full[rank * n:(rank + 1) * n]
+
+
 def uniform(shape, bound: float, generator: torch.Generator) -> torch.Tensor:
     """U(-bound, bound) f32 on the generator's device."""
     u = torch.rand(shape, generator=generator, device=generator.device)
@@ -130,14 +167,15 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout (speechclip_tpu/ops/basic.py ``dropout``): each
     element kept with probability ``1 - rate`` and scaled by ``1 / (1 -
-    rate)`` in ``x.dtype``, the mask drawn from ``generator``. The identity
-    when not training or at rate 0."""
+    rate)`` in ``x.dtype``, the mask drawn from ``generator`` (``rand_rows``:
+    under data parallelism, the global batch's mask). The identity when not
+    training or at rate 0."""
     if not train or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("dropout needs a generator when train=True and rate > 0")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = rand_rows(x.shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -4,9 +4,11 @@
 symmetric InfoNCE over an (A, B) feature pair with id-aware negatives
 (other captions of the same image leave the negative set), as a masked
 logsumexp over the whole batch's logits. ``supcon_loss`` is the supervised
-contrastive loss, selectable as ``cl_loss.type: SupConLoss``. The
-all-gather variant for data-parallel training waits for the ROADMAP item
-"Training" (DDP).
+contrastive loss, selectable as ``cl_loss.type: SupConLoss``. Under data
+parallelism ``masked_contrastive_loss_sharded`` all-gathers both feature
+sets and the ids over the ``DataMesh`` (the gradient flows back through
+the gather, ``parallel/collectives.py``) and takes the global batch's loss:
+negatives span every rank, and every rank computes the same scalar.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.collectives import all_gather_rows
 from .basic import Params
 
 NEG_INF = float(torch.finfo(torch.float32).min)
@@ -74,6 +77,22 @@ def masked_contrastive_loss(
     if b2a:
         loss = loss + (torch.logsumexp(masked, dim=0) - pos).mean()
     return loss / 2 if a2b and b2a else loss
+
+
+def masked_contrastive_loss_sharded(
+    params: Params,
+    feat_a: torch.Tensor,  # (local N, D)
+    feat_b: torch.Tensor,  # (local N, D)
+    ids: torch.Tensor,  # (local N,)
+    mesh,
+    **kwargs,
+) -> torch.Tensor:
+    """JAX's shard_map form: the ranks' features and ids all-gathered over
+    ``mesh`` (a ``DataMesh``; None or world 1 without a group: the local
+    batch), then ``masked_contrastive_loss`` over the global batch."""
+    return masked_contrastive_loss(params, all_gather_rows(feat_a, mesh),
+                                   all_gather_rows(feat_b, mesh),
+                                   all_gather_rows(ids, mesh, "ids"), **kwargs)
 
 
 def supcon_loss(

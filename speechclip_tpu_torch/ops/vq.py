@@ -9,6 +9,11 @@ from the generator; with ``hard`` the forward value is the one-hot of its
 argmax and the gradient the soft one's (straight-through:
 ``hard + soft - soft.detach()``). The temperature is fixed, learnable (a
 parameter) or scheduled: ``max(max_t * decay ** num_updates, min_t)``.
+
+Under data parallelism (a ``DataMesh``) the diagnostics' batch means
+(``hard_probs``, ``avg_probs``, ``ent_per_t``) are the global batch's, as
+in JAX's sharded step: one all-reduce of their sums, with its gradient,
+since the diversity loss backpropagates through ``avg_probs``.
 """
 
 from __future__ import annotations
@@ -18,7 +23,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from .basic import Params
+from ..parallel.collectives import all_reduce_sum
+from .basic import Params, rand_rows
 
 MASK_VALUE = torch.finfo(torch.float32).min
 
@@ -63,8 +69,9 @@ def current_temperature(params: Params, temp_spec,
 
 
 def gumbel_noise(shape, generator: torch.Generator) -> torch.Tensor:
-    """-log(-log(u)) of f32 uniforms u in [1e-20, 1) from ``generator``."""
-    u = torch.rand(shape, generator=generator, device=generator.device)
+    """-log(-log(u)) of f32 uniforms u in [1e-20, 1) from ``generator``
+    (``rand_rows``: under data parallelism, the global batch's noise)."""
+    u = rand_rows(shape, generator, generator.device)
     return -torch.log(-torch.log(u.clamp(min=1e-20)))
 
 
@@ -80,10 +87,12 @@ def vq_apply(
     generator: Optional[torch.Generator] = None,
     num_updates: Optional[torch.Tensor] = None,
     ground_truth_perplexity: Optional[float] = None,
+    mesh=None,
 ) -> dict:
     """-> the JAX package's result dict: subword_prob (f32; the one-hot at
     eval), targets (B, K, 1), code_perplexity, prob_perplexity, ent_per_t
-    (K,), diversity_loss, temp, num_vars."""
+    (K,), diversity_loss, temp, num_vars. ``mesh``: ``x`` is this rank's
+    shard, the diagnostics the global batch's."""
     num_vars = x.shape[-1]
     x = raw = x.float()
     masked = torch.zeros(num_vars, dtype=torch.bool, device=x.device)
@@ -93,12 +102,18 @@ def vq_apply(
     result = {"num_vars": num_vars}
     k = x.argmax(dim=-1)  # the first of equal maxima, as jnp.argmax
     hard_x = torch.nn.functional.one_hot(k, num_vars).float()
-    hard_probs = hard_x.reshape(-1, num_vars).mean(dim=0)
-    result["code_perplexity"] = torch.exp(-(hard_probs * torch.log(hard_probs + 1e-7)).sum())
     soft = torch.softmax(x, dim=-1)
-    avg_probs = soft.reshape(-1, num_vars).mean(dim=0)
+    ent = -(soft * torch.log(soft + 1e-9)).sum(dim=-1)  # (B, K)
+    # the batch means as sums over the global batch (one all-reduce) / its size
+    sums = all_reduce_sum(torch.cat([hard_x.reshape(-1, num_vars).sum(dim=0),
+                                     soft.reshape(-1, num_vars).sum(dim=0), ent.sum(dim=0)]),
+                          mesh, "vq")
+    bsz = x.shape[0] * (mesh.world_size if mesh is not None else 1)
+    rows = bsz * x.shape[1]
+    hard_probs, avg_probs = sums[:num_vars] / rows, sums[num_vars:2 * num_vars] / rows
+    result["code_perplexity"] = torch.exp(-(hard_probs * torch.log(hard_probs + 1e-7)).sum())
     result["prob_perplexity"] = torch.exp(-(avg_probs * torch.log(avg_probs + 1e-7)).sum())
-    result["ent_per_t"] = (-(soft * torch.log(soft + 1e-9)).sum(dim=-1)).mean(dim=0)
+    result["ent_per_t"] = sums[2 * num_vars:] / bsz
     temp = current_temperature(params, temp_spec, num_updates)
     result["temp"] = temp
     out = hard_x

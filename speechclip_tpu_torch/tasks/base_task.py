@@ -27,7 +27,8 @@ class BaseTask:
         parser.add_argument("--override", nargs="*", default=[],
                             help="config overrides: key.path=value")
         parser.add_argument("--devices", type=int, default=None,
-                            help="number of cards (the port trains on one)")
+                            help="data-parallel ranks: N > 1 spawns N processes, one a card "
+                                 "(or on the CPU with --platform cpu)")
         parser.add_argument("--platform", type=str, default=None, choices=("cpu", "cuda", "gpu"),
                             help="cpu runs the port on the CPU; the default is the card")
         return parser

@@ -16,9 +16,18 @@ checkpoints of ``CheckpointManager``'s policy. ``fit(resume=...)``
 continues a run from a checkpoint; ``resume="auto"`` from the run's own
 ``ckpts/last``.
 
-One card: ``trainer.model_parallel > 1`` raises (data-parallel training
-waits for the DDP item of ROADMAP.md). The host waits on the card only at
-log points and in validation, where it reads values back.
+Data parallelism: ``Trainer(config, mesh=make_mesh(...))`` in each rank
+of a ``torch.distributed`` world (``parallel/mesh.py``; the CLI's
+``--devices N`` spawns one). Every rank builds the same loaders from the
+same seed and takes its rows of each global batch; the train and eval steps
+gather what the global batch's math needs, so the losses, recalls and
+keyword diagnostics are world 1's. JAX's divisibility rules hold:
+``data.batch_size`` and the eval batch size must divide over the ranks, and
+a ragged trailing train batch is skipped. The image-feature cache is rank
+0's on every rank. Rank 0 alone writes the metrics logs, the checkpoints
+and ``ckpt_index.json``; the ranks wait for its saves. ``trainer.
+model_parallel > 1`` (the ``model`` axis) raises. The host waits on the
+card only at log points and in validation, where it reads values back.
 """
 
 from __future__ import annotations
@@ -33,11 +42,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import DDP_ITEM, ConfigTree, model_config_from_tree
+from ..config import ConfigTree, model_config_from_tree
 from ..data.datasets import build_dataset
 from ..data.loader import BucketedLoader
 from ..models.speechclip import SpeechCLIPModel
 from ..ops.schedules import get_schedule
+from ..parallel import collectives
+from ..parallel.mesh import TP_ITEM, DataMesh, make_mesh
 from .checkpoint import STATE_FILE, CheckpointManager
 from .evaluation import collect_validation_outputs, retrieval_metrics, run_keyword_diagnostics
 from .logging import MetricsLogger
@@ -48,6 +59,8 @@ from .train_step import (
     device_prefetch,
     make_eval_step,
     make_train_step,
+    place_state,
+    shard_batch,
     staged,
     to_device,
 )
@@ -90,11 +103,17 @@ def _first_leaf(tree):
 
 class Trainer:
     def __init__(self, config: ConfigTree, workdir: Optional[str] = None, tokenizer=None,
-                 device="cuda"):
-        if int(config.get_path("trainer.model_parallel", 1) or 1) > 1:
-            raise NotImplementedError(
-                f"trainer.model_parallel > 1: the port trains on one card; DDP waits for "
-                f"{DDP_ITEM}")
+                 device="cuda", mesh: Optional[DataMesh] = None):
+        """``mesh``: this rank's data-parallel world (default: ``device``
+        alone, world 1)."""
+        model_axis = int(config.get_path("trainer.model_parallel", 1) or 1)
+        if model_axis > 1:
+            raise NotImplementedError(f"trainer.model_parallel={model_axis}: the port's mesh has "
+                                      f"no model axis; it waits for {TP_ITEM}")
+        self.mesh = mesh or make_mesh(devices=[device])
+        self.n_data = self.mesh.world_size
+        self.rank0 = self.mesh.rank == 0
+        device = self.mesh.device
         self.config = config
         self.workdir = workdir or config.get_path("trainer.default_root_dir", "exp/run")
         os.makedirs(self.workdir, exist_ok=True)
@@ -115,8 +134,9 @@ class Trainer:
             save_at_steps=config.get_path("trainer.save_at_steps", []) or [])
         self.metrics_logger = MetricsLogger(
             self.workdir, backend=config.get_path("trainer.logger", "tb"),
-            project=config.get_path("logger.project"), run_name=os.path.basename(self.workdir))
-        self._eval_step = make_eval_step(self.model)
+            project=config.get_path("logger.project"),
+            run_name=os.path.basename(self.workdir)) if self.rank0 else None
+        self._eval_step = make_eval_step(self.model, self.mesh)
         self._eval_img_caches: Dict = {}
         self.optimizer = self.scheduler = self._train_step = None
         # where the train loop's host time goes (read by chip_smoke.py)
@@ -129,12 +149,12 @@ class Trainer:
         JAX, without optimizer state), and the optimizer, the LR scheduler
         and the train step over it."""
         state = create_train_state(self.model, seed=self.seed, params=initial_params,
-                                   model_state=initial_model_state)
+                                   model_state=initial_model_state, mesh=self.mesh)
         mask = self.model.trainable_mask(state.params)
         self.ckpt.slim_mask = mask if self._slim else None
         self.optimizer, self.scheduler = build_optimizer(self.model.config, state.params, mask)
         self._train_step = make_train_step(self.model, self.optimizer, self.scheduler,
-                                           self._accum)
+                                           self._accum, mesh=self.mesh)
         return state
 
     def prepare_restore_target(self, ckpt_path: str, state: TrainState) -> TrainState:
@@ -220,6 +240,9 @@ class Trainer:
                 out = self.model.encode_image_tower(params, torch.from_numpy(imgs))
                 feats.append(out[:len(part)].float().cpu().numpy())
         cache = np.concatenate(feats, axis=0)
+        # every rank runs the tower on the same images; rank 0's features
+        # are made everyone's, so the ranks' caches are the same bits
+        collectives.broadcast_tree(torch.from_numpy(cache), self.mesh, "image cache")
         logger.info("image-feature cache: %d unique images -> (%d, %d) f32 (%.1f MB)",
                     len(ids), *cache.shape, cache.nbytes / 1e6)
         return cache, {pair_id: row for row, pair_id in enumerate(ids)}
@@ -239,8 +262,15 @@ class Trainer:
             logger.info("resumed from %s at step %d", resume, state.step)
         elif initial_params is None:
             state = dataclasses.replace(state, params=self.model.load_pretrained(state.params))
+        state = place_state(state, self.mesh)
 
         train_loader, dev_loader = self.build_loaders()
+        if int(train_loader.batch_size) % self.n_data != 0:
+            raise ValueError(
+                f"data.batch_size={train_loader.batch_size} must be divisible "
+                f"by the data-mesh size {self.n_data} (otherwise no batch "
+                "could ever run)"
+            )
         stats = self.loop_stats = {"data_wait_s": 0.0, "data_waits": [], "train_wall_s": 0.0,
                                    "image_cache_s": None, "validations": [], "saves": []}
         image_cache = id2row = None
@@ -262,9 +292,11 @@ class Trainer:
         steps_at_last_log = step
         while step < max_steps:
             steps_at_epoch_start = step
-            batches = (train_loader if image_cache is None else
-                       (_inject_cached_image_feats(b, image_cache, id2row) for b in train_loader))
-            staged_batches = device_prefetch(batches, self.model.device)
+            # a ragged trailing batch does not split over the ranks: skipped, as JAX's
+            whole = (b for b in train_loader if len(b["id"]) % self.n_data == 0)
+            batches = (whole if image_cache is None else
+                       (_inject_cached_image_feats(b, image_cache, id2row) for b in whole))
+            staged_batches = device_prefetch(batches, self.mesh)
             waits = []  # this epoch's wait for each batch
             stats["data_waits"].append(waits)
             t_loop = time.perf_counter()
@@ -275,13 +307,13 @@ class Trainer:
                 if batch is None:
                     break
                 waits.append(time.perf_counter() - t0)
-                if profile_steps and step == int(profile_steps[0]):
+                if profile_steps and step == int(profile_steps[0]) and self.rank0:
                     profiler = self._start_profiler()
                 state, metrics = self._train_step(state, batch)
                 step += 1
                 if profiler is not None and step >= int(profile_steps[1]):
                     profiler = self._stop_profiler(profiler)
-                if step % log_every == 0:
+                if step % log_every == 0 and self.rank0:
                     host_metrics = {k: float(v) for k, v in metrics.items()}
                     now = time.perf_counter()
                     host_metrics["steps_per_sec"] = (step - steps_at_last_log) / (now - t_last)
@@ -301,12 +333,14 @@ class Trainer:
                 t0 = time.perf_counter()
                 val_metrics = self.validate(state, dev_loader, epoch=epoch)
                 stats["validations"].append((step, time.perf_counter() - t0))
-                self.metrics_logger.log(val_metrics, step)
                 t0 = time.perf_counter()
-                written = self.ckpt.save(state, step, val_metrics, self.config, self.optimizer,
-                                         self.scheduler)
-                stats["saves"].append((step, time.perf_counter() - t0, sum(
-                    os.path.getsize(os.path.join(p, STATE_FILE)) for p in written)))
+                if self.rank0:
+                    self.metrics_logger.log(val_metrics, step)
+                    written = self.ckpt.save(state, step, val_metrics, self.config,
+                                             self.optimizer, self.scheduler)
+                    stats["saves"].append((step, time.perf_counter() - t0, sum(
+                        os.path.getsize(os.path.join(p, STATE_FILE)) for p in written)))
+                collectives.barrier(self.mesh)  # no rank reads a checkpoint rank 0 still writes
                 # steps_per_sec times the train loop: the next log's interval
                 # starts here, not before the validation
                 t_last = time.perf_counter()
@@ -358,6 +392,12 @@ class Trainer:
         if loader is None:
             loader = self.build_eval_loader(split)
         batch_size = loader.batch_size
+        if int(batch_size) % self.n_data != 0:
+            raise ValueError(
+                f"eval batch size {batch_size} must be divisible by the "
+                f"data-mesh size {self.n_data} (set data.eval_batch_size / "
+                "data.dev_batch_size to a multiple of the device count)"
+            )
         outputs: List[Dict] = []
         agg: Dict[str, List[float]] = {}
         ragged_metrics: Dict[str, float] = {}
@@ -370,7 +410,7 @@ class Trainer:
                 if img_cache is not None:
                     batch = _inject_cached_image_feats(batch, img_cache, id2row)
                 padded, n_valid = _pad_batch(batch, batch_size)
-                yield to_device(padded, self.model.device), n_valid, batch
+                yield to_device(shard_batch(padded, self.mesh), self.model.device), n_valid, batch
 
         for dev_batch, n_valid, batch in staged(prepared()):
             out = self._eval_step(state, dev_batch)
@@ -407,7 +447,7 @@ class Trainer:
         if "recall@1" in recall_mean:
             metrics["val_recall_mean_1"] = recall_mean["recall@1"]
         every_n = int(self.config.get_path("log_setting.log_detokenize_results_every_n_epoch", 1))
-        if (self.config.get_path("log_setting.log_detokenize_results", True)
+        if (self.rank0 and self.config.get_path("log_setting.log_detokenize_results", True)
                 and self.model.use_cascaded and self.tokenizer is not None
                 and "keywords" in collected and epoch % max(every_n, 1) == 0):
             t0 = time.perf_counter()

@@ -164,7 +164,12 @@ def test_train_warm_starts_from_a_reference_checkpoint_as_jax(cli_setup, referen
 
 
 def test_more_than_one_card_raises():
-    with pytest.raises(NotImplementedError, match="DDP"):
+    """``--devices 4`` on the card (the default platform) where fewer cards
+    are found raises, naming the count found, before any work."""
+    import torch
+
+    found = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(RuntimeError, match=f"--devices 4: {found} CUDA device"):
         run_task.main([TASK, "--train", "--devices", "4", "--config", "unused.yaml"])
 
 

@@ -163,7 +163,8 @@ def test_port_imports_no_jax_yaml_or_reference_package():
                     "training.checkpoint", "training.logging", "tasks.train_kwclip",
                     "run_task", "convert.from_torch", "models.tokenizer", "models.clip_api",
                     "models.upstream", "ops.pooling", "utils.metrics",
-                    "utils.penalty_scheduler", "data.vocab_stats", "example"):
+                    "utils.penalty_scheduler", "data.vocab_stats", "example", "parallel.mesh",
+                    "parallel.collectives", "parallel.inventory"):
             assert "speechclip_tpu_torch." + sub in names, sub
         assert not bad(), bad()
 

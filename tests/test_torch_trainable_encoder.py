@@ -352,7 +352,7 @@ def test_the_recompute_redraws_the_forward_masks(monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(first, recomputed))
 
     shared = torch.Generator().manual_seed(7)
-    monkeypatch.setattr(ph, "_seeded_generator", lambda seed, device: shared)
+    monkeypatch.setattr(ph, "seeded_generator", lambda seed, device, like=None: shared)
     _, wrong = _train_loss_and_grads(cfg, params, wav, lens, seed=4)
     shared.manual_seed(7)
     _, right = _train_loss_and_grads(dataclasses.replace(cfg, remat=False), params, wav, lens,
