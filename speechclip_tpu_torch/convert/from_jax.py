@@ -15,7 +15,10 @@ whatever the branches; so do a trainable loss temperature (``criterion``:
 stays behind, as the port's ``init`` builds none) and a learnable VQ
 temperature (``cascaded_branch.vq.curr_temp``). The state tree (the
 cascaded branch's kw-BN running statistics) comes across with
-``speechclip_state_from_jax``.
+``speechclip_state_from_jax``. The tree is always the full one, whatever
+JAX's mesh sharded: under a model axis the train state is cut after it is
+placed (``training.train_step.place_state``), and
+``parallel.tensor.gather_params`` gives back this layout.
 """
 
 from __future__ import annotations

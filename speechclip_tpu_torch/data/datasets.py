@@ -25,6 +25,7 @@ import json
 import logging
 import os
 import re
+import tempfile
 from collections import defaultdict
 from typing import Dict, List
 
@@ -106,15 +107,25 @@ class PairedDataset:
 
 def _generate_id_pairs(dataset_root: str, image_names: List[str]) -> dict:
     """Deterministic image -> pair-id map (sorted names), generated on demand
-    and written beside the corpus when the directory allows."""
+    and written beside the corpus when the directory allows. The map is
+    written to a temporary file in the same directory and renamed onto its
+    name, so a reader (another rank of a data-parallel world building the
+    same dataset) sees no file or the whole file; concurrent writers write
+    the same map."""
     names = sorted(set(image_names))
     filename2Id = {n: i for i, n in enumerate(names)}
     id2Filename = {i: n for n, i in filename2Id.items()}
     payload = {"id2Filename": id2Filename, "filename2Id": filename2Id}
     path = os.path.join(dataset_root, "Flickr8k_idPairs.json")
     try:
-        with open(path, "w") as f:
-            json.dump(payload, f)
+        fd, tmp = tempfile.mkstemp(dir=dataset_root, prefix=".Flickr8k_idPairs.", suffix=".tmp")
+        try:
+            with os.fdopen(fd, "w") as f:
+                json.dump(payload, f)
+            os.replace(tmp, path)
+        except BaseException:
+            os.unlink(tmp)
+            raise
         logger.info("generated %s", path)
     except OSError:
         logger.warning("could not persist %s; using in-memory ids", path)

@@ -12,8 +12,11 @@ HuBERT-large, carry a gradient through the kernels' autograd.Functions; the
 callers keep a layer with active dropout off this path, as JAX does).
 
 The gate list is the JAX package's: bf16 activations, the "auto" attention
-backend and ``block_eligible``; any failure returns None and the caller runs
-the unfused layer (``multi_head_attention`` + the torch FFN chain). When
+backend, ``block_eligible`` and no live model axis (``parallel.tensor.
+model_mesh``: ``mha_layer_block`` needs the full-width LayerNorm and the
+replicated out-projection, ``ffn_block`` fc2's partial sums across the
+ranks before its bias and LayerNorm; JAX's ``mesh_plan`` steps aside there
+too); any failure returns None and the caller runs the unfused layer (``multi_head_attention`` + the torch FFN chain). When
 ``ffn_eligible`` fails, the attention half still runs fused and the FFN half
 is the torch chain (``linear``/``gelu``), which the JAX package leaves to XLA.
 
@@ -33,6 +36,7 @@ from .ffn_block import ffn_block, ffn_block_plain, ffn_eligible
 from .mha_block import block_eligible, mha_layer_block, mha_layer_block_plain
 from ..ops.attention import get_attention_backend
 from ..ops.basic import gelu, layer_norm, linear
+from ..parallel.tensor import live_mesh
 
 
 def fused_encoder_layer(
@@ -54,7 +58,7 @@ def fused_encoder_layer(
     b, t, d = x.shape
     isz = x.element_size()
     if (x.dtype != torch.bfloat16 or get_attention_backend() != "auto"
-            or not block_eligible(b, t, d, heads, isz)):
+            or live_mesh() is not None or not block_eligible(b, t, d, heads, isz)):
         return None
     bi = attn["in_proj"]["b"]
     bo = attn["out_proj"]["b"]
@@ -90,11 +94,12 @@ def fused_mha_and_norm(
 ) -> Optional[torch.Tensor]:
     """LayerNorm(MHA(src) + src) as ``mha_layer_block`` with ln_mode
     "post", or None where the JAX gates (bf16, backend "auto",
-    ``block_eligible``) send it to the unfused path. The cascaded branch's
+    ``block_eligible``, no live model axis) send it to the unfused path. The cascaded branch's
     one 768-wide head fails ``block_eligible`` (Dh > 128), so it always
     returns None there."""
     b, t, d = src.shape
     if (src.dtype != torch.bfloat16 or get_attention_backend() != "auto"
+            or live_mesh() is not None
             or not block_eligible(b, t, d, heads, src.element_size())):
         return None
     bi = attn["in_proj"]["b"]

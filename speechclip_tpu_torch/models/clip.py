@@ -32,6 +32,7 @@ from ..ops.basic import (
     normal,
     quick_gelu,
 )
+from ..parallel import tensor as tp
 
 
 def _block_init(generator: torch.Generator, width: int, ffn: int) -> Params:
@@ -121,13 +122,16 @@ def _resnet_init(generator: torch.Generator, v: CLIPResNetVisionConfig) -> Param
 
 def _resblock(params: Params, x: torch.Tensor, heads: int, causal: bool,
               plain: bool = False) -> torch.Tensor:
-    """x + MHA(LN(x)), then + MLP(LN(x)) with QuickGELU."""
+    """x + MHA(LN(x)), then + MLP(LN(x)) with QuickGELU; under a live
+    model axis ``c_fc`` column-parallel, ``c_proj`` row-parallel and the
+    attention on the rank's heads."""
     normed = layer_norm(params["ln_1"], x)
     h, _ = multi_head_attention(params["attn"], normed, normed, normed, num_heads=heads,
                                 causal=causal, plain=plain)
     x = x + h
     y = layer_norm(params["ln_2"], x)
-    return x + linear(params["mlp"]["c_proj"], quick_gelu(linear(params["mlp"]["c_fc"], y)))
+    mid = quick_gelu(tp.linear_col(params["mlp"]["c_fc"], y, "c_fc input"))
+    return x + tp.linear_row(params["mlp"]["c_proj"], mid, "c_proj output")
 
 
 def _conv2d(w: torch.Tensor, x: torch.Tensor, stride: int = 1, padding: int = 0):
@@ -166,7 +170,9 @@ def _bottleneck(p: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
 def _attention_pool(p: Params, v: CLIPResNetVisionConfig, x: torch.Tensor) -> torch.Tensor:
     """AttentionPool2d: the spatial mean as the one query, a learned
     positional embedding, one round of multi-head attention (f32 logits and
-    softmax, weights rounded to the activation dtype), then ``c_proj``."""
+    softmax, weights rounded to the activation dtype), then ``c_proj``
+    (row-parallel under a live model axis, as JAX shards its input rows:
+    each rank multiplies its slice of the pooled row)."""
     b, c = x.shape[:2]
     x = x.flatten(2).transpose(1, 2)  # (B, H*W, C), JAX's row order
     x = torch.cat([x.float().mean(dim=1, keepdim=True).to(x.dtype), x], dim=1)
@@ -178,7 +184,7 @@ def _attention_pool(p: Params, v: CLIPResNetVisionConfig, x: torch.Tensor) -> to
     scale = torch.full((), hd**-0.5, dtype=x.dtype, device=x.device)
     weights = torch.softmax(matmul_f32(q * scale, k.transpose(-1, -2)), dim=-1).to(x.dtype)
     pooled = matmul_f32(weights, val).to(x.dtype).transpose(1, 2).reshape(b, 1, c)
-    return linear(p["c_proj"], pooled)[:, 0]
+    return tp.linear_row(p["c_proj"], pooled, "attention pool", scatter=True)[:, 0]
 
 
 def _encode_image_resnet(params: Params, v: CLIPResNetVisionConfig,

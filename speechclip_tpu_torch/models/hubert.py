@@ -51,6 +51,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.fused_layer import fused_encoder_layer
+from ..parallel import tensor as tp
 from ..ops.attention import attention_backend, get_attention_backend, multi_head_attention
 from ..ops.basic import (
     Params,
@@ -263,7 +264,10 @@ def encoder_layer_apply(
     (eval, or train at every rate 0), else the unfused layer of the JAX
     package (hubert.py ``encoder_layer_apply``), whose train mode drops the
     attention weights, the attention output, the GELU output and fc2's
-    output, drawing from ``generator``."""
+    output, drawing from ``generator``. Under a live model axis the unfused
+    layer is tensor-parallel: ``fc1`` column-parallel, ``fc2``
+    row-parallel, attention on the rank's heads; ``pos_conv`` and the conv
+    front end stay replicated, as in JAX."""
     if not train or _no_dropout(cfg):
         fused = fused_encoder_layer(
             x,
@@ -290,8 +294,10 @@ def encoder_layer_apply(
         return dropout(out, cfg.dropout, train, generator)
 
     def ffn(h):
-        h = dropout(gelu(linear(params["fc1"], h)), cfg.activation_dropout, train, generator)
-        return dropout(linear(params["fc2"], h), cfg.dropout, train, generator)
+        h = dropout(gelu(tp.linear_col(params["fc1"], h, "fc1 input")), cfg.activation_dropout,
+                    train, generator, tp.split_of(params["fc1"]))
+        return dropout(tp.linear_row(params["fc2"], h, "fc2 output"), cfg.dropout, train,
+                       generator)
 
     if cfg.layer_norm_first:
         x = x + attn(layer_norm(params["self_attn_layer_norm"], x))

@@ -639,6 +639,19 @@ class SpeechCLIPModel:
             losses["loss"] = losses["loss"] + cfg.parallel_objective_weight * losses["p_cl_loss"]
         return losses
 
+    def attention_heads(self) -> Dict[str, int]:
+        """{params path prefix: head count} of every ``in_proj`` the model
+        holds: the model axis shards an ``in_proj`` by heads
+        (``parallel.tensor.param_partition_specs``)."""
+        heads = {"clip/text": self.clip_cfg.heads,
+                 "parallel_branch": self.config.parallel_branch.nhead,
+                 "cascaded_branch": self.config.cascaded_branch.nhead}
+        if not isinstance(self.vision_cfg, CLIPResNetVisionConfig):
+            heads["clip/visual"] = self.vision_cfg.heads
+        if self.upstream is None:
+            heads["audio_encoder"] = self.audio_cfg.encoder_heads
+        return heads
+
     def trainable_mask(self, params: Params) -> Params:
         """A tree of bools over ``params``, True where a leaf trains (the
         JAX model's ``trainable_mask``): the branches, the projections, the

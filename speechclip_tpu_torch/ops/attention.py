@@ -15,7 +15,11 @@ CPU tensor, or ``plain=True``, runs the plain version of the same route.
 Attention-weight dropout in train mode closes every kernel route, as in
 JAX: the kernels never form the weights.
 The JAX package's mesh plan (shard_map over a TPU mesh) has no counterpart:
-under torch each rank already holds its local batch.
+under torch each rank already holds its local batch. Under a live model
+axis (``parallel.tensor.model_mesh``) with ``in_proj`` sharded by heads,
+each rank projects and attends its H/M heads (the route taken at the local
+head count, never the fused block), draws its heads' part of the weights'
+dropout, and the heads are gathered before the replicated out-projection.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from typing import Optional, Tuple
 import torch
 
 from .basic import Params, dropout, linear, matmul_f32
+from ..parallel import collectives
+from ..parallel import tensor as tp
 from .masking import key_padding_mask as _key_padding_mask
 from ..kernels._sdpa_ref import NEG_INF
 from ..kernels.attention_vmem import attention_vmem, vmem_eligible
@@ -123,6 +129,7 @@ def sdpa_plain(
     dropout_rate: float = 0.0,
     train: bool = False,
     generator: Optional[torch.Generator] = None,
+    split: Optional[Tuple[int, int, int]] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The port of ``sdpa_xla`` with its rounding points. bf16 without
     weights: ``q * bf16(scale)``, logits accumulated in f32 and rounded to
@@ -130,7 +137,8 @@ def sdpa_plain(
     in f32. Otherwise: f32 logits scaled after the product, f32 softmax,
     weights cast to v's dtype for P V (and returned in f32). In train mode
     the weights take dropout before P V (and are returned dropped, as
-    torch's)."""
+    torch's); ``split``: the heads are a model-axis part of the layer's
+    (``ops.basic.rand_rows``)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     if not return_weights and q.dtype == torch.bfloat16:
         qs = q * torch.full((), scale, dtype=torch.bfloat16, device=q.device)
@@ -138,12 +146,12 @@ def sdpa_plain(
         if bias is not None:
             x = x + bias.float()
         w16 = torch.softmax(x, dim=-1).to(torch.bfloat16)
-        w16 = dropout(w16, dropout_rate, train, generator)
+        w16 = dropout(w16, dropout_rate, train, generator, split)
         return matmul_f32(w16, v).to(v.dtype), None
     logits = matmul_f32(q, k.transpose(-1, -2)) * scale
     if bias is not None:
         logits = logits + bias.float()
-    weights = dropout(torch.softmax(logits, dim=-1), dropout_rate, train, generator)
+    weights = dropout(torch.softmax(logits, dim=-1), dropout_rate, train, generator, split)
     out = matmul_f32(weights.to(v.dtype), v).to(v.dtype)
     return out, (weights if return_weights else None)
 
@@ -183,9 +191,15 @@ def multi_head_attention(
     in_w, in_b = params["in_proj"]["w"], params["in_proj"]["b"]
     self_attention = query is key and key is value
     b, l, d = query.shape
+    mesh = tp.mesh_of(in_w)  # the model axis, where in_proj is sharded by heads
+    if mesh is not None and (not self_attention or need_weights):
+        raise NotImplementedError("a head-sharded attention runs self-attention without "
+                                  "returning its weights")
+    heads = num_heads // mesh.model_size if mesh is not None else num_heads
+    width = in_w.shape[1] // 3  # D, or this rank's D / M
     route = attention_route(
-        b, l, key.shape[1], d, num_heads, query.element_size(),
-        self_attention=self_attention,
+        b, l, key.shape[1], width, heads, query.element_size(),
+        self_attention=self_attention and tp.live_mesh() is None,
         structured=not need_weights and not (train and dropout_rate > 0)
         and _structured_masks(attn_mask, key_padding_mask, key_valid_lens),
         causal=causal,
@@ -201,27 +215,35 @@ def multi_head_attention(
         return out, None
 
     if self_attention:  # one fused (D, 3D) projection instead of three
-        q, k, v = linear(params["in_proj"], query).split(d, dim=-1)
+        x = query if mesh is None else collectives.copy_to_model(query, mesh, "attention input")
+        q, k, v = linear(params["in_proj"], x).split(width, dim=-1)
     else:
         wq, wk, wv = in_w.split(d, dim=1)
         bq, bk, bv = (None,) * 3 if in_b is None else in_b.split(d)
         q = linear({"w": wq, "b": bq}, query)
         k = linear({"w": wk, "b": bk}, key)
         v = linear({"w": wv, "b": bv}, value)
-    q, k, v = (_split_heads(z, num_heads) for z in (q, k, v))
+    q, k, v = (_split_heads(z, heads) for z in (q, k, v))
+
+    def out_proj(o):
+        merged = _merge_heads(o)
+        if mesh is not None:
+            merged = collectives.gather_from_model(merged, mesh, "heads")
+        return linear(params["out_proj"], merged)
 
     if route in ("attention_vmem", "flash_attention"):
         kernel = attention_vmem if route == "attention_vmem" else flash_attention
         out = kernel(q, k, v, key_valid_lens, causal, plain=plain)
-        return linear(params["out_proj"], _merge_heads(out)), None
+        return out_proj(out), None
 
     if key_padding_mask is None and key_valid_lens is not None:
         key_padding_mask = _key_padding_mask(key_valid_lens, key.shape[1])
     if causal and attn_mask is None:
         attn_mask = causal_bias(key.shape[1], query.device)[: l]
+    split = None if mesh is None else (1, mesh.model_rank, mesh.model_size)
     out, weights = sdpa_plain(q, k, v, padding_bias(key_padding_mask, attn_mask), need_weights,
-                              dropout_rate, train, generator)
-    out = linear(params["out_proj"], _merge_heads(out))
+                              dropout_rate, train, generator, split)
+    out = out_proj(out)
     if not need_weights:
         return out, None
     return out, (weights.mean(dim=1) if average_attn_weights else weights)

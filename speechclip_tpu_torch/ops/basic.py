@@ -10,7 +10,7 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,12 +42,14 @@ def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 class RowShardGenerator(torch.Generator):
-    """A generator of one rank of a data-parallel world of ``world`` equal
-    batch shards: a batch-shaped draw (``rand_rows``) covers the global
-    batch and keeps this rank's rows, so each rank's dropout masks and Gumbel
-    noise are the single-device draw's rows, as JAX's sharded step draws
-    its noise over the global shape. Every rank holds the same seed, so the
-    ranks stay in step; the cost is ``world`` times the draws."""
+    """A generator of one data rank of ``world`` equal batch shards: a
+    batch-shaped draw (``rand_rows``) covers the global batch and keeps this
+    rank's rows, so each rank's dropout masks and Gumbel noise are the
+    single-device draw's rows, as JAX's sharded step draws its noise over
+    the global shape. ``rank`` and ``world`` are the data axis's (the ranks
+    of a model group hold the same rows and draw the same noise). Every
+    rank holds the same seed, so the ranks stay in step; the cost is
+    ``world`` times the draws."""
 
     def __new__(cls, device, rank: int, world: int):
         return super().__new__(cls, device)
@@ -67,15 +69,31 @@ def seeded_generator(seed: Optional[int], device,
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def rand_rows(shape, generator: torch.Generator, device) -> torch.Tensor:
+def rand_rows(shape, generator: torch.Generator, device,
+              split: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """f32 U[0, 1) of ``shape`` (batch first) from ``generator``; from a
-    ``RowShardGenerator``, this rank's rows of the global batch's draw."""
+    ``RowShardGenerator``, this rank's rows of the global batch's draw.
+    ``split`` = (axis, part, parts): ``shape[axis]`` is part ``part`` of
+    ``parts`` equal parts of the drawn axis (a model-axis shard: a
+    column-parallel layer's columns, the local heads), so the full axis is
+    drawn and this part kept: the single-device draw's elements."""
     world = getattr(generator, "world", 1)
-    if world == 1:
-        return torch.rand(shape, generator=generator, device=device)
-    n, rank = shape[0], generator.rank
-    full = torch.rand((world * n, *shape[1:]), generator=generator, device=device)
-    return full[rank * n:(rank + 1) * n]
+    full = list(shape)
+    if world > 1:
+        full[0] *= world
+    if split is not None:
+        axis, part, parts = split
+        axis %= len(full)
+        if axis == 0:
+            raise ValueError("the batch axis is the data axis's to split")
+        full[axis] *= parts
+    u = torch.rand(full, generator=generator, device=device)
+    if world > 1:
+        n = shape[0]
+        u = u[generator.rank * n:(generator.rank + 1) * n]
+    if split is not None:
+        u = u.narrow(axis, part * shape[axis], shape[axis])
+    return u
 
 
 def uniform(shape, bound: float, generator: torch.Generator) -> torch.Tensor:
@@ -164,18 +182,19 @@ def layer_norm(
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            split: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Inverted dropout (speechclip_tpu/ops/basic.py ``dropout``): each
     element kept with probability ``1 - rate`` and scaled by ``1 / (1 -
     rate)`` in ``x.dtype``, the mask drawn from ``generator`` (``rand_rows``:
-    under data parallelism, the global batch's mask). The identity when not
-    training or at rate 0."""
+    under data parallelism the global batch's mask, under a ``split`` the
+    full axis's). The identity when not training or at rate 0."""
     if not train or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("dropout needs a generator when train=True and rate > 0")
     keep = 1.0 - rate
-    mask = rand_rows(x.shape, generator, x.device) < keep
+    mask = rand_rows(x.shape, generator, x.device, split) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

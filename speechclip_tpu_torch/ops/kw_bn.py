@@ -117,7 +117,7 @@ def _bn(x: torch.Tensor, params: Params, state: Params, train: bool,
         return (y * params["scale"].float() + params["bias"].float()).to(x.dtype), state
     g = max(groups, 1)
     m = x.shape[0]
-    world, rank = (mesh.world_size, mesh.rank) if mesh is not None else (1, 0)
+    world, rank = (mesh.data_size, mesh.data_rank) if mesh is not None else (1, 0)
     if (m * world) % g:
         raise ValueError(f"{m * world} rows not divisible by replica_groups {groups}")
     part = _Groups(m * rank, m, m * world, g)
@@ -160,7 +160,7 @@ def kw_bn_apply(
     statistics the global batch's."""
     b, k, d = keywords.shape
     groups = replica_groups if train else 0
-    world = mesh.world_size if mesh is not None else 1
+    world = mesh.data_size if mesh is not None else 1
     if groups > 1 and (b * world) % groups:
         raise ValueError(f"batch {b * world} not divisible by replica_groups {groups}")
     if batchnorm_type == "eachKw" and parallel:

@@ -10,7 +10,10 @@
 A layer runs through ``kernels.fused_layer`` where its gates admit the
 shapes and no dropout is active (``not (train and dropout_rate > 0)``,
 as in JAX), else unfused with ``ops.attention.multi_head_attention`` and
-the JAX package's dropout placement. Key
+the JAX package's dropout placement. Under a live model axis
+(``parallel.tensor.model_mesh``) the unfused layer is tensor-parallel:
+``linear1`` column-parallel, ``linear2`` row-parallel, attention on the
+rank's heads (``ops/attention.py``). Key
 masking is by per-batch valid lengths; a bare key-padding mask (the
 hidden-state and attention-map extractions, as in the reference) keeps
 the layer unfused on ``sdpa_plain``.
@@ -35,6 +38,7 @@ from .basic import (
     uniform,
 )
 from ..kernels.fused_layer import fused_encoder_layer, fused_mha_and_norm
+from ..parallel import tensor as tp
 
 
 def mha_init(generator: torch.Generator, d_model: int) -> Params:
@@ -86,7 +90,7 @@ def encoder_layer_apply(
     admit the shapes and no dropout is active, else the unfused layer of the
     JAX package (ops/transformer.py ``encoder_layer_apply``), with dropout
     on the attention weights, the attention output, the FFN's middle and its
-    output in train mode."""
+    output in train mode; tensor-parallel under a live model axis."""
     if activation != "gelu":
         raise NotImplementedError(
             f"activation {activation!r}: the branches run GELU layers only"
@@ -119,7 +123,9 @@ def encoder_layer_apply(
         )[0])
 
     def ff(h):
-        return drop(linear(params["linear2"], drop(gelu(linear(params["linear1"], h)))))
+        mid = gelu(tp.linear_col(params["linear1"], h, "linear1 input"))
+        mid = dropout(mid, dropout_rate, train, generator, tp.split_of(params["linear1"]))
+        return drop(tp.linear_row(params["linear2"], mid, "linear2 output"))
 
     if norm_first:
         x = x + sa(layer_norm(params["norm1"], x, layer_norm_eps))

@@ -108,7 +108,7 @@ def vq_apply(
     sums = all_reduce_sum(torch.cat([hard_x.reshape(-1, num_vars).sum(dim=0),
                                      soft.reshape(-1, num_vars).sum(dim=0), ent.sum(dim=0)]),
                           mesh, "vq")
-    bsz = x.shape[0] * (mesh.world_size if mesh is not None else 1)
+    bsz = x.shape[0] * (mesh.data_size if mesh is not None else 1)
     rows = bsz * x.shape[1]
     hard_probs, avg_probs = sums[:num_vars] / rows, sums[num_vars:2 * num_vars] / rows
     result["code_perplexity"] = torch.exp(-(hard_probs * torch.log(hard_probs + 1e-7)).sum())

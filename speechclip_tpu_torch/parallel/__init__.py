@@ -1,8 +1,9 @@
-"""Data parallelism on ``torch.distributed`` (port of speechclip_tpu/parallel/):
-the world (``mesh.py``), the collectives JAX's partitioner inserts
-(``collectives.py``) and their inventory (``inventory.py``, in
-``hlo_inspect.py``'s place)."""
+"""Data and tensor parallelism on ``torch.distributed`` (port of
+speechclip_tpu/parallel/): the ``(data, model)`` world (``mesh.py``), the
+collectives JAX's partitioner inserts (``collectives.py``), their inventory
+(``inventory.py``, in ``hlo_inspect.py``'s place) and the model axis's
+parameter layout and layers (``tensor.py``)."""
 
-from .mesh import DataMesh, TP_ITEM, join_env_world, make_mesh, shard_batch, spawn
+from .mesh import DataMesh, Mesh, join_env_world, make_mesh, shard_batch, spawn
 
-__all__ = ["DataMesh", "TP_ITEM", "join_env_world", "make_mesh", "shard_batch", "spawn"]
+__all__ = ["DataMesh", "Mesh", "join_env_world", "make_mesh", "shard_batch", "spawn"]

@@ -1,16 +1,21 @@
-"""The data-parallel world (port of speechclip_tpu/parallel/mesh.py).
+"""The ``(data, model)`` world (port of speechclip_tpu/parallel/mesh.py).
 
-JAX lays its devices out as a ``("data", "model")`` mesh and lets GSPMD
-insert the collectives. The port's counterpart of the ``data`` axis is a
-``torch.distributed`` world: one process a rank, one device a process. A
-rank holds its contiguous rows of the global batch (``shard_batch``: rows
-``[r*n, (r+1)*n)``, JAX's ``P("data")`` split), runs its own kernels on them,
-and joins the other ranks only where JAX's partitioner puts a collective
+JAX lays its devices out as a ``("data", "model")`` grid and lets GSPMD
+insert the collectives. The port's counterpart is a ``torch.distributed``
+world of ``data * model`` ranks: one process a rank, one device a process,
+in JAX's grid order (``reshape(data, model)``: world rank ``r`` is data
+rank ``r // model`` and model rank ``r % model``). The ranks of one data
+rank (a model group) hold the same rows of the global batch and split the
+big towers' matrices between them (``parallel/tensor.py``); the ranks of
+one model rank (a data group) hold different rows (``shard_batch``: rows
+``[d*n, (d+1)*n)``, JAX's ``P("data")`` split), run their own kernels on
+them, and join only where JAX's partitioner puts a collective
 (``parallel/collectives.py``): the loss's feature all-gather, the global
 kw-BN and VQ statistics, the trainable gradients' reduction.
 
     mesh = make_mesh()                         # world 1 unless a group exists
     mesh = make_mesh(devices=["cuda:0", "cuda:1"])  # inside a world of 2
+    mesh = make_mesh(devices=["cpu"] * 4, model=2)  # (data 2, model 2)
 
 A process group comes from PyTorch's own idiom: ``torch.distributed.
 init_process_group`` over the ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` /
@@ -19,12 +24,9 @@ over a ``file://`` rendezvous that ``spawn`` makes for N processes of its
 own. The backend is NCCL for CUDA devices and gloo for the CPU (or where
 asked: gloo also takes CUDA tensors for the collectives used here). One
 device and no group is world 1: nothing is initialized and the collectives
-are the identity. No fallback: a world larger than the devices given
+are the identity. No fallback: a world larger than the devices given, a
+world that does not divide by ``model``, or a model axis without a world
 raises, and a CUDA mesh stays on its card whatever the backend.
-
-The ``model`` axis (tensor parallelism of the frozen towers, JAX's
-``param_partition_specs``) is not ported: ``model > 1`` raises, naming its
-ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,38 +35,63 @@ import dataclasses
 import os
 import shutil
 import tempfile
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-TP_ITEM = "the ROADMAP item 'the model axis' (Queue 1 item 9: tensor parallelism of the frozen towers)"
 ENV_KEYS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 
 @dataclasses.dataclass
-class DataMesh:
-    """One rank's view of the data-parallel world."""
+class Mesh:
+    """One rank's view of the ``(data, model)`` world."""
 
-    rank: int
+    rank: int  # the world rank
     world_size: int
     device: torch.device  # this rank's device
-    group: Any = None  # the process group; None: world 1, no collectives
+    group: Any = None  # the world's process group; None: world 1, no collectives
     backend: Optional[str] = None
     # active CollectiveInventory recorders (parallel/inventory.py)
     inventories: List[Any] = dataclasses.field(default_factory=list, repr=False)
+    model_size: int = 1  # the model axis; the data axis is world_size // model_size
+    data_group: Any = None  # the ranks of this model rank (default: the world's group)
+    model_group: Any = None  # the ranks of this data rank; None at model_size 1
+
+    def __post_init__(self):
+        if self.world_size % self.model_size:
+            raise ValueError(f"a world of {self.world_size} rank(s) does not split into "
+                             f"model groups of {self.model_size}")
+        if self.data_group is None and self.model_size == 1:
+            self.data_group = self.group
 
     @property
     def distributed(self) -> bool:
         return self.group is not None
 
+    @property
+    def data_size(self) -> int:
+        return self.world_size // self.model_size
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.model_size
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model_size
+
     def rows(self, n_global: int) -> slice:
-        """This rank's rows of a global batch of ``n_global`` rows."""
-        if n_global % self.world_size:
+        """This rank's rows of a global batch of ``n_global`` rows (its data
+        rank's: the ranks of a model group hold the same rows)."""
+        if n_global % self.data_size:
             raise ValueError(f"a batch of {n_global} rows does not split over "
-                             f"{self.world_size} ranks")
-        n = n_global // self.world_size
-        return slice(self.rank * n, (self.rank + 1) * n)
+                             f"{self.data_size} ranks")
+        n = n_global // self.data_size
+        return slice(self.data_rank * n, (self.data_rank + 1) * n)
+
+
+DataMesh = Mesh  # the name the data-parallel callers use
 
 
 def default_backend(device) -> str:
@@ -81,22 +108,46 @@ def _own_card() -> torch.device:
     return torch.device("cuda", index)
 
 
+def _subgroups(world: int, model: int) -> Tuple[Any, Any]:
+    """-> (this rank's data group, its model group). Every rank creates
+    every subgroup, in one order (the data groups, then the model groups),
+    as ``dist.new_group`` requires; a rank keeps the two it belongs to."""
+    rank = dist.get_rank()
+    data_group = model_group = None
+    for m in range(model):
+        g = dist.new_group(list(range(m, world, model)))
+        if rank % model == m:
+            data_group = g
+    for d in range(world // model):
+        g = dist.new_group(list(range(d * model, (d + 1) * model)))
+        if rank // model == d:
+            model_group = g
+    return data_group, model_group
+
+
 def make_mesh(devices: Optional[Sequence] = None, data: Optional[int] = None,
-              model: int = 1) -> DataMesh:
-    """This process's ``DataMesh``. With an initialized process group the
-    world is the group's (``data``, where given, must equal its size);
-    without one it is world 1. ``devices``: the devices by rank (JAX's
+              model: int = 1) -> Mesh:
+    """This process's ``Mesh``. With an initialized process group the world
+    is the group's, laid out as ``(world // model, model)`` (``data``, where
+    given, must equal ``world // model``); without one it is world 1, where
+    ``model`` must be 1. ``devices``: the devices by world rank (JAX's
     device list; rank r takes ``devices[r]``); None: this rank's card
-    (``cuda:{LOCAL_RANK}``)."""
-    if int(model) > 1:
-        raise NotImplementedError(f"model={model}: the port's mesh has no model axis; "
-                                  f"it waits for {TP_ITEM}")
+    (``cuda:{LOCAL_RANK}``). Under ``model > 1`` every rank must call this
+    together: it creates the subgroups."""
+    model = int(model)
+    if model < 1:
+        raise ValueError(f"model={model}: the model axis has at least one rank")
     joined = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if joined else 1
     rank = dist.get_rank() if joined else 0
-    if data is not None and int(data) != world:
-        raise ValueError(f"data={data} but the world has {world} rank(s): start {data} "
-                         "processes (torchrun, or the CLI's --devices)")
+    if world % model:
+        raise ValueError(f"model={model} does not divide the world of {world} rank(s) "
+                         "(start a multiple of model processes: torchrun, or the CLI's "
+                         "--devices)")
+    if data is not None and int(data) != world // model:
+        raise ValueError(f"data={data} but the world has {world} rank(s) at model={model}: "
+                         f"start {int(data) * model} processes (torchrun, or the CLI's "
+                         "--devices)")
     if devices is None:
         device = _own_card()
     else:
@@ -111,12 +162,15 @@ def make_mesh(devices: Optional[Sequence] = None, data: Optional[int] = None,
         if device.index is not None:
             torch.cuda.set_device(device)  # "cuda" means this rank's card from here on
     if not joined:
-        return DataMesh(rank=0, world_size=1, device=device)
+        return Mesh(rank=0, world_size=1, device=device)
     backend = dist.get_backend()
     if backend == "nccl" and device.type != "cuda":
         raise ValueError(f"the NCCL group cannot serve {device}")
-    return DataMesh(rank=rank, world_size=world, device=device, group=dist.group.WORLD,
-                    backend=backend)
+    data_group, model_group = (_subgroups(world, model) if model > 1
+                               else (dist.group.WORLD, None))
+    return Mesh(rank=rank, world_size=world, device=device, group=dist.group.WORLD,
+                backend=backend, model_size=model, data_group=data_group,
+                model_group=model_group)
 
 
 def join_env_world(backend: str) -> bool:
@@ -130,10 +184,11 @@ def join_env_world(backend: str) -> bool:
     return True
 
 
-def shard_batch(batch: Dict[str, Any], mesh: DataMesh) -> Dict[str, Any]:
+def shard_batch(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
     """This rank's contiguous rows of every array of a global batch (numpy
-    arrays or tensors); world 1 returns the batch itself."""
-    if mesh.world_size == 1:
+    arrays or tensors: its data rank's); one data rank returns the batch
+    itself."""
+    if mesh.data_size == 1:
         return batch
     return {k: v[mesh.rows(len(v))] for k, v in batch.items()}
 

@@ -22,7 +22,9 @@ over its ``DataMesh`` and rank 0 writes the run directory (the parent
 returns None). Started inside a ``torchrun`` environment (``RANK``,
 ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) the task joins that world
 instead, and ends the group it made when it is done. ``--devices N`` above
-the cards found raises.
+the cards found raises. With ``trainer.model_parallel: M`` the N ranks are
+N / M data ranks times M model ranks (``make_mesh(model=M)``); N that M
+does not divide raises before any rank starts.
 """
 
 from __future__ import annotations
@@ -84,8 +86,7 @@ class TrainKWClip_GeneralTransformer(BaseTask):
                 world = dist.get_world_size()
                 if args.devices is not None and args.devices != world:
                     raise ValueError(f"--devices {args.devices} inside a world of {world} ranks")
-                return self._run(make_mesh(devices=["cpu"] * world if platform == "cpu"
-                                           else None))
+                return self._run(["cpu"] * world if platform == "cpu" else None)
             if args.devices is not None and args.devices > 1:
                 return self._spawn(args.devices, platform)
             return self._run(None)
@@ -93,18 +94,43 @@ class TrainKWClip_GeneralTransformer(BaseTask):
             if made:
                 dist.destroy_process_group()
 
+    def _model_axis(self) -> int:
+        """``trainer.model_parallel`` of the run's YAML (``--config``, or
+        the ``config.yaml`` of a ``--resume`` run directory) under the
+        overrides, read without loading any weights."""
+        args = self.args
+        config = None
+        if args.config:
+            config = load_config(args.config, overrides=args.override)
+        elif args.resume and not args.resume.endswith(".ckpt"):
+            config = load_config_from_checkpoint(args.resume)
+        model = 1 if config is None else config.get_path("trainer.model_parallel", 1)
+        for ov in args.override:
+            key, _, value = ov.partition("=")
+            if key.strip() == "trainer.model_parallel":
+                model = parse_override_value(value.strip())
+        return int(model or 1)
+
     def _spawn(self, n: int, platform: str) -> None:
         if platform == "cuda":
             found = torch.cuda.device_count() if torch.cuda.is_available() else 0
             if n > found:
                 raise RuntimeError(f"--devices {n}: {found} CUDA device(s) found "
                                    "(--platform cpu runs the ranks on the CPU)")
+        model = self._model_axis()
+        if n % model:
+            raise ValueError(f"--devices {n} does not split into model groups of "
+                             f"trainer.model_parallel={model}")
+        if platform == "cuda":
             from ..kernels import _build
 
             _build.build()  # once, before the ranks load it
         spawn(_rank_task, n, default_backend(platform), args=(self.args,))
 
-    def _run(self, mesh):
+    def _run(self, devices):
+        """The task in this process: world 1 (``devices`` None, no process
+        group) or this rank of the initialized world (``devices``: by rank,
+        or None for each rank's card)."""
         args = self.args
         ckpt_arg = args.resume or args.ckpt
         set_logging(args.log_level)
@@ -132,6 +158,10 @@ class TrainKWClip_GeneralTransformer(BaseTask):
             key, _, value = ov.partition("=")
             config.set_path(key.strip(), parse_override_value(value.strip()))
 
+        mesh = None
+        if dist.is_initialized():
+            mesh = make_mesh(devices=devices,
+                             model=int(config.get_path("trainer.model_parallel", 1) or 1))
         trainer = self.trainer = Trainer(config, tokenizer=_build_tokenizer(), device=device,
                                          mesh=mesh)
         self.config = config
@@ -150,7 +180,8 @@ class TrainKWClip_GeneralTransformer(BaseTask):
                     state = trainer.restore(ckpt_arg, state)
             # --test evaluates the test split, --eval the dev/val split
             split = "test" if args.test else "dev"
-            metrics = trainer.validate(place_state(state, trainer.mesh), split=split)
+            metrics = trainer.validate(place_state(state, trainer.mesh, trainer.model,
+                                                   trainer.optimizer), split=split)
             logger.info("validation metrics (%s): %s", split, metrics)
             return metrics
         raise ValueError("specify one of --train / --eval / --test")

@@ -110,7 +110,8 @@ class CheckpointManager:
         return {
             "params": params,
             "model_state": state.model_state,
-            "optimizer": None if optimizer is None else optimizer.state_dict(),
+            "optimizer": (optimizer if optimizer is None or isinstance(optimizer, dict)
+                          else optimizer.state_dict()),
             "scheduler": None if scheduler is None else scheduler.state_dict(),
             "step": int(state.step),
             "generator": state.generator.get_state(),
@@ -138,7 +139,8 @@ class CheckpointManager:
     def save(self, state, step: int, metrics: Dict[str, float],
              config: Optional[ConfigTree] = None, optimizer=None, scheduler=None) -> List[str]:
         """Apply the monitor policy to ``state`` (a ``TrainState``) with its
-        optimizer and scheduler; returns the paths written."""
+        optimizer (or the optimizer's ``state_dict()``) and scheduler;
+        returns the paths written."""
         payload = self._payload(state, optimizer, scheduler)
         written = []
         if self.save_last:

@@ -16,13 +16,14 @@ step) is done by ``train_step.make_train_step``.
 
 from __future__ import annotations
 
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..config import SpeechCLIPConfig
 from ..ops.basic import Params
 from ..ops.schedules import get_schedule
+from ..parallel import collectives
 
 
 def tree_leaves(tree) -> Iterator:
@@ -47,16 +48,28 @@ def trainable_leaves(params: Params, trainable_mask: Params) -> List[torch.Tenso
     return [p for p, keep in zip(leaves, flags) if keep]
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every element's square, in f32."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+def global_norm(tensors: Sequence[torch.Tensor], mesh=None,
+                sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """sqrt of the sum of every element's square, in f32. Under a model
+    axis (``mesh``, with ``sharded`` flagging the tensors that are model-axis
+    shards) the shards' squares are summed over the model group and the
+    replicated tensors' counted once, so every rank holds the full
+    tree's norm."""
+    squares = [t.float().square().sum() for t in tensors]
+    if mesh is None or mesh.model_size == 1 or not any(sharded or ()):
+        return torch.sqrt(sum(squares))
+    own = sum(q for q, s in zip(squares, sharded) if s)
+    replicated = sum((q for q, s in zip(squares, sharded) if not s), torch.zeros_like(own))
+    return torch.sqrt(collectives.reduce_from_model(own, mesh, "grad norm") + replicated)
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float, mesh=None,
+                        sharded: Optional[Sequence[bool]] = None) -> List[torch.Tensor]:
     """optax's ``clip_by_global_norm``: each gradient as it is when their
-    global norm is under ``max_norm``, else ``g / norm * max_norm`` (not
-    torch's ``clip_grad_norm_``, whose scale is ``max / (norm + 1e-6)``)."""
-    norm = global_norm(grads)
+    global norm (``global_norm``) is under ``max_norm``, else ``g / norm *
+    max_norm`` (not torch's ``clip_grad_norm_``, whose scale is ``max /
+    (norm + 1e-6)``)."""
+    norm = global_norm(grads, mesh, sharded)
     keep = norm < max_norm
     return [torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm) for g in grads]
 

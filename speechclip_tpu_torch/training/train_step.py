@@ -37,6 +37,20 @@ as the sharded JAX step reduces each micro-batch's gradient: so each
 ``grad_norm`` is the micro-batch's global one, as at world 1. The dropout
 masks and the Gumbel noise are drawn over the global batch
 (``ops/basic.RowShardGenerator``), so any dropout gives world 1's masks.
+
+Tensor parallelism (a mesh with ``model_size`` M > 1: the ``model`` axis
+of JAX's ``make_mesh(data, model)``): ``place_state`` broadcasts the full
+tree over the world, then keeps each rank's shard of the leaves
+``parallel.tensor.param_partition_specs`` shards (the frozen towers' and
+the trainable branches' transformer matrices; a restored optimizer's
+moments and an accumulation in progress with them). The steps run inside
+``model_mesh``, where the layers are tensor-parallel. The gradient mean
+runs over the data group; ``grad_norm`` and the clip sum the sharded
+leaves' squares over the model group and count the replicated ones once;
+Adam is elementwise, so each shard updates alone. The dropout masks on a
+sharded axis are the single-device draw's part of it, so a step at any
+dropout is world 1's up to the order of the sums. ``gather_state`` puts
+the state back in the full layout (the checkpoints').
 """
 
 from __future__ import annotations
@@ -51,6 +65,7 @@ import torch
 from ..models.speechclip import SpeechCLIPModel, cast_params
 from ..ops.basic import Params, RowShardGenerator
 from ..parallel import collectives
+from ..parallel import tensor as tp
 from ..parallel.mesh import DataMesh, shard_batch
 from .optim import clip_by_global_norm, global_norm, trainable_leaves, tree_leaves
 
@@ -88,14 +103,14 @@ def create_train_state(model: SpeechCLIPModel, seed: int = 0, params: Optional[P
     """The model's seeded ``init`` (or the given params and state, e.g.
     carried from JAX) placed for training, and a generator seeded with
     ``rng_seed`` (default ``seed + 1``, a stream apart from the init's):
-    on a ``mesh`` of N > 1 ranks, one that draws over the global batch and
-    keeps this rank's rows."""
+    on a ``mesh`` of N > 1 data ranks, one that draws over the global batch
+    and keeps this rank's rows."""
     if params is None:
         params, model_state = model.init(seed)
     mask = model.trainable_mask(params)
     state = {k: v for k, v in (model_state or {}).items()}
-    if mesh is not None and mesh.world_size > 1:
-        generator = RowShardGenerator(model.device, mesh.rank, mesh.world_size)
+    if mesh is not None and mesh.data_size > 1:
+        generator = RowShardGenerator(model.device, mesh.data_rank, mesh.data_size)
     else:
         generator = torch.Generator(device=model.device)
     return TrainState(
@@ -106,15 +121,22 @@ def create_train_state(model: SpeechCLIPModel, seed: int = 0, params: Optional[P
     )
 
 
-def place_state(state: TrainState, mesh: Optional[DataMesh]) -> TrainState:
+def place_state(state: TrainState, mesh: Optional[DataMesh],
+                model: Optional[SpeechCLIPModel] = None,
+                optimizer: Optional[torch.optim.Optimizer] = None) -> TrainState:
     """The state made the same on every rank of ``mesh``: the params (in
     place, so an optimizer over them keeps its leaves), the kw-BN
     statistics, an accumulation in progress and the generator's state
     broadcast from rank 0, after a check that every rank holds the same
     tree (leaf count, elements, step). JAX's ``place_state`` replicates the
-    state over the mesh the same way."""
+    state over the mesh the same way. Under a model axis the params are
+    then sharded (``parallel.tensor.shard_params_``, by ``model``'s
+    attention heads), and with them ``optimizer``'s moments and an
+    accumulation in progress (aligned with the optimizer's leaves)."""
     if mesh is None or not mesh.distributed:
         return state
+    if tp.is_sharded(state.params):
+        raise ValueError("the train state is placed already (its params are model-axis shards)")
     leaves = list(tree_leaves(state.params))
     collectives.agree([len(leaves), sum(t.numel() for t in leaves), state.step], mesh,
                       "the train state's params and step")
@@ -123,7 +145,37 @@ def place_state(state: TrainState, mesh: Optional[DataMesh]) -> TrainState:
     seed_state = state.generator.get_state()
     collectives.broadcast_tree(seed_state, mesh, "generator state")
     state.generator.set_state(seed_state)
-    return state
+    if mesh.model_size == 1:
+        return state
+    if model is None:
+        raise ValueError("a model axis shards the params by the model's attention heads: "
+                         "pass model=")
+    tp.shard_params_(state.params, mesh, model.attention_heads())
+    acc = state.acc_grads
+    if optimizer is not None:
+        tp.shard_optimizer_state_(optimizer, mesh)
+        if acc is not None:
+            acc = tp.take_like(acc, optimizer.param_groups[0]["params"], mesh)
+    elif acc is not None:
+        raise ValueError("an accumulation in progress is sharded with the optimizer's "
+                         "leaves: pass optimizer=")
+    return dataclasses.replace(state, acc_grads=acc)
+
+
+def gather_state(state: TrainState, mesh: Optional[DataMesh],
+                 optimizer: Optional[torch.optim.Optimizer] = None):
+    """-> (the state with its params and accumulation in JAX's full
+    layout, the optimizer's ``state_dict()`` with full moments): a
+    collective over the model groups; the state and optimizer themselves
+    where there is no model axis."""
+    if mesh is None or mesh.model_size == 1:
+        return state, optimizer
+    acc = state.acc_grads
+    if acc is not None:
+        acc = tp.full_like(acc, optimizer.param_groups[0]["params"], mesh, "accumulation")
+    opt = None if optimizer is None else tp.gathered_optimizer_state(optimizer, mesh)
+    return dataclasses.replace(state, params=tp.gather_params(state.params, mesh),
+                               acc_grads=acc), opt
 
 
 def _to_f32(tree, device):
@@ -148,12 +200,16 @@ def make_train_step(model: SpeechCLIPModel, optimizer: torch.optim.Optimizer,
     leaves of the state it steps (``build_optimizer`` over ``state.params``):
     the step checks that, since a leaf the forward does not use would take
     a zero gradient. ``mesh``: ``batch`` is this rank's shard of the global
-    batch (see the module docstring)."""
+    batch, the params its model-axis shards (see the module docstring)."""
     accum = max(int(accumulate_grad_batches), 1)
     leaves = optimizer.param_groups[0]["params"]
     clip = float(model.config.gradient_clip_val or 0.0)
 
     def train_step(state: TrainState, batch: Dict[str, Any]) -> Tuple[TrainState, Dict]:
+        with tp.model_mesh(mesh):
+            return step(state, batch)
+
+    def step(state: TrainState, batch: Dict[str, Any]) -> Tuple[TrainState, Dict]:
         own = trainable_leaves(state.params, model.trainable_mask(state.params))
         if len(own) != len(leaves) or any(a is not b for a, b in zip(own, leaves)):
             raise ValueError("the optimizer does not hold this state's trainable leaves: "
@@ -167,7 +223,8 @@ def make_train_step(model: SpeechCLIPModel, optimizer: torch.optim.Optimizer,
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
         grads = collectives.all_reduce_mean(grads, mesh)
         metrics = {f"train_{k}": v.detach() for k, v in {**losses, **log_metrics}.items()}
-        metrics["grad_norm"] = global_norm(grads)
+        sharded = [tp.kind_of(p) is not None for p in leaves]
+        metrics["grad_norm"] = global_norm(grads, mesh, sharded)
         acc = state.acc_grads
         mini = state.step % accum
         if accum > 1:
@@ -175,7 +232,7 @@ def make_train_step(model: SpeechCLIPModel, optimizer: torch.optim.Optimizer,
             grads = acc
         if mini == accum - 1:
             if clip:
-                grads = clip_by_global_norm(grads, clip)
+                grads = clip_by_global_norm(grads, clip, mesh, sharded)
             for p, g in zip(leaves, grads):
                 p.grad = g
             optimizer.step()
@@ -194,8 +251,8 @@ def make_eval_step(model: SpeechCLIPModel, mesh: Optional[DataMesh] = None):
     ``retrieval_audio_feat_src`` names, ``image_feat``, ``metrics`` as
     ``val_*``, and the cascaded branch's ``keywords``), at eval, without a
     graph. ``mesh``: ``batch`` is this rank's shard; the features, ids and
-    keywords are gathered over the ranks first, so every rank returns the
-    global batch's outputs and losses."""
+    keywords are gathered over the data ranks first, so every rank returns
+    the global batch's outputs and losses."""
     default_src = "parallel" if model.use_parallel else "cascaded"
     audio_src = model.config.retrieval_audio_feat_src or default_src
     have = {"parallel": model.use_parallel, "cascaded": model.use_cascaded}
@@ -206,8 +263,9 @@ def make_eval_step(model: SpeechCLIPModel, mesh: Optional[DataMesh] = None):
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, Any]) -> Dict[str, Any]:
-        loss_feats, log_metrics, others, _ = model.forward(state.params, state.model_state,
-                                                           batch, train=False)
+        with tp.model_mesh(mesh):
+            loss_feats, log_metrics, others, _ = model.forward(state.params, state.model_state,
+                                                               batch, train=False)
         loss_feats = {k: collectives.all_gather_rows(v, mesh, k) for k, v in loss_feats.items()}
         losses = model.compute_loss(state.params, loss_feats)
         out = {

@@ -25,9 +25,17 @@ keyword diagnostics are world 1's. JAX's divisibility rules hold:
 ``data.batch_size`` and the eval batch size must divide over the ranks, and
 a ragged trailing train batch is skipped. The image-feature cache is rank
 0's on every rank. Rank 0 alone writes the metrics logs, the checkpoints
-and ``ckpt_index.json``; the ranks wait for its saves. ``trainer.
-model_parallel > 1`` (the ``model`` axis) raises. The host waits on the
-card only at log points and in validation, where it reads values back.
+and ``ckpt_index.json``; the ranks wait for its saves.
+
+Tensor parallelism: ``trainer.model_parallel: M`` lays the world out as
+``(world / M, M)`` (``make_mesh(model=M)``, JAX's ``make_mesh(data,
+model)``): the data size is world / M, and each model group of M ranks
+splits the transformer matrices of the towers and the branches
+(``parallel/tensor.py``); fit, validation and the image-feature cache run
+on that mesh. Checkpoints hold the full layout (gathered before rank 0
+saves), so a run saved at ``(data 2, model 2)`` restores at world 1 and
+the other way round. The host waits on the card only at log points and in
+validation, where it reads values back.
 """
 
 from __future__ import annotations
@@ -48,7 +56,8 @@ from ..data.loader import BucketedLoader
 from ..models.speechclip import SpeechCLIPModel
 from ..ops.schedules import get_schedule
 from ..parallel import collectives
-from ..parallel.mesh import TP_ITEM, DataMesh, make_mesh
+from ..parallel import tensor as tp
+from ..parallel.mesh import DataMesh, make_mesh
 from .checkpoint import STATE_FILE, CheckpointManager
 from .evaluation import collect_validation_outputs, retrieval_metrics, run_keyword_diagnostics
 from .logging import MetricsLogger
@@ -57,6 +66,7 @@ from .train_step import (
     TrainState,
     create_train_state,
     device_prefetch,
+    gather_state,
     make_eval_step,
     make_train_step,
     place_state,
@@ -104,14 +114,15 @@ def _first_leaf(tree):
 class Trainer:
     def __init__(self, config: ConfigTree, workdir: Optional[str] = None, tokenizer=None,
                  device="cuda", mesh: Optional[DataMesh] = None):
-        """``mesh``: this rank's data-parallel world (default: ``device``
-        alone, world 1)."""
+        """``mesh``: this rank's ``(data, model)`` world, whose model axis
+        must be ``trainer.model_parallel`` (default: ``device`` alone, world
+        1, where ``model_parallel`` must be 1)."""
         model_axis = int(config.get_path("trainer.model_parallel", 1) or 1)
-        if model_axis > 1:
-            raise NotImplementedError(f"trainer.model_parallel={model_axis}: the port's mesh has "
-                                      f"no model axis; it waits for {TP_ITEM}")
-        self.mesh = mesh or make_mesh(devices=[device])
-        self.n_data = self.mesh.world_size
+        self.mesh = mesh or make_mesh(devices=[device], model=model_axis)
+        if self.mesh.model_size != model_axis:
+            raise ValueError(f"trainer.model_parallel={model_axis} but the mesh's model axis "
+                             f"has {self.mesh.model_size} rank(s)")
+        self.n_data = self.mesh.data_size
         self.rank0 = self.mesh.rank == 0
         device = self.mesh.device
         self.config = config
@@ -237,7 +248,8 @@ class Trainer:
                 if len(part) < chunk:
                     imgs = np.concatenate(
                         [imgs, np.repeat(imgs[:1], chunk - len(part), axis=0)], axis=0)
-                out = self.model.encode_image_tower(params, torch.from_numpy(imgs))
+                with tp.model_mesh(self.mesh):
+                    out = self.model.encode_image_tower(params, torch.from_numpy(imgs))
                 feats.append(out[:len(part)].float().cpu().numpy())
         cache = np.concatenate(feats, axis=0)
         # every rank runs the tower on the same images; rank 0's features
@@ -262,7 +274,7 @@ class Trainer:
             logger.info("resumed from %s at step %d", resume, state.step)
         elif initial_params is None:
             state = dataclasses.replace(state, params=self.model.load_pretrained(state.params))
-        state = place_state(state, self.mesh)
+        state = place_state(state, self.mesh, self.model, self.optimizer)
 
         train_loader, dev_loader = self.build_loaders()
         if int(train_loader.batch_size) % self.n_data != 0:
@@ -334,10 +346,11 @@ class Trainer:
                 val_metrics = self.validate(state, dev_loader, epoch=epoch)
                 stats["validations"].append((step, time.perf_counter() - t0))
                 t0 = time.perf_counter()
+                full, optimizer = gather_state(state, self.mesh, self.optimizer)
                 if self.rank0:
                     self.metrics_logger.log(val_metrics, step)
-                    written = self.ckpt.save(state, step, val_metrics, self.config,
-                                             self.optimizer, self.scheduler)
+                    written = self.ckpt.save(full, step, val_metrics, self.config,
+                                             optimizer, self.scheduler)
                     stats["saves"].append((step, time.perf_counter() - t0, sum(
                         os.path.getsize(os.path.join(p, STATE_FILE)) for p in written)))
                 collectives.barrier(self.mesh)  # no rank reads a checkpoint rank 0 still writes

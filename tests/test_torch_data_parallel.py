@@ -423,8 +423,9 @@ def test_collective_inventory_matches_jax_gates(dp):
     inv = dp["ranks"][0]["inventory"]
     b = len(dp["spec"]["batch"]["id"])
     gathers = [e for e in inv["entries"] if e[0] == "all-gather"]
-    assert ("all-gather", "f32", (b, 16), "features") in gathers
-    assert ("all-gather", "s32", (b,), "ids") in gathers
+    assert ("all-gather", "f32", (b, 16), "features", "data") in gathers
+    assert ("all-gather", "s32", (b,), "ids", "data") in gathers
+    assert {e[4] for e in inv["entries"]} == {"data"}
     assert not [e for e in gathers if len(e[2]) >= 3 and e[1] in ("f32", "bf16")]
     grads = [e for e in inv["entries"] if e[3] == "gradients"]
     assert len(grads) == 1 and grads[0][0] == "all-reduce"

@@ -5,8 +5,9 @@ virtual CPU devices, on ``tests/test_trainer.py``'s tiny corpus and config
 the all-ragged dev split (its 4 pairs padded to one batch of 8, 4 rows a
 rank), each package resumed from its own ``ckpts/last`` to step 4. The
 port starts from JAX's initial params. Only rank 0 writes the run
-directory. JAX's divisibility errors, word for word, and the refusal of
-``trainer.model_parallel > 1``."""
+directory. JAX's divisibility errors, word for word. A fit at
+``trainer.model_parallel: 2`` (two gloo ranks, data 1, model 2) against
+JAX's at the same setting, and its checkpoint restored at world 1."""
 
 import concurrent.futures
 import os
@@ -24,6 +25,7 @@ from speechclip_tpu_torch.config import load_config
 from speechclip_tpu_torch.ops.kw_bn import kw_bn_apply
 from speechclip_tpu_torch.parallel.mesh import DataMesh
 from speechclip_tpu_torch.training.trainer import Trainer
+from tests.test_torch_dp_worker import flat as flat_params
 from tests.test_torch_dp_worker import run_ranks, run_trainer
 from tests.test_trainer import corpus, trainer_config  # noqa: F401 (fixtures)
 from tests.torch_trainer_common import (
@@ -159,10 +161,60 @@ def test_the_divisibility_errors_are_jax_s_word_for_word(trainer_config, tmp_pat
     assert got == want == "batch 8 not divisible by replica_groups 3"
 
 
-def test_a_model_axis_raises_naming_its_roadmap_item(trainer_config, tmp_path):  # noqa: F811
+def test_a_trainer_at_model_parallel_2_steps_as_jax_s(trainer_config, tmp_path):  # noqa: F811
+    """``trainer.model_parallel: 2`` on two gloo ranks (data 1, model 2;
+    tests/test_torch_tp_worker.py's ranks) against JAX's ``Trainer`` on
+    two virtual devices at the same setting: 3 steps and 3 validations,
+    then a resume to step 4, every logged metric and the trainable leaves
+    within tests/torch_trainer_common.py's limits but ``grad_norm``, held
+    to 3e-5 relative: JAX's own model-2 fit moves it 1.45e-5 from the
+    port's world-1 fit by step 3 (XLA's partitioned sums; the port's
+    model-2 fit stays within 4e-6 of world 1). The ranks' gathered params
+    are bitwise equal; the model-2 run's ``ckpts/last`` restores at world
+    1 into those params bit for bit."""
+    from tests.test_torch_tp_worker import run_ranks as run_tp_ranks
+    from tests.test_torch_tp_worker import run_trainer as run_tp_trainer
+
     cfg = comparable_config(trainer_config, dev_batch_size=8, cache=False)
+    paths = {}
+    for steps in (3, 4):
+        cfg.trainer.max_steps = steps
+        cfg.trainer.model_parallel = 2
+        paths[steps] = tmp_path / f"config_{steps}.yaml"
+        paths[steps].write_text(cfg.to_yaml())
+    cfg.trainer.model_parallel = 1
+    (tmp_path / "world1.yaml").write_text(cfg.to_yaml())
+    cfg.trainer.max_steps = 3
     cfg.trainer.model_parallel = 2
-    path = tmp_path / "tp.yaml"
-    path.write_text(cfg.to_yaml())
-    with pytest.raises(NotImplementedError, match="model_parallel=2.*the model axis"):
-        Trainer(load_config(str(path)), workdir=str(tmp_path / "tp"), device="cpu")
+    jt = JaxTrainer(cfg, workdir=str(tmp_path / "jax"), tokenizer=None, devices=jax.devices()[:2])
+    assert (jt.n_data, jt.mesh.shape["model"]) == (1, 2)
+    initial = jax_create_train_state(jt.model, jt.tx, jax.random.key(jt.seed))
+    params, model_state = carried(initial)
+    spec = {"world": 2, "model": 2, "config": str(paths[3]), "resume_config": str(paths[4]),
+            "workdir": str(tmp_path / "port"), "params": params, "state": model_state}
+    (tmp_path / "ranks").mkdir()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(run_tp_ranks, spec, tmp_path / "ranks", run_tp_trainer, "trainer")
+        jstate = jt.fit()
+        jt.config.trainer.max_steps = 4
+        jresumed = jt.fit(resume=os.path.join(jt.workdir, "ckpts", "last"))
+        ranks = ranks.result()
+    assert_metrics_match(tmp_path / "port", tmp_path / "jax", steps=[1, 2, 3, 4], validations=4,
+                         norm_rtol=3e-5)
+    pt = Trainer(load_config(str(tmp_path / "world1.yaml")), workdir=str(tmp_path / "world1"),
+                 device="cpu")
+    like = pt.create_state(params, model_state).params
+    skip = unresolved_elements(jt, initial, pt)
+    for key, jax_state, steps in (("fit", jstate, 3), ("resume", jresumed, 4)):
+        got = [types.SimpleNamespace(step=r[key]["step"], params=_tree(r[key]["params"], like))
+               for r in ranks]
+        assert got[0].step == int(jax_state.step) == steps
+        assert_trainable_leaves_match(pt, got[0], jax_state, initial, skip, steps=steps)
+        a, b = (r[key]["params"] for r in ranks)
+        for path in a:
+            np.testing.assert_array_equal(a[path], b[path], err_msg=(key, path))
+    restored = pt.restore(str(tmp_path / "port" / "ckpts" / "last"), pt.create_state())
+    assert restored.step == 4
+    want = ranks[0]["resume"]["params"]
+    for path, leaf in flat_params(restored.params).items():
+        np.testing.assert_array_equal(leaf, want[path], err_msg=path)

@@ -304,8 +304,37 @@ def test_world_1_mesh_and_shard_batch():
     assert collectives.all_reduce_sum(x, mesh, "t") is x
 
 
-def test_the_model_axis_and_a_world_mismatch_raise():
-    with pytest.raises(NotImplementedError, match="the model axis"):
+def run_mesh(rank: int, spec_path: str, out_dir: str) -> None:
+    """One rank of a ``(data, model)`` mesh: its coordinates, its rows, and
+    each subgroup's sum of the world ranks, saved as mesh{r}.pt."""
+    spec = torch.load(spec_path, weights_only=False)
+    mesh = make_mesh(devices=["cpu"] * spec["world"], model=spec["model"])
+    sums = {}
+    for axis in ("data", "model"):
+        t = torch.tensor([float(rank)])
+        sums[axis] = float(collectives._all_reduce_(t, mesh, "test", axis))
+    torch.save({"rank": mesh.rank, "data_rank": mesh.data_rank, "model_rank": mesh.model_rank,
+                "sizes": (mesh.data_size, mesh.model_size), "rows": mesh.rows(8), "sums": sums,
+                "batch": shard_batch({"x": np.arange(8)}, mesh)["x"].tolist()},
+               os.path.join(out_dir, f"mesh{rank}.pt"))
+
+
+def test_the_mesh_s_ranks_and_groups(tmp_path):
+    """A world of 4 at ``model=2`` in JAX's grid order: world rank r is data
+    rank r // 2 and model rank r % 2; the data groups {0, 2} and {1, 3}
+    hold different rows, the model groups {0, 1} and {2, 3} the same ones.
+    World 1 takes no model axis, and ``data`` must be the world's."""
+    got = run_ranks({"world": 4, "model": 2}, tmp_path, run_mesh, "mesh")
+    for r, g in enumerate(got):
+        assert (g["rank"], g["data_rank"], g["model_rank"], g["sizes"]) == (r, r // 2, r % 2,
+                                                                            (2, 2))
+        assert g["sums"] == {"data": float(r % 2 + (r % 2 + 2)),
+                             "model": float(2 * (r // 2) + 2 * (r // 2) + 1)}
+        assert g["rows"] == slice(4 * (r // 2), 4 * (r // 2) + 4)
+        assert g["batch"] == list(range(4 * (r // 2), 4 * (r // 2) + 4))
+    with pytest.raises(ValueError, match="model=2 does not divide the world of 1"):
         make_mesh(devices=["cpu"], model=2)
     with pytest.raises(ValueError, match="data=2 but the world has 1 rank"):
         make_mesh(devices=["cpu"], data=2)
+    with pytest.raises(ValueError, match="does not split into model groups of 2"):
+        DataMesh(rank=0, world_size=3, device=torch.device("cpu"), model_size=2)

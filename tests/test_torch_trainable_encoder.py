@@ -336,8 +336,8 @@ def test_the_recompute_redraws_the_forward_masks(monkeypatch):
     masks = []
     real = ph.dropout
 
-    def spy(x, rate, train, generator):
-        out = real(x, rate, train, generator)
+    def spy(x, rate, train, generator, split=None):
+        out = real(x, rate, train, generator, split)
         if train and rate > 0:
             masks.append((out == 0).detach().clone())
         return out
