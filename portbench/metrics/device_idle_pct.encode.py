@@ -1,0 +1,7 @@
+"""``device_idle_pct.encode``: see ``portbench/readers.py`` ``device_idle_pct``, in the cells whose driver is the encode one."""
+
+from portbench.readers import device_idle_pct
+
+
+def read(ctx):
+    return device_idle_pct(ctx, "encode")

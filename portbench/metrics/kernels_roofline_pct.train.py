@@ -1,0 +1,7 @@
+"""``kernels_roofline_pct.train``: see ``portbench/readers.py`` ``kernels_roofline_pct``, in the cells whose driver is the train one."""
+
+from portbench.readers import kernels_roofline_pct
+
+
+def read(ctx):
+    return kernels_roofline_pct(ctx, "train")

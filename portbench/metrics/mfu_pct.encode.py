@@ -1,0 +1,7 @@
+"""``mfu_pct.encode``: see ``portbench/readers.py`` ``mfu_pct``, in the cells whose driver is the encode one."""
+
+from portbench.readers import mfu_pct
+
+
+def read(ctx):
+    return mfu_pct(ctx, "encode")
