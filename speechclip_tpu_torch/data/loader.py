@@ -27,6 +27,7 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
+from ..utils import tracing
 from .audio import random_crop_max_length
 
 
@@ -151,12 +152,21 @@ class BucketedLoader:
             for plan, plan_rng in zip(plans, plan_rngs):
                 fut = pool.submit(self._assemble, plan, plan_rng)
                 if pending is not None:
-                    yield pending.result()
+                    yield self._wait(pending)
                 pending = fut
             if pending is not None:
-                yield pending.result()
+                yield self._wait(pending)
+
+    @staticmethod
+    def _wait(pending: cf.Future) -> Dict[str, np.ndarray]:
+        with tracing.span("speechclip.loader.wait"):
+            return pending.result()
 
     def _assemble(self, plan, rng) -> Dict[str, np.ndarray]:
+        with tracing.span("speechclip.loader.assemble"):
+            return self._assemble_batch(plan, rng)
+
+    def _assemble_batch(self, plan, rng) -> Dict[str, np.ndarray]:
         bucket_len, indices = plan
         entries = [self.dataset.data[int(i)] for i in indices]
         n = len(entries)
@@ -181,12 +191,13 @@ class BucketedLoader:
                     np.int64,
                 )
             try:
-                wav, wav_len = native_mod.decode_wav_batch(
-                    [e["wav"] for e in entries],
-                    max_len=bucket_len,
-                    target_sr=self.dataset.target_sr,
-                    offsets=offsets,
-                )
+                with tracing.span("speechclip.loader.decode"):
+                    wav, wav_len = native_mod.decode_wav_batch(
+                        [e["wav"] for e in entries],
+                        max_len=bucket_len,
+                        target_sr=self.dataset.target_sr,
+                        offsets=offsets,
+                    )
             except RuntimeError as e:
                 # one exotic/malformed WAV in the batch (IEEE-float,
                 # 24-bit, WAVE_FORMAT_EXTENSIBLE): the documented contract
@@ -200,12 +211,13 @@ class BucketedLoader:
                 use_native = False
         if use_native:
             if self.max_audio_len > 0:
-                clip = np.minimum(wav_len, self.max_audio_len)
-                mask = (
-                    np.arange(bucket_len)[None, :] < clip[:, None]
-                )
-                wav = np.where(mask, wav, 0.0).astype(np.float32)
-                wav_len = clip
+                with tracing.span("speechclip.loader.mask"):
+                    clip = np.minimum(wav_len, self.max_audio_len)
+                    mask = (
+                        np.arange(bucket_len)[None, :] < clip[:, None]
+                    )
+                    wav = np.where(mask, wav, 0.0).astype(np.float32)
+                    wav_len = clip
             batch: Dict[str, np.ndarray] = {
                 "wav": wav,
                 "wav_len": wav_len.astype(np.int32),
@@ -246,10 +258,11 @@ class BucketedLoader:
             else:
                 samples = [{} for _ in indices]
         else:
-            samples = [
-                self.dataset.get_item(int(i), skip_image=self.skip_images)
-                for i in indices
-            ]
+            with tracing.span("speechclip.loader.decode"):
+                samples = [
+                    self.dataset.get_item(int(i), skip_image=self.skip_images)
+                    for i in indices
+                ]
             batch = {
                 "wav": np.zeros((n, bucket_len), np.float32),
                 "wav_len": np.zeros((n,), np.int32),
@@ -283,9 +296,10 @@ class BucketedLoader:
                 np.int64
             )
         if self.compact_wav:
-            batch["wav"] = np.clip(
-                np.round(batch["wav"].astype(np.float64) * 32768.0),
-                -32768,
-                32767,
-            ).astype(np.int16)
+            with tracing.span("speechclip.loader.mask"):
+                batch["wav"] = np.clip(
+                    np.round(batch["wav"].astype(np.float64) * 32768.0),
+                    -32768,
+                    32767,
+                ).astype(np.int16)
         return batch

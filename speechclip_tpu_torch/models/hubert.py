@@ -70,6 +70,7 @@ from ..ops.masking import (
     key_padding_mask,
     valid_mask,
 )
+from ..utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -335,25 +336,27 @@ def _encoder_prelude(
     params: Params, cfg: HubertConfig, wav: torch.Tensor, wav_lengths: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Everything before the layers -> (hidden state 0 (B, T, D), frame_lens)."""
-    if cfg.normalize_waveform:
-        # per-utterance layer norm over VALID samples only
-        vm = valid_mask(wav_lengths, wav.shape[1]).float()
-        n = vm.sum(dim=1, keepdim=True).clamp(min=1.0)
-        w32 = wav.float() * vm
-        mean = w32.sum(dim=1, keepdim=True) / n
-        var = ((w32 - mean) * vm).square().sum(dim=1, keepdim=True) / n
-        wav = ((wav.float() - mean) * torch.rsqrt(var + 1e-5) * vm).to(wav.dtype)
+    with tracing.span("speechclip.hubert.frontend", device=True):
+        if cfg.normalize_waveform:
+            # per-utterance layer norm over VALID samples only
+            vm = valid_mask(wav_lengths, wav.shape[1]).float()
+            n = vm.sum(dim=1, keepdim=True).clamp(min=1.0)
+            w32 = wav.float() * vm
+            mean = w32.sum(dim=1, keepdim=True) / n
+            var = ((w32 - mean) * vm).square().sum(dim=1, keepdim=True) / n
+            wav = ((wav.float() - mean) * torch.rsqrt(var + 1e-5) * vm).to(wav.dtype)
 
-    feats = conv_feature_extractor(params["feature_extractor"], cfg, wav)
-    feats = layer_norm(params["layer_norm"], feats)
-    if params.get("post_extract_proj") is not None:
-        feats = linear(params["post_extract_proj"], feats)
+        feats = conv_feature_extractor(params["feature_extractor"], cfg, wav)
+        feats = layer_norm(params["layer_norm"], feats)
+        if params.get("post_extract_proj") is not None:
+            feats = linear(params["post_extract_proj"], feats)
 
-    num_frames = feats.shape[1]
-    frame_lens = conv_frame_valid_lengths(wav_lengths, wav.shape[1], num_frames)
-    kpm = key_padding_mask(frame_lens, num_frames)
-    x = feats.masked_fill(kpm[..., None], 0.0)  # zero padding before pos_conv
-    x = x + pos_conv_apply(params["encoder"]["pos_conv"], cfg, x)
+        num_frames = feats.shape[1]
+        frame_lens = conv_frame_valid_lengths(wav_lengths, wav.shape[1], num_frames)
+        kpm = key_padding_mask(frame_lens, num_frames)
+        x = feats.masked_fill(kpm[..., None], 0.0)  # zero padding before pos_conv
+    with tracing.span("speechclip.hubert.pos_conv", device=True):
+        x = x + pos_conv_apply(params["encoder"]["pos_conv"], cfg, x)
     if not cfg.layer_norm_first:
         x = layer_norm(params["encoder"]["layer_norm"], x)
     return x, frame_lens
@@ -385,21 +388,22 @@ def hubert_apply(
         raise ValueError("hubert_apply needs a generator when train=True and dropout or "
                          "layerdrop is > 0")
     seeds = _layer_seeds(generator, 2 * len(layers)) if draws else [None] * (2 * len(layers))
-    for i, layer in enumerate(layers):
-        if not train:
-            y = encoder_layer_apply(layer, cfg, x, frame_lens, plain=plain)
-        elif cfg.remat:
-            y = checkpoint(_train_layer, layer, cfg, x, frame_lens, plain, seeds[2 * i],
-                           generator, use_reentrant=False)
-        else:
-            y = _train_layer(layer, cfg, x, frame_lens, plain, seeds[2 * i], generator)
-        if train and cfg.layerdrop > 0:
-            g = seeded_generator(seeds[2 * i + 1], x.device)
-            keep = torch.rand((), generator=g, device=x.device) < 1.0 - cfg.layerdrop
-            x = layerdrop_select(keep, y, x)
-        else:
-            x = y
-        hidden_states.append(x)
+    with tracing.span("speechclip.hubert.layers", device=True):
+        for i, layer in enumerate(layers):
+            if not train:
+                y = encoder_layer_apply(layer, cfg, x, frame_lens, plain=plain)
+            elif cfg.remat:
+                y = checkpoint(_train_layer, layer, cfg, x, frame_lens, plain, seeds[2 * i],
+                               generator, use_reentrant=False)
+            else:
+                y = _train_layer(layer, cfg, x, frame_lens, plain, seeds[2 * i], generator)
+            if train and cfg.layerdrop > 0:
+                g = seeded_generator(seeds[2 * i + 1], x.device)
+                keep = torch.rand((), generator=g, device=x.device) < 1.0 - cfg.layerdrop
+                x = layerdrop_select(keep, y, x)
+            else:
+                x = y
+            hidden_states.append(x)
     feat_lens = hubert_feature_lengths(wav_lengths, cfg.downsample_rate, x.shape[1])
     return tuple(hidden_states), feat_lens
 
@@ -454,13 +458,14 @@ def _wsum_pass(
 
     acc = consume(0, x)
     dots = [acc]
-    for i, layer in enumerate(params["encoder"]["layers"]):
-        x = encoder_layer_apply(layer, cfg, x, frame_lens, plain=plain)
-        c = consume(i + 1, x)
-        if g is None:
-            acc = acc + c
-        else:
-            dots.append(c)
+    with tracing.span("speechclip.hubert.layers", device=True):
+        for i, layer in enumerate(params["encoder"]["layers"]):
+            x = encoder_layer_apply(layer, cfg, x, frame_lens, plain=plain)
+            c = consume(i + 1, x)
+            if g is None:
+                acc = acc + c
+            else:
+                dots.append(c)
     return acc if g is None else torch.stack(dots)
 
 

@@ -79,6 +79,7 @@ from ..ops.losses import (
     supcon_loss,
 )
 from ..parallel.collectives import all_gather_rows
+from ..utils import tracing
 from ..ops.mlp import mlp_apply, mlp_init
 from ..ops.transformer import TRANSFORMER_TYPES
 from ..ops.weighted_sum import weighted_sum_apply, weighted_sum_init
@@ -402,9 +403,10 @@ class SpeechCLIPModel:
             wav = wav.float() * (1.0 / 32768.0)
         wav = wav.to(self.compute_dtype)
         if self.wsum_remat_engaged and not return_hidden_states:
-            return hubert.hubert_frozen_weighted_sum(
-                params["weighted_sum"], params["audio_encoder"], self.audio_cfg, wav, wav_len,
-                norm_type=self.hidden_norm_type, plain=plain)
+            with tracing.span("speechclip.hubert.wsum", device=True):
+                return hubert.hubert_frozen_weighted_sum(
+                    params["weighted_sum"], params["audio_encoder"], self.audio_cfg, wav,
+                    wav_len, norm_type=self.hidden_norm_type, plain=plain)
         trainable = self.config.audio_trainable
         with _grad_unless(frozen=not trainable):
             if self.upstream is not None:
@@ -416,28 +418,35 @@ class SpeechCLIPModel:
                     params["audio_encoder"], self.audio_cfg, wav, wav_len, plain=plain,
                     train=train and trainable, generator=generator,
                 )
-        if self.hidden_norm_type in ("method1", "method2"):
-            hidden_states = hubert.normalize_hidden_states(
-                hidden_states, self.hidden_norm_type
-            )
         select = self.config.feat_select_idx
         if select == WEIGHTED_SUM_MODE:
-            feat = weighted_sum_apply(
-                params["weighted_sum"],
-                hidden_states,
-                normalize_features=self.hidden_norm_type == "s3prl",
-            )
-        elif select == "last_hidden_state":
-            feat = hidden_states[-1]
-        elif select in ("hidden_states", "all"):
-            feat = hidden_states
-        elif isinstance(select, (list, tuple)):
-            feat = [hidden_states[i] for i in select]
+            with tracing.span("speechclip.hubert.wsum", device=True):
+                hidden_states = self._normalized(hidden_states)
+                feat = weighted_sum_apply(
+                    params["weighted_sum"],
+                    hidden_states,
+                    normalize_features=self.hidden_norm_type == "s3prl",
+                )
         else:
-            raise KeyError(select)
+            hidden_states = self._normalized(hidden_states)
+            if select == "last_hidden_state":
+                feat = hidden_states[-1]
+            elif select in ("hidden_states", "all"):
+                feat = hidden_states
+            elif isinstance(select, (list, tuple)):
+                feat = [hidden_states[i] for i in select]
+            else:
+                raise KeyError(select)
         if return_hidden_states:
             return feat, feat_len, hidden_states
         return feat, feat_len
+
+    def _normalized(self, hidden_states):
+        """The states after the method1 / method2 normalization (the s3prl
+        mode's per-state LayerNorm is ``weighted_sum_apply``'s)."""
+        if self.hidden_norm_type in ("method1", "method2"):
+            return hubert.normalize_hidden_states(hidden_states, self.hidden_norm_type)
+        return hidden_states
 
     def encode_speech(
         self,
@@ -451,26 +460,32 @@ class SpeechCLIPModel:
         cascaded branch and {"parallel_audio_feat"} for the parallel one
         (features (B, E) f32, L2-normalized). ``plain=True`` runs every
         kernel route through the plain PyTorch versions, on any device."""
+        with tracing.span("speechclip.encode_speech", device=True):
+            return self._encode_speech(params, state, wav, wav_len, plain)
+
+    def _encode_speech(self, params, state, wav, wav_len, plain) -> Dict[str, Any]:
         audio_feat, audio_len = self.forward_audio(params, wav, wav_len, plain=plain)
         out: Dict[str, Any] = {}
         if self.use_cascaded:
-            feat, vq_results, keywords, _ = branches.cascaded_branch_apply(
-                params["cascaded_branch"], state.get("cascaded_branch", {}),
-                self.config.cascaded_branch, params["clip"], self.clip_cfg,
-                self.sot_id, self.eot_id, audio_feat, audio_len, plain=plain,
-            )
-            if "c_branch_proj" in params:
-                feat = mlp_apply(params["c_branch_proj"], feat)
+            with tracing.span("speechclip.branch.cascaded", device=True):
+                feat, vq_results, keywords, _ = branches.cascaded_branch_apply(
+                    params["cascaded_branch"], state.get("cascaded_branch", {}),
+                    self.config.cascaded_branch, params["clip"], self.clip_cfg,
+                    self.sot_id, self.eot_id, audio_feat, audio_len, plain=plain,
+                )
+                if "c_branch_proj" in params:
+                    feat = mlp_apply(params["c_branch_proj"], feat)
             out["cascaded_audio_feat"] = l2_normalize(feat.float())
             out["vq_results"] = vq_results
             out["keywords"] = keywords
         if self.use_parallel:
-            feat = branches.parallel_branch_apply(
-                params["parallel_branch"], self.config.parallel_branch,
-                audio_feat, audio_len, plain=plain,
-            )
-            if "p_branch_proj" in params:
-                feat = mlp_apply(params["p_branch_proj"], feat)
+            with tracing.span("speechclip.branch.parallel", device=True):
+                feat = branches.parallel_branch_apply(
+                    params["parallel_branch"], self.config.parallel_branch,
+                    audio_feat, audio_len, plain=plain,
+                )
+                if "p_branch_proj" in params:
+                    feat = mlp_apply(params["p_branch_proj"], feat)
             out["parallel_audio_feat"] = l2_normalize(feat.float())
         return out
 
@@ -544,36 +559,40 @@ class SpeechCLIPModel:
         features)."""
         audio_feat, audio_len = self.forward_audio(params, batch["wav"], batch["wav_len"],
                                                    plain=plain, generator=generator, train=train)
-        if "image_feat_frozen" in batch:
-            frozen = batch["image_feat_frozen"].to(self.device, self.compute_dtype)
-            image_feat = self.project_image_feat(params, frozen, generator, train)
-        else:
-            image_feat = self.forward_image(params, batch["image"], plain, generator, train)
+        with tracing.span("speechclip.image.project", device=True):
+            if "image_feat_frozen" in batch:
+                frozen = batch["image_feat_frozen"].to(self.device, self.compute_dtype)
+                image_feat = self.project_image_feat(params, frozen, generator, train)
+            else:
+                image_feat = self.forward_image(params, batch["image"], plain, generator, train)
         cfg = self.config
         cascaded_feat = parallel_feat = vq_results = keywords = None
         new_state = state
         if self.use_cascaded:
-            cascaded_feat, vq_results, keywords, branch_state = branches.cascaded_branch_apply(
-                params["cascaded_branch"], state.get("cascaded_branch", {}),
-                cfg.cascaded_branch, params["clip"], self.clip_cfg, self.sot_id, self.eot_id,
-                audio_feat, audio_len, plain=plain, train=train, generator=generator,
-                num_updates=num_updates, mesh=mesh,
-            )
-            if branch_state:
-                new_state = {**state, "cascaded_branch": branch_state}
-            if "c_branch_proj" in params:
-                cascaded_feat = mlp_apply(params["c_branch_proj"], cascaded_feat,
-                                          cfg.cascaded_branch_projection_dropout, generator,
-                                          train)
+            with tracing.span("speechclip.branch.cascaded", device=True):
+                cascaded_feat, vq_results, keywords, branch_state = (
+                    branches.cascaded_branch_apply(
+                        params["cascaded_branch"], state.get("cascaded_branch", {}),
+                        cfg.cascaded_branch, params["clip"], self.clip_cfg, self.sot_id,
+                        self.eot_id, audio_feat, audio_len, plain=plain, train=train,
+                        generator=generator, num_updates=num_updates, mesh=mesh,
+                    ))
+                if branch_state:
+                    new_state = {**state, "cascaded_branch": branch_state}
+                if "c_branch_proj" in params:
+                    cascaded_feat = mlp_apply(params["c_branch_proj"], cascaded_feat,
+                                              cfg.cascaded_branch_projection_dropout, generator,
+                                              train)
         if self.use_parallel:
-            parallel_feat = branches.parallel_branch_apply(
-                params["parallel_branch"], cfg.parallel_branch, audio_feat, audio_len,
-                plain=plain, train=train, generator=generator,
-            )
-            if "p_branch_proj" in params:
-                parallel_feat = mlp_apply(params["p_branch_proj"], parallel_feat,
-                                          cfg.parallel_branch_projection_dropout, generator,
-                                          train)
+            with tracing.span("speechclip.branch.parallel", device=True):
+                parallel_feat = branches.parallel_branch_apply(
+                    params["parallel_branch"], cfg.parallel_branch, audio_feat, audio_len,
+                    plain=plain, train=train, generator=generator,
+                )
+                if "p_branch_proj" in params:
+                    parallel_feat = mlp_apply(params["p_branch_proj"], parallel_feat,
+                                              cfg.parallel_branch_projection_dropout, generator,
+                                              train)
         ids = batch["id"].to(self.device)
         image_feat = l2_normalize(image_feat.float())
         loss_feats: Dict[str, Any] = {"id": ids, "image_feat": image_feat}

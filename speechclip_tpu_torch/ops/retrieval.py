@@ -16,6 +16,8 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from ..utils import tracing
+
 
 @contextmanager
 def _full_f32_matmul():
@@ -46,7 +48,8 @@ def retrieve(
     feats: torch.Tensor, gallery: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k gallery rows per query -> (scores (N, k) f32, indices (N, k))."""
-    return top_k(scores(feats, gallery), k)
+    with tracing.span("speechclip.retrieve", device=True):
+        return top_k(scores(feats, gallery), k)
 
 
 def recall_at_k(

@@ -67,6 +67,7 @@ from ..ops.basic import Params, RowShardGenerator
 from ..parallel import collectives
 from ..parallel import tensor as tp
 from ..parallel.mesh import DataMesh, shard_batch
+from ..utils import tracing
 from .optim import clip_by_global_norm, global_norm, trainable_leaves, tree_leaves
 
 
@@ -215,30 +216,35 @@ def make_train_step(model: SpeechCLIPModel, optimizer: torch.optim.Optimizer,
             raise ValueError("the optimizer does not hold this state's trainable leaves: "
                              "build it over state.params")
         num_updates = torch.tensor(state.step // accum, device=model.device)
-        loss_feats, log_metrics, _, new_model_state = model.forward(
-            state.params, state.model_state, batch, generator=state.generator, train=True,
-            num_updates=num_updates, plain=plain, mesh=mesh)
-        losses = model.compute_loss(state.params, loss_feats, mesh=mesh)
-        grads = torch.autograd.grad(losses["loss"], leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        grads = collectives.all_reduce_mean(grads, mesh)
-        metrics = {f"train_{k}": v.detach() for k, v in {**losses, **log_metrics}.items()}
-        sharded = [tp.kind_of(p) is not None for p in leaves]
-        metrics["grad_norm"] = global_norm(grads, mesh, sharded)
-        acc = state.acc_grads
-        mini = state.step % accum
-        if accum > 1:
-            acc = [g if mini == 0 else a + (g - a) / (mini + 1) for a, g in zip(acc or grads, grads)]
-            grads = acc
-        if mini == accum - 1:
-            if clip:
-                grads = clip_by_global_norm(grads, clip, mesh, sharded)
-            for p, g in zip(leaves, grads):
-                p.grad = g
-            optimizer.step()
-            scheduler.step()
-            optimizer.zero_grad(set_to_none=True)
-            acc = None
+        with tracing.span("speechclip.step.forward", device=True):
+            loss_feats, log_metrics, _, new_model_state = model.forward(
+                state.params, state.model_state, batch, generator=state.generator, train=True,
+                num_updates=num_updates, plain=plain, mesh=mesh)
+        with tracing.span("speechclip.step.loss", device=True):
+            losses = model.compute_loss(state.params, loss_feats, mesh=mesh)
+        with tracing.span("speechclip.step.backward", device=True):
+            grads = torch.autograd.grad(losses["loss"], leaves, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+            grads = collectives.all_reduce_mean(grads, mesh)
+        with tracing.span("speechclip.step.optimizer", device=True):
+            metrics = {f"train_{k}": v.detach() for k, v in {**losses, **log_metrics}.items()}
+            sharded = [tp.kind_of(p) is not None for p in leaves]
+            metrics["grad_norm"] = global_norm(grads, mesh, sharded)
+            acc = state.acc_grads
+            mini = state.step % accum
+            if accum > 1:
+                acc = [g if mini == 0 else a + (g - a) / (mini + 1)
+                       for a, g in zip(acc or grads, grads)]
+                grads = acc
+            if mini == accum - 1:
+                if clip:
+                    grads = clip_by_global_norm(grads, clip, mesh, sharded)
+                for p, g in zip(leaves, grads):
+                    p.grad = g
+                optimizer.step()
+                scheduler.step()
+                optimizer.zero_grad(set_to_none=True)
+                acc = None
         return TrainState(params=state.params, model_state=new_model_state, step=state.step + 1,
                           generator=state.generator, acc_grads=acc), metrics
 
@@ -287,11 +293,13 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     beside the work already queued; on the CPU the arrays' own memory."""
     device = torch.device(device)
     out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out[k] = t
+    with tracing.span("speechclip.fit.h2d"):
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            tracing.count_bytes("speechclip.h2d.bytes", v)
+            if device.type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
+            out[k] = t
     return out
 
 

@@ -58,6 +58,7 @@ from ..ops.schedules import get_schedule
 from ..parallel import collectives
 from ..parallel import tensor as tp
 from ..parallel.mesh import DataMesh, make_mesh
+from ..utils import tracing
 from .checkpoint import STATE_FILE, CheckpointManager
 from .evaluation import collect_validation_outputs, retrieval_metrics, run_keyword_diagnostics
 from .logging import MetricsLogger
@@ -82,11 +83,12 @@ def _inject_cached_image_feats(batch: Dict[str, np.ndarray], cache: np.ndarray,
                                id2row: Dict[int, int]) -> Dict[str, np.ndarray]:
     """Swap the batch's pixels for the frozen image tower's cached features,
     gathered by pair id (a copy)."""
-    batch = dict(batch)
-    rows = np.fromiter((id2row[int(i)] for i in batch["id"]), np.int64, len(batch["id"]))
-    batch["image_feat_frozen"] = cache[rows]
-    batch.pop("image", None)
-    return batch
+    with tracing.span("speechclip.fit.image_feats"):
+        batch = dict(batch)
+        rows = np.fromiter((id2row[int(i)] for i in batch["id"]), np.int64, len(batch["id"]))
+        batch["image_feat_frozen"] = cache[rows]
+        batch.pop("image", None)
+        return batch
 
 
 def _pad_batch(batch: Dict[str, np.ndarray], size: int) -> Tuple[Dict[str, np.ndarray], int]:
@@ -150,7 +152,9 @@ class Trainer:
         self._eval_step = make_eval_step(self.model, self.mesh)
         self._eval_img_caches: Dict = {}
         self.optimizer = self.scheduler = self._train_step = None
-        # where the train loop's host time goes (read by chip_smoke.py)
+        # where the train loop's host time goes (read by chip_smoke.py and by
+        # the benchmark's portbench/); its timings are the clock reads of
+        # the fit's utils/tracing.py spans of the same names
         self.loop_stats: Dict = {}
 
     # ----------------------------------------------------------------- state
@@ -287,16 +291,19 @@ class Trainer:
                                    "image_cache_s": None, "validations": [], "saves": []}
         image_cache = id2row = None
         if self._cache_image_features():
-            t0 = time.perf_counter()
-            image_cache, id2row = self.build_image_feature_cache(train_loader.dataset,
-                                                                 state.params)
-            stats["image_cache_s"] = time.perf_counter() - t0
+            with tracing.Timed("speechclip.fit.image_cache") as timed:
+                image_cache, id2row = self.build_image_feature_cache(train_loader.dataset,
+                                                                     state.params)
+            stats["image_cache_s"] = timed.seconds
 
         max_steps = int(self.config.get_path("trainer.max_steps", 50000))
         log_every = int(self.config.get_path("trainer.log_every_n_steps", 8))
         val_every_epoch = int(self.config.get_path("trainer.check_val_every_n_epoch", 1))
         profile_steps = self.config.get_path("trainer.profile_steps")
         profiler = None
+        wait = tracing.Timed("speechclip.fit.data_wait")
+        validating = tracing.Timed("speechclip.fit.validate")
+        saving = tracing.Timed("speechclip.fit.save")
 
         step = state.step
         epoch = 0
@@ -313,28 +320,30 @@ class Trainer:
             stats["data_waits"].append(waits)
             t_loop = time.perf_counter()
             while step < max_steps:
-                t0 = time.perf_counter()
-                batch = next(staged_batches, None)
-                stats["data_wait_s"] += time.perf_counter() - t0
+                with wait:
+                    batch = next(staged_batches, None)
+                stats["data_wait_s"] += wait.seconds
                 if batch is None:
                     break
-                waits.append(time.perf_counter() - t0)
+                waits.append(wait.seconds)
                 if profile_steps and step == int(profile_steps[0]) and self.rank0:
                     profiler = self._start_profiler()
-                state, metrics = self._train_step(state, batch)
+                with tracing.span("speechclip.fit.step"):
+                    state, metrics = self._train_step(state, batch)
                 step += 1
                 if profiler is not None and step >= int(profile_steps[1]):
                     profiler = self._stop_profiler(profiler)
                 if step % log_every == 0 and self.rank0:
-                    host_metrics = {k: float(v) for k, v in metrics.items()}
-                    now = time.perf_counter()
-                    host_metrics["steps_per_sec"] = (step - steps_at_last_log) / (now - t_last)
-                    steps_at_last_log = step
-                    # the lr the latest update applied: the schedule at the
-                    # optimizer's count before it
-                    host_metrics["lr"] = float(self.schedule(max(step // self._accum - 1, 0)))
-                    t_last = now
-                    self.metrics_logger.log(host_metrics, step)
+                    with tracing.span("speechclip.fit.log"):
+                        host_metrics = {k: float(v) for k, v in metrics.items()}
+                        now = time.perf_counter()
+                        host_metrics["steps_per_sec"] = (step - steps_at_last_log) / (now - t_last)
+                        steps_at_last_log = step
+                        # the lr the latest update applied: the schedule at the
+                        # optimizer's count before it
+                        host_metrics["lr"] = float(self.schedule(max(step // self._accum - 1, 0)))
+                        t_last = now
+                        self.metrics_logger.log(host_metrics, step)
             staged_batches.close()
             stats["train_wall_s"] += time.perf_counter() - t_loop
             epoch += 1
@@ -342,16 +351,17 @@ class Trainer:
                 raise RuntimeError("no training batch ran this epoch (dataset smaller than "
                                    "data.batch_size)")
             if epoch % val_every_epoch == 0 or step >= max_steps:
-                t0 = time.perf_counter()
-                val_metrics = self.validate(state, dev_loader, epoch=epoch)
-                stats["validations"].append((step, time.perf_counter() - t0))
-                t0 = time.perf_counter()
-                full, optimizer = gather_state(state, self.mesh, self.optimizer)
+                with validating:
+                    val_metrics = self.validate(state, dev_loader, epoch=epoch)
+                stats["validations"].append((step, validating.seconds))
+                with saving:
+                    full, optimizer = gather_state(state, self.mesh, self.optimizer)
+                    if self.rank0:
+                        self.metrics_logger.log(val_metrics, step)
+                        written = self.ckpt.save(full, step, val_metrics, self.config,
+                                                 optimizer, self.scheduler)
                 if self.rank0:
-                    self.metrics_logger.log(val_metrics, step)
-                    written = self.ckpt.save(full, step, val_metrics, self.config,
-                                             optimizer, self.scheduler)
-                    stats["saves"].append((step, time.perf_counter() - t0, sum(
+                    stats["saves"].append((step, saving.seconds, sum(
                         os.path.getsize(os.path.join(p, STATE_FILE)) for p in written)))
                 collectives.barrier(self.mesh)  # no rank reads a checkpoint rank 0 still writes
                 # steps_per_sec times the train loop: the next log's interval
