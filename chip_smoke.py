@@ -16,7 +16,9 @@ line each (a failed check exits non-zero before the last line):
    and the causal CLIP-text shape, in bf16 and, as ``forward_text`` runs
    it, in f32; the large models' layers: HuBERT-large's pre-norm layer at
    B=64, T=319, H=16, the large branch's post-norm layer at T=320, H=8,
-   Dh=128, and the large cascaded head at Dh=1024 in bf16 and f32), with
+   Dh=128, and the large cascaded head at Dh=1024 in bf16 and f32;
+   ``pos_conv`` at the encode and large train batches, B=256, T=319, D=768
+   and 1024, and a served 17 s batch, beside cuDNN's grouped conv), with
    the error, the tolerance and
    median CUDA-event times of kernel and plain; and the wgmma GEMM of
    ``mha_layer_block`` and ``ffn_block`` alone at the main path's four
@@ -524,7 +526,7 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3, calls: int = 1) -> float:
 # library's or plain torch's.
 PORT_KERNELS = re.compile(
     r"scl::AttnArgs|\b(rowwise_kernel|flash_kernel|flash_f32_kernel|wide_scores_kernel|wide_pv_kernel|"
-    r"gemm_bf16_kernel|layer_norm_kernel|conv_layer_kernel)\b")
+    r"gemm_bf16_kernel|layer_norm_kernel|conv_layer_kernel|pos_conv_kernel)\b")
 
 
 def _device_pass(fn, reps: int, ours_only: bool):
@@ -803,6 +805,8 @@ def phase_kernels():
                    deferred, torch.float32)
     # the large models' rows, from a generator of their own
     _large_rows(torch.Generator(device="cuda").manual_seed(24), results, deferred)
+    # pos_conv's rows, from a generator of their own
+    _pos_conv_rows(torch.Generator(device="cuda").manual_seed(26), results, deferred)
     # the backward rows, from a generator of their own (as the gallery's)
     backward = _backward_rows(torch.Generator(device="cuda").manual_seed(18), results)
     _device_rows(deferred, results)
@@ -836,6 +840,48 @@ def _large_rows(gen, results, deferred):
     for dtype in (torch.bfloat16, torch.float32):
         _attention_row("flash_attention", "large cascaded 1024", LARGE_FLASH_SHAPE, gen, results,
                        deferred, dtype)
+
+
+# pos_conv's rows: the encode cell's and the large train cell's 6.4 s batch,
+# and a served 17 s batch of 32 (label -> B, T, D)
+POS_CONV_SHAPES = {"hubert-base": (256, 319, 768), "hubert-large": (256, 319, 1024),
+                   "hubert-base 17 s": (32, 849, 768)}
+
+
+def _pos_conv_rows(gen, results, deferred):
+    """Phase 2's rows of ``pos_conv`` (POS_CONV_SHAPES): the op on the card
+    against its plain version (cuDNN's grouped conv, then the bias, GELU and
+    residual passes), held to ``pos_conv_agrees`` and the layer limits;
+    cuDNN's grouped conv alone (``F.conv1d`` in bf16) as the library call,
+    timed only. x ~ N(0, 1); w with a std of 0.02 (HuBERT's init)."""
+    import torch
+    import torch.nn.functional as F
+
+    from speechclip_tpu_torch.kernels import pos_conv as pc
+
+    for label, (b, t, d) in POS_CONV_SHAPES.items():
+        c = d // pc.GROUPS
+        x = torch.randn(b, t, d, generator=gen, device="cuda").bfloat16()
+        w = (0.02 * torch.randn(d, c, pc.KERNEL_SIZE, generator=gen, device="cuda")).bfloat16()
+        bias = 0.1 * torch.randn(d, generator=gen, device="cuda")
+        got = pc.pos_conv(x, w, bias)
+        torch.cuda.synchronize()
+        st = pc.pos_conv_agreement(got, pc.pos_conv_plain(x, w, bias), x)
+        row = f"{label} B={b} T={t} D={d} k={pc.KERNEL_SIZE} groups={pc.GROUPS}"
+        say(f"phase 2 pos_conv [{row}]: largest difference {st['max_steps']:g} bf16 steps of "
+            f"max(|x|, |term|, |out|, 1) (tol {pc.MAX_STEPS}), elements differing "
+            f"{st['mismatch']:.6f} (tol {pc.MAX_MISMATCH}), tiles {pc.tile_plan(t)}")
+        if not pc.pos_conv_agrees(st):
+            fail(f"pos_conv [{row}] disagrees with its plain version: {st}")
+        del got
+        work = (2.0 * b * t * d * c * pc.KERNEL_SIZE,
+                2 * (2 * b * t * d + w.numel() + d))
+        _compare("pos_conv", row, functools.partial(pc.pos_conv, x, w, bias),
+                 functools.partial(pc.pos_conv_plain, x, w, bias), results, work,
+                 library=functools.partial(F.conv1d, x.transpose(1, 2), w,
+                                           padding=pc.KERNEL_SIZE // 2, groups=pc.GROUPS),
+                 deferred=deferred, library_name="cuDNN grouped conv1d")
+        results["pos_conv"][row]["flops"] = work[0]
 
 
 def _backward_row(name, label, kern, plain, args, diff, g, results, backward, library=None):
@@ -1227,6 +1273,7 @@ def phase_path(phase, label, model, params, gallery, seed, spec=None):
     import torch
 
     from speechclip_tpu_torch import retrieve
+    from speechclip_tpu_torch.kernels.pos_conv import pos_conv
     from speechclip_tpu_torch.models.hubert import conv_output_length
     from speechclip_tpu_torch.ops.attention import attention_backend
 
@@ -1236,10 +1283,12 @@ def phase_path(phase, label, model, params, gallery, seed, spec=None):
     counters = _counters()
     with attention_backend(backend):
         _reset(counters)
+        pos_conv_before = pos_conv.launches
         feats = model.encode_speech(params, {}, wav, wav_len)["parallel_audio_feat"]
         _, top = retrieve(feats, gallery, TOPK)
         torch.cuda.synchronize()
         launches = {name: f.launches for name, f in counters.items()}
+        pos_conv_launches = pos_conv.launches - pos_conv_before
         plain_feats = model.encode_speech(params, {}, wav, wav_len, plain=True)["parallel_audio_feat"]
     _, plain_top = retrieve(plain_feats, gallery, TOPK)
     torch.cuda.synchronize()
@@ -1251,9 +1300,10 @@ def phase_path(phase, label, model, params, gallery, seed, spec=None):
         f"phase {phase} {label} path (backend {backend}): encode_speech B={b} x {samples} "
         f"samples (T={conv_output_length(model.audio_cfg, samples)}, lengths "
         f"{int(wav_len.min())}..{int(wav_len.max())}) -> {tuple(feats.shape)}, "
-        f"launches {launches} (expect {expect}), min row cosine vs plain "
-        f"{cos:.6f} (tol {MIN_COSINE}), |feat| in [{float(norms.min()):.6f}, "
-        f"{float(norms.max()):.6f}], retrieve top-{TOPK} of {gallery.shape[0]}: "
+        f"launches {launches} (expect {expect}), pos_conv {pos_conv_launches} (expect 1), "
+        f"min row cosine vs plain {cos:.6f} (tol {MIN_COSINE}), |feat| in "
+        f"[{float(norms.min()):.6f}, {float(norms.max()):.6f}], retrieve top-{TOPK} of "
+        f"{gallery.shape[0]}: "
         f"top-1 agreement {top1:.4f}, top-{TOPK} overlap {overlap:.4f}"
     )
     if tuple(feats.shape) != (b, model.config.clip_embed_dim):
@@ -1262,6 +1312,8 @@ def phase_path(phase, label, model, params, gallery, seed, spec=None):
         fail(f"{label}: non-finite features")
     if launches != expect:
         fail(f"{label}: kernel launches {launches}, expected {expect}")
+    if pos_conv_launches != 1:
+        fail(f"{label}: pos_conv launched {pos_conv_launches} times in one forward, expected 1")
     if cos < MIN_COSINE:
         fail(f"{label}: kernel-path features disagree with the plain path (cosine {cos})")
     if tuple(top.shape) != (b, TOPK):
@@ -4657,7 +4709,7 @@ with torch.inference_mode():
 torch.cuda.synchronize()
 mods = {"mha_layer_block": "mha_block", "ffn_block": "ffn_block",
         "attention_vmem": "attention_vmem", "flash_attention": "flash_attention",
-        "fused_conv_chain": "conv_frontend"}
+        "fused_conv_chain": "conv_frontend", "pos_conv": "pos_conv"}
 launches = {}
 for name, mod in mods.items():
     m = sys.modules.get("speechclip_tpu_torch.kernels." + mod)
@@ -4965,9 +5017,13 @@ def phase_export(smi, serving23):
                 got = fresh[path]
                 if got["models"]:
                     fail(f"phase 26: loading {stem} imported the model code {got['models']}")
-                if got["nodes"] != expect[stem]:
+                # pos_conv's node is not among the launch counts the gates give
+                # (``_counters``): one a speech graph where its kernel takes HuBERT
+                nodes = {n: k for n, k in got["nodes"].items() if n != "pos_conv"}
+                want_pos_conv = int(stem.endswith("speech") or stem.startswith("encode_speech"))
+                if nodes != expect[stem] or got["nodes"].get("pos_conv", 0) != want_pos_conv:
                     fail(f"phase 26: {stem}'s graph holds kernel nodes {got['nodes']}, the "
-                         f"gates give {expect[stem]}")
+                         f"gates give {expect[stem]} and {want_pos_conv} pos_conv")
                 if _nonzero(got["launches"]) != got["nodes"]:
                     fail(f"phase 26: {stem}'s call in the fresh process launched "
                          f"{got['launches']}, its graph holds {got['nodes']}")

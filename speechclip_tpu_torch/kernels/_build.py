@@ -105,6 +105,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.scl_conv_chain_layer.restype = i
     lib.scl_conv_chain_plan.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
     lib.scl_conv_chain_plan.restype = i
+    lib.scl_pos_conv.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.scl_pos_conv.restype = i
+    lib.scl_pos_conv_smem_bytes.argtypes = [i, i]
+    lib.scl_pos_conv_smem_bytes.restype = i
 
 
 def build() -> Path:

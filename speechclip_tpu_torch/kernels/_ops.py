@@ -9,7 +9,13 @@ custom call per ``pallas_call``:
 - ``speechclip::attention_vmem`` (``kernels/attention_vmem.py``);
 - ``speechclip::flash_attention`` (``kernels/flash_attention.py``; the
   operands' dtype picks the bf16 form or the f32 form);
-- ``speechclip::fused_conv_chain`` (``kernels/conv_frontend.py``).
+- ``speechclip::fused_conv_chain`` (``kernels/conv_frontend.py``);
+
+and one op of the port's own, which no JAX kernel function corresponds to:
+
+- ``speechclip::pos_conv`` (``kernels/pos_conv.py``): HuBERT's grouped
+  k = 128 positional conv with its bias, GELU and residual, in place of
+  cuDNN's grouped conv (JAX leaves that conv to XLA).
 
 Each op has three implementations:
 
@@ -194,3 +200,26 @@ def _(x, weights, kernels):
         check_chain_operands(x, weights, kernels)
     return x.new_empty((x.shape[0], chain_out_len(x.shape[1], kernels), weights[-1].shape[2]))
 
+
+# --------------------------------------------------------------------- pos_conv
+@_op("pos_conv")
+def pos_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
+    from .pos_conv import pos_conv_plain
+
+    return pos_conv_plain(x, w, b).contiguous()
+
+
+@pos_conv.register_kernel("cuda")
+def _(x, w, b):
+    from .pos_conv import pos_conv_cuda
+
+    return pos_conv_cuda(x, w, b)
+
+
+@pos_conv.register_fake
+def _(x, w, b):
+    if x.device.type == "cuda":
+        from .pos_conv import check_operands
+
+        check_operands(x, w, b)
+    return x.new_empty(x.shape)

@@ -10,10 +10,12 @@
   hidden_states = [pre-layer input] + [every layer output]
 
 The convolutions are stock torch (cuDNN on the card), as the JAX package
-leaves them to XLA. An encoder layer runs through
-``kernels.fused_layer.fused_encoder_layer`` where its gates admit the
-shapes (T <= 782 at base width in bf16) and no dropout is active, else as
-the unfused layer with ``ops.attention.multi_head_attention``
+leaves them to XLA, except ``pos_conv`` with its residual add in bf16 at
+HuBERT-base's and -large's widths, which runs on the port's own kernel on
+the card (``kernels.pos_conv``; ``pos_conv_residual`` routes). An encoder
+layer runs through ``kernels.fused_layer.fused_encoder_layer`` where its
+gates admit the shapes (T <= 782 at base width in bf16) and no dropout is
+active, else as the unfused layer with ``ops.attention.multi_head_attention``
 (``attention_vmem`` up to T = 934).
 
 Train mode (a trainable encoder, ``hubert_apply(..., train=True,
@@ -51,6 +53,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.fused_layer import fused_encoder_layer
+from ..kernels.pos_conv import kernel_takes, pos_conv, pos_conv_term
 from ..parallel import tensor as tp
 from ..ops.attention import attention_backend, get_attention_backend, multi_head_attention
 from ..ops.basic import (
@@ -234,17 +237,23 @@ def conv_feature_extractor(
 
 def pos_conv_apply(params: Params, cfg: HubertConfig, x: torch.Tensor) -> torch.Tensor:
     """Grouped conv positional embedding over (B, T, D): pad k/2 both sides,
-    SamePad drops the trailing step for even k, then GELU."""
-    y = _conv1d(
-        x.transpose(1, 2),
-        params["w"],
-        padding=cfg.pos_conv_kernel // 2,
-        groups=cfg.pos_conv_groups,
-    )
-    y = y + params["b"].to(x.dtype)[None, :, None]
-    if cfg.pos_conv_kernel % 2 == 0:
-        y = y[:, :, :-1]
-    return gelu(y.transpose(1, 2))
+    SamePad drops the trailing step for even k, then GELU
+    (``kernels.pos_conv.pos_conv_term``)."""
+    return pos_conv_term(x, params["w"], params["b"], cfg.pos_conv_groups)
+
+
+def pos_conv_residual(params: Params, cfg: HubertConfig, x: torch.Tensor,
+                      plain: bool = False) -> torch.Tensor:
+    """``x + pos_conv_apply(params, cfg, x)``: through the op
+    ``speechclip::pos_conv`` where its kernel takes x (bf16 on the card,
+    k = 128, 16 groups, HuBERT-base's or -large's width) and ``plain`` is
+    off, else as written. A profiler session counts each call under
+    ``speechclip.pos_conv.kernel`` or ``speechclip.pos_conv.plain``."""
+    if not plain and kernel_takes(x, cfg.pos_conv_kernel, cfg.pos_conv_groups):
+        tracing.count("speechclip.pos_conv.kernel")
+        return pos_conv(x, params["w"], params["b"])
+    tracing.count("speechclip.pos_conv.plain")
+    return x + pos_conv_apply(params, cfg, x)
 
 
 def _no_dropout(cfg: HubertConfig) -> bool:
@@ -333,9 +342,11 @@ def _layer_seeds(generator: torch.Generator, n: int) -> List[int]:
 
 
 def _encoder_prelude(
-    params: Params, cfg: HubertConfig, wav: torch.Tensor, wav_lengths: torch.Tensor
+    params: Params, cfg: HubertConfig, wav: torch.Tensor, wav_lengths: torch.Tensor,
+    plain: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Everything before the layers -> (hidden state 0 (B, T, D), frame_lens)."""
+    """Everything before the layers -> (hidden state 0 (B, T, D), frame_lens);
+    ``plain``: ``pos_conv`` off its kernel (``pos_conv_residual``)."""
     with tracing.span("speechclip.hubert.frontend", device=True):
         if cfg.normalize_waveform:
             # per-utterance layer norm over VALID samples only
@@ -356,7 +367,7 @@ def _encoder_prelude(
         kpm = key_padding_mask(frame_lens, num_frames)
         x = feats.masked_fill(kpm[..., None], 0.0)  # zero padding before pos_conv
     with tracing.span("speechclip.hubert.pos_conv", device=True):
-        x = x + pos_conv_apply(params["encoder"]["pos_conv"], cfg, x)
+        x = pos_conv_residual(params["encoder"]["pos_conv"], cfg, x, plain)
     if not cfg.layer_norm_first:
         x = layer_norm(params["encoder"]["layer_norm"], x)
     return x, frame_lens
@@ -379,7 +390,7 @@ def hubert_apply(
     encoder's dropout, layerdrop and ``remat`` (JAX's order: the input's
     dropout drawn from ``generator`` first, then two seeds a layer); hidden
     state 0 is the dropped input, as in JAX."""
-    x, frame_lens = _encoder_prelude(params, cfg, wav, wav_lengths)
+    x, frame_lens = _encoder_prelude(params, cfg, wav, wav_lengths, plain)
     x = dropout(x, cfg.dropout, train, generator)
     hidden_states = [x]
     layers = params["encoder"]["layers"]
@@ -449,7 +460,7 @@ def _wsum_pass(
     ``weighted_sum_apply``'s order of accumulation. ``g`` given (backward):
     ``dots`` (N,) f32, ``dots_i = <g, state_i>``, each state contracted to a
     scalar the moment it is made."""
-    x, frame_lens = _encoder_prelude(params, cfg, wav, wav_lengths)
+    x, frame_lens = _encoder_prelude(params, cfg, wav, wav_lengths, plain)
     g32 = None if g is None else g.float()
 
     def consume(i: int, h: torch.Tensor) -> torch.Tensor:

@@ -68,7 +68,9 @@ The program's spans (d: device-timed), by module:
 - ``models/hubert.py``: ``speechclip.hubert.frontend`` (d,
   ``_encoder_prelude``: the waveform norm, the conv chain, LayerNorm,
   ``post_extract_proj``, the padding mask), ``speechclip.hubert.pos_conv``
-  (d, ``pos_conv`` and its residual add, a sibling of ``frontend``),
+  (d, ``pos_conv`` and its residual add, a sibling of ``frontend``; the
+  counters ``speechclip.pos_conv.kernel`` and ``speechclip.pos_conv.plain``
+  count its calls by route, ``pos_conv_residual``),
   ``speechclip.hubert.layers`` (d, the layer loop of ``hubert_apply`` and of
   ``_wsum_pass``: one span for the loop, since the custom ops name each
   layer's calls).

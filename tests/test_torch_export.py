@@ -223,9 +223,11 @@ def test_a_speech_artifact_moves_only_without_device_branches(models, tmp_path, 
         moved = load_program(blob, device="meta")
         assert all(t.device.type == "meta" for t in moved.state_dict.values())
         return
-    assert device_branches(load_program(blob)) == ("models/hubert.py _conv1d",)
+    assert device_branches(load_program(blob)) == ("kernels/pos_conv.py pos_conv_term",
+                                                   "models/hubert.py _conv1d")
     with pytest.raises(ValueError, match=r"traced on cpu through branches that depend on the "
-                                         r"device \(models/hubert\.py _conv1d"):
+                                         r"device \(kernels/pos_conv\.py pos_conv_term, "
+                                         r"models/hubert\.py _conv1d"):
         load_exported(blob, device="meta")
     (tmp_path / "encode_speech.pt2").write_bytes(blob)
     from speechclip_tpu_torch.serving import EncoderService

@@ -19,9 +19,15 @@ failing on a one-key mask error, on other rounding points and on a
 dropped 128-wide head-dim chunk. The conv chain (``fused_conv_chain``) is
 held, layer by layer on the same input, to at most 0.5 % of elements
 differing (``MAX_LAYER_MISMATCH``), and as a whole chain to the layer
-limits; a tanh GELU planted in its plain version fails the first. The
-image preprocessing on the card is held to its CPU result (max abs 1e-4,
-normalized units).
+limits; a tanh GELU planted in its plain version fails the first.
+``pos_conv`` (HuBERT's grouped k = 128 conv with its bias, GELU and
+residual) sums in f32 in another order than cuDNN, so at most one bf16
+rounding of the conv flips before the epilogue's steps: it is held to at
+most ``MAX_STEPS`` bf16 steps of max(|x|, |term|, |out|, 1) and at most
+``MAX_MISMATCH`` of elements differing (``pos_conv_agrees``), and to the
+layer limits; a plain version without the conv's rounding, or with the taps
+shifted by one, fails it. The image preprocessing on the card is held to
+its CPU result (max abs 1e-4, normalized units).
 """
 
 import pytest
@@ -721,6 +727,157 @@ def test_conv_plan_matches_the_library(cuda):
 
 
 # ---------------------------------------------------------------------------
+# pos_conv (csrc/pos_conv.cu)
+# ---------------------------------------------------------------------------
+def _pos_conv_args(dev, b, t, d, seed=0):
+    """x ~ N(0, 1) in bf16, w (D, D / 16, 128) with HuBERT's init scale, a
+    bias in f32 (the model's params before the cast)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, t, d, generator=g, device=dev).bfloat16()
+    w = (0.02 * torch.randn(d, d // 16, 128, generator=g, device=dev)).bfloat16()
+    return x, w, 0.1 * torch.randn(d, generator=g, device=dev)
+
+
+def _pos_conv_agrees(got, want, x):
+    from speechclip_tpu_torch.kernels.pos_conv import pos_conv_agreement, pos_conv_agrees
+
+    st = pos_conv_agreement(got, want, x)
+    return pos_conv_agrees(st), st
+
+
+@pytest.mark.parametrize("b, t, d", [
+    (256, 319, 768),  # the encode cell's batch (HuBERT-base)
+    (256, 319, 1024), (256, 299, 1024), (256, 199, 1024),  # the large train cell's buckets
+    (32, 849, 768), (32, 849, 1024),  # a served 17 s batch
+    (3, 130, 768), (2, 65, 1024), (4, 64, 768), (5, 1, 768), (2, 321, 1024),  # ragged T
+])
+def test_pos_conv_kernel_matches_plain(cuda, b, t, d):
+    """The op on the card against its plain version (cuDNN's grouped conv,
+    then the bias, GELU and residual passes): one launch a call, the
+    output's shape and dtype, ``pos_conv_agrees`` and the layer limits."""
+    from speechclip_tpu_torch.kernels.pos_conv import pos_conv, pos_conv_plain
+
+    x, w, bias = _pos_conv_args(cuda, b, t, d, seed=t)
+    before = pos_conv.launches
+    got = pos_conv(x, w, bias)
+    torch.cuda.synchronize()
+    assert pos_conv.launches == before + 1
+    want = pos_conv_plain(x, w, bias)
+    ok, st = _pos_conv_agrees(got, want, x)
+    assert ok, st
+    _close(got, want)
+
+
+def test_pos_conv_launches_count_the_calls(cuda):
+    """``pos_conv.launches`` counts each call on the card once, and no
+    call at B = 0."""
+    from speechclip_tpu_torch.kernels.pos_conv import pos_conv
+
+    x, w, bias = _pos_conv_args(cuda, 2, 100, 768)
+    before = pos_conv.launches
+    for _ in range(3):
+        pos_conv(x, w, bias)
+    assert pos_conv(x[:0], w, bias).shape == (0, 100, 768)
+    torch.cuda.synchronize()
+    assert pos_conv.launches == before + 3
+
+
+@pytest.mark.parametrize("fault", ["no conv rounding", "taps shifted by one"])
+def test_pos_conv_check_fails_planted_faults(cuda, fault):
+    """The check passes the sound plain version and fails one without the
+    conv's bf16 rounding (the f32 sum straight into the bias add) and one
+    whose taps are shifted by one step."""
+    import torch.nn.functional as F
+
+    from speechclip_tpu_torch.kernels.pos_conv import pos_conv, pos_conv_plain
+
+    x, w, bias = _pos_conv_args(cuda, 8, 319, 768, seed=3)
+    got = pos_conv(x, w, bias)
+    assert _pos_conv_agrees(got, pos_conv_plain(x, w, bias), x)[0]
+    if fault == "no conv rounding":
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            y = F.conv1d(x.float().transpose(1, 2), w.float(), padding=64, groups=16)
+        y = (y + bias.bfloat16().float()[None, :, None])[:, :, :-1].bfloat16()
+        want = x + F.gelu(y.transpose(1, 2), approximate="tanh")
+    else:
+        want = pos_conv_plain(x, torch.roll(w, 1, dims=2), bias)
+    ok, st = _pos_conv_agrees(got, want, x)
+    assert not ok, st
+
+
+def test_pos_conv_plan_matches_the_library(cuda):
+    """The wrapper's shared-memory formula is the kernel's (the CPU tests
+    hold it to two blocks an SM)."""
+    from speechclip_tpu_torch.kernels import _build
+    from speechclip_tpu_torch.kernels.pos_conv import MAX_WARPS, WIDTHS, smem_bytes
+
+    lib = _build.load()
+    for c in WIDTHS:
+        for warps in range(1, MAX_WARPS + 1):
+            assert lib.scl_pos_conv_smem_bytes(c, warps) == smem_bytes(c, warps)
+
+
+def test_pos_conv_raises_on_what_it_does_not_take(cuda):
+    from speechclip_tpu_torch.kernels.pos_conv import pos_conv
+
+    x, w, bias = _pos_conv_args(cuda, 1, 50, 768)
+    with pytest.raises(TypeError, match="bf16"):
+        pos_conv(x.float(), w, bias)
+    with pytest.raises(ValueError, match="C in"):
+        pos_conv(x[..., :512], w[:512, :32], bias[:512])
+    with pytest.raises(ValueError, match="C in"):
+        pos_conv(x, w[..., :64], bias)
+
+
+def test_pos_conv_gradient_is_the_plain_versions(cuda):
+    """With an input that requires grad: the kernel forward, the plain
+    version's gradients bit for bit (``PosConvFn``), one recompute. cuDNN's
+    conv backward may sum in a run-dependent order: both sides run it
+    deterministic."""
+    from speechclip_tpu_torch.kernels.pos_conv import pos_conv, pos_conv_plain
+
+    x, w, bias = _pos_conv_args(cuda, 2, 319, 768)
+    g = torch.randn(x.shape, device=cuda).bfloat16()
+    leaves = [t.detach().requires_grad_(True) for t in (x, w, bias)]
+    plain = [t.detach().requires_grad_(True) for t in (x, w, bias)]
+    before = (pos_conv.launches, pos_conv.recomputes)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True):
+        got = torch.autograd.grad(pos_conv(*leaves), leaves, g)
+        want = torch.autograd.grad(pos_conv_plain(*plain), plain, g)
+    assert (pos_conv.launches, pos_conv.recomputes) == (before[0] + 1, before[1] + 1)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d, dtype, plain, launches", [
+    (768, torch.bfloat16, False, 1), (1024, torch.bfloat16, False, 1),
+    (768, torch.float32, False, 0), (768, torch.bfloat16, True, 0), (512, torch.bfloat16, False, 0),
+])
+def test_hubert_routes_pos_conv(cuda, d, dtype, plain, launches):
+    """``pos_conv_residual``: the kernel for bf16 at HuBERT-base's and
+    -large's widths, the model's own code for f32, ``plain`` and other
+    widths; both routes agree."""
+    import dataclasses
+
+    from speechclip_tpu_torch.kernels.pos_conv import pos_conv
+    from speechclip_tpu_torch.models.hubert import HUBERT_BASE, pos_conv_apply, pos_conv_residual
+
+    cfg = dataclasses.replace(HUBERT_BASE, encoder_embed_dim=d)
+    x, w, bias = _pos_conv_args(cuda, 4, 199, d, seed=d)
+    params = {"w": w, "b": bias}
+    x = x.to(dtype)
+    before = pos_conv.launches
+    got = pos_conv_residual(params, cfg, x, plain)
+    torch.cuda.synchronize()
+    assert pos_conv.launches == before + launches
+    want = x + pos_conv_apply(params, cfg, x)
+    if launches:
+        assert _pos_conv_agrees(got, want, x)[0]
+    else:
+        assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
 # the kernels as custom ops (kernels/_ops.py) and in an exported graph
 # ---------------------------------------------------------------------------
 def _op_cases(dev, b):
@@ -731,6 +888,7 @@ def _op_cases(dev, b):
     from speechclip_tpu_torch.kernels import ffn_block as fb
     from speechclip_tpu_torch.kernels import flash_attention as fa
     from speechclip_tpu_torch.kernels import mha_block as mb
+    from speechclip_tpu_torch.kernels import pos_conv as pc
 
     x, w_in, b_in, w_out, b_out, ln_g, ln_b, lens, heads, mode, eps = _mha_args(
         dev, max(b, 1), 319, 768, 12, "post", True)
@@ -742,6 +900,7 @@ def _op_cases(dev, b):
     q, k, v, qlens = _qkv(dev, max(b, 1), 12, 849, 849, 64, seed=2, packed=True)
     tq, tk, tv, _ = _qkv(dev, max(b, 1), 8, 77, 77, 64, seed=3, dtype=torch.float32)
     cx, cws = _conv_inputs(dev, max(b, 1), 2100, 512, (3, 3, 2), seed=4)
+    px, pw, pb = _pos_conv_args(dev, max(b, 1), 319, 768, seed=5)
     return {
         "mha_layer_block": ((x, w_in, b_in, w_out, b_out, ln_g, ln_b, lens, heads, mode, eps),
                             mb.mha_layer_block_plain),
@@ -750,17 +909,20 @@ def _op_cases(dev, b):
         "flash_attention": ((q[:b], k[:b], v[:b], qlens[:b], False), fa.flash_attention_plain),
         "flash_attention f32": ((tq[:b], tk[:b], tv[:b], None, True), fa.flash_attention_plain),
         "fused_conv_chain": ((cx[:b], cws, [3, 3, 2]), cf.fused_conv_chain_plain),
+        "pos_conv": ((px[:b], pw, pb), pc.pos_conv_plain),
     }
 
 
 def _counter(name):
     from chip_smoke import _counters
+    from speechclip_tpu_torch.kernels.pos_conv import pos_conv
 
-    return _counters()[name.split()[0]]
+    return {**_counters(), "pos_conv": pos_conv}[name.split()[0]]
 
 
 @pytest.mark.parametrize("name", ["mha_layer_block", "ffn_block", "attention_vmem",
-                                  "flash_attention", "flash_attention f32", "fused_conv_chain"])
+                                  "flash_attention", "flash_attention f32", "fused_conv_chain",
+                                  "pos_conv"])
 def test_zero_rows_return_the_plain_empty_output(cuda, name):
     """B = 0 (a custom op's fake implementation admits it): the op returns
     the plain version's empty output, with no launch and no count (it was
@@ -799,7 +961,8 @@ def test_clip_wrapper_encodes_no_captions_under_pallas(cuda, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["mha_layer_block", "ffn_block", "attention_vmem",
-                                  "flash_attention", "flash_attention f32", "fused_conv_chain"])
+                                  "flash_attention", "flash_attention f32", "fused_conv_chain",
+                                  "pos_conv"])
 def test_each_op_is_bitwise_the_wrappers_kernel(cuda, name):
     """``torch.ops.speechclip.<kernel>`` on the card is the kernel module's
     CUDA implementation, bit for bit, and counts one launch."""
@@ -848,6 +1011,8 @@ def _phase2_rows(dev):
         rows.append((label, name, (q, k, v, lens, causal)))
     x, ws = cs._conv_inputs(gen)
     rows.append(("conv chain", "fused_conv_chain", (x, ws, list(cs.CONV_KERNELS))))
+    for label, (b, t, d) in cs.POS_CONV_SHAPES.items():
+        rows.append((label, "pos_conv", _pos_conv_args(dev, b, t, d, seed=t)))
     return rows
 
 
@@ -979,7 +1144,8 @@ def test_a_speech_artifact_moves_between_the_cpu_and_the_card_only_in_f32(cuda, 
     for source, target in (("cpu", "cuda"), ("cuda", "cpu")):
         if precision == "bf16":
             with pytest.raises(ValueError, match=f"traced on {source} through branches that "
-                                                 r"depend on the device \(models/hubert\.py"):
+                                                 r"depend on the device \(kernels/pos_conv\.py "
+                                                 r"pos_conv_term, models/hubert\.py"):
                 load_exported(blobs[source], device=target)
             continue
         got = load_exported(blobs[source], device=target)(wav.to(target), wav_len.to(target))

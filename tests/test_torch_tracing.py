@@ -182,8 +182,12 @@ def test_profiled_fit_records_each_span_with_its_parent(on_fit, name, parent):
 
 
 def test_profiled_fit_counts_the_staged_bytes(on_fit):
+    """The staged bytes, and beside them only HuBERT's pos_conv route
+    counter: each of its calls, on the plain route on the CPU."""
     _trainer, records, totals, staged, _names = on_fit
-    assert staged and totals["counters"] == {"speechclip.h2d.bytes": sum(staged)}
+    pos_conv_calls = totals["spans"]["speechclip.hubert.pos_conv"]["calls"]
+    assert staged and pos_conv_calls and totals["counters"] == {
+        "speechclip.h2d.bytes": sum(staged), "speechclip.pos_conv.plain": pos_conv_calls}
     assert totals["spans"]["speechclip.fit.h2d"]["calls"] == len(staged)
 
 
