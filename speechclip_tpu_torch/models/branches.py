@@ -31,6 +31,7 @@ from ..ops.transformer import (
     mha_and_norm_apply,
 )
 from ..ops.vq import vq_apply, vq_init
+from ..utils import tracing
 from . import clip as clip_mod
 
 
@@ -153,17 +154,20 @@ def cascaded_branch_apply(
     moves with the batch statistics. ``num_updates`` drives a scheduled VQ
     temperature. ``mesh``: the rows are this rank's shard; kw-BN's
     statistics and the VQ's diagnostics are the global batch's."""
-    keywords, new_state = _pre_vq_keywords(params, state, branch_cfg, audio_feat, audio_len,
-                                           plain, train, generator, mesh)
+    with tracing.span("speechclip.cascaded.head", device=True):
+        keywords, new_state = _pre_vq_keywords(params, state, branch_cfg, audio_feat, audio_len,
+                                               plain, train, generator, mesh)
     table = clip_params["text"]["token_embedding"]
-    vq_results = vq_apply(
-        params["vq"], cosine_scores(keywords, table), temp_spec=branch_cfg.vq_temp,
-        use_gumbel=branch_cfg.use_gumbel, hard=branch_cfg.hard, train=train,
-        generator=generator, num_updates=num_updates,
-        ground_truth_perplexity=branch_cfg.ground_truth_perplexity, mesh=mesh,
-    )
-    keywords = (vq_results["subword_prob"] @ table.float()).to(audio_feat.dtype)
-    feat = clip_mod.encode_keywords(clip_params, clip_cfg, keywords, sot_id, eot_id, plain)
+    with tracing.span("speechclip.cascaded.vq", device=True):
+        vq_results = vq_apply(
+            params["vq"], cosine_scores(keywords, table), temp_spec=branch_cfg.vq_temp,
+            use_gumbel=branch_cfg.use_gumbel, hard=branch_cfg.hard, train=train,
+            generator=generator, num_updates=num_updates,
+            ground_truth_perplexity=branch_cfg.ground_truth_perplexity, mesh=mesh,
+        )
+        keywords = (vq_results["subword_prob"] @ table.float()).to(audio_feat.dtype)
+    with tracing.span("speechclip.cascaded.text", device=True):
+        feat = clip_mod.encode_keywords(clip_params, clip_cfg, keywords, sot_id, eot_id, plain)
     return feat, vq_results, keywords, new_state
 
 

@@ -33,6 +33,7 @@ from ..ops.basic import (
     quick_gelu,
 )
 from ..parallel import tensor as tp
+from ..utils import tracing
 
 
 def _block_init(generator: torch.Generator, width: int, ffn: int) -> Params:
@@ -255,6 +256,7 @@ def encode_keywords(params: Params, cfg: CLIPTextConfig, keywords: torch.Tensor,
     result exactly (held against ``encode_text`` on the full buffer in the
     tests)."""
     b, k, w = keywords.shape
+    tracing.count("speechclip.cascaded.text_rows", b * (k + 2))
     table = params["text"]["token_embedding"]
     sot = table[sot_id].to(keywords.dtype).expand(b, 1, w)
     eot = table[eot_id].to(keywords.dtype).expand(b, 1, w)

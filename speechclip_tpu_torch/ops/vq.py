@@ -24,6 +24,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ..parallel.collectives import all_reduce_sum
+from ..utils import tracing
 from .basic import Params, rand_rows
 
 MASK_VALUE = torch.finfo(torch.float32).min
@@ -95,9 +96,11 @@ def vq_apply(
     shard, the diagnostics the global batch's."""
     num_vars = x.shape[-1]
     x = raw = x.float()
+    tracing.count("speechclip.vq.rows", x.shape[0] * x.shape[1])
     masked = torch.zeros(num_vars, dtype=torch.bool, device=x.device)
     if prob_mask:
-        masked[list(prob_mask)] = True
+        for i in prob_mask:  # a fill each: an index or a value from the host waits for the card
+            masked[i:i + 1].fill_(True)
         x = x.masked_fill(masked, MASK_VALUE)
     result = {"num_vars": num_vars}
     k = x.argmax(dim=-1)  # the first of equal maxima, as jnp.argmax

@@ -215,7 +215,9 @@ def make_train_step(model: SpeechCLIPModel, optimizer: torch.optim.Optimizer,
         if len(own) != len(leaves) or any(a is not b for a, b in zip(own, leaves)):
             raise ValueError("the optimizer does not hold this state's trainable leaves: "
                              "build it over state.params")
-        num_updates = torch.tensor(state.step // accum, device=model.device)
+        # the optimizer's count for a scheduled VQ temperature, kept on the
+        # host: a tensor made from it on the card waits for the card
+        num_updates = torch.tensor(state.step // accum)
         with tracing.span("speechclip.step.forward", device=True):
             loss_feats, log_metrics, _, new_model_state = model.forward(
                 state.params, state.model_state, batch, generator=state.generator, train=True,

@@ -82,6 +82,15 @@ The program's spans (d: device-timed), by module:
   ``speechclip.image.project`` (d, ``forward``: the cached features'
   projection, or the image tower and the projection);
   ``speechclip.encode_speech`` (d).
+- ``models/branches.py`` ``cascaded_branch_apply``, children of
+  ``speechclip.branch.cascaded``: ``speechclip.cascaded.head`` (d, the K
+  CLS rows, the MHA-and-norm, the keyword projection and kw-BN),
+  ``speechclip.cascaded.vq`` (d, ``cosine_scores``, ``vq_apply`` and the
+  product with the token table), ``speechclip.cascaded.text`` (d,
+  ``encode_keywords``). Counters: ``speechclip.vq.rows`` (``ops/vq.py``
+  ``vq_apply``: the B * K keyword rows it scores a call) and
+  ``speechclip.cascaded.text_rows`` (``models/clip.py``
+  ``encode_keywords``: the B * (K + 2) rows the text tower takes a call).
 - ``ops/retrieval.py``: ``speechclip.retrieve`` (d, the scores and the
   top-k).
 

@@ -46,6 +46,9 @@ FIT_SPANS = [
     ("speechclip.image.project", "speechclip.step.forward"),
     ("speechclip.branch.parallel", "speechclip.step.forward"),
     ("speechclip.branch.cascaded", "speechclip.step.forward"),
+    ("speechclip.cascaded.head", "speechclip.branch.cascaded"),
+    ("speechclip.cascaded.vq", "speechclip.branch.cascaded"),
+    ("speechclip.cascaded.text", "speechclip.branch.cascaded"),
     ("speechclip.fit.log", None),
     ("speechclip.fit.validate", None),
     ("speechclip.fit.save", None),
@@ -183,11 +186,17 @@ def test_profiled_fit_records_each_span_with_its_parent(on_fit, name, parent):
 
 def test_profiled_fit_counts_the_staged_bytes(on_fit):
     """The staged bytes, and beside them only HuBERT's pos_conv route
-    counter: each of its calls, on the plain route on the CPU."""
-    _trainer, records, totals, staged, _names = on_fit
+    counter (each of its calls, on the plain route on the CPU) and the
+    cascaded branch's row counters: B * K keyword rows scored and B * (K +
+    2) text-tower rows a call, every batch of the tiny fit (train and dev)
+    holding 8 rows."""
+    trainer, records, totals, staged, _names = on_fit
     pos_conv_calls = totals["spans"]["speechclip.hubert.pos_conv"]["calls"]
-    assert staged and pos_conv_calls and totals["counters"] == {
-        "speechclip.h2d.bytes": sum(staged), "speechclip.pos_conv.plain": pos_conv_calls}
+    rows = 8 * totals["spans"]["speechclip.branch.cascaded"]["calls"]
+    k = trainer.model.keyword_num
+    assert staged and pos_conv_calls and rows and totals["counters"] == {
+        "speechclip.h2d.bytes": sum(staged), "speechclip.pos_conv.plain": pos_conv_calls,
+        "speechclip.vq.rows": rows * k, "speechclip.cascaded.text_rows": rows * (k + 2)}
     assert totals["spans"]["speechclip.fit.h2d"]["calls"] == len(staged)
 
 
@@ -217,6 +226,31 @@ def test_a_second_session_drops_the_first(on_fit):
     assert {("speechclip.hubert.frontend", "speechclip.encode_speech"),
             ("speechclip.branch.parallel", "speechclip.encode_speech"),
             ("speechclip.retrieve", None)} <= parents
+
+
+def test_cascaded_forward_records_its_three_parts_and_rows():
+    """One train-mode cascaded forward (B = 3, K = 4) under a profiler: the
+    head, the VQ and the text tower each once, inside the branch's span,
+    and the row counters B * K and B * (K + 2)."""
+    from speechclip_tpu_torch.config import tiny_flagship_config
+    from speechclip_tpu_torch.models.speechclip import SpeechCLIPModel
+
+    model = SpeechCLIPModel(tiny_flagship_config(), device="cpu")
+    params, state = model.init(0)
+    b, k = 3, model.keyword_num
+    batch = {"wav": torch.randn(b, 2400), "wav_len": torch.tensor([2400, 1800, 1200]),
+             "id": torch.arange(b), "image_feat_frozen": torch.randn(b, 16)}
+    clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        model.forward(params, state, batch, generator=torch.Generator().manual_seed(0),
+                      train=True)
+    totals = tracing.totals()
+    parts = ("speechclip.cascaded.head", "speechclip.cascaded.vq", "speechclip.cascaded.text")
+    assert {(r.name, r.parent) for r in tracing.records() if r.name in parts} == {
+        (n, "speechclip.branch.cascaded") for n in parts}
+    assert all(totals["spans"][n]["calls"] == 1 for n in parts)
+    rows = {n: v for n, v in totals["counters"].items() if ".pos_conv." not in n}
+    assert rows == {"speechclip.vq.rows": b * k, "speechclip.cascaded.text_rows": b * (k + 2)}
 
 
 def test_a_span_left_by_an_exception_is_kept_marked_and_left_out():
